@@ -1,0 +1,180 @@
+"""RVT detector: recurrent backbone + PAFPN + YOLOX head.
+
+Port of ``rvt_tpu/models/detector.py``. ``fused_scan_backbone`` is the
+serving scan over a whole [T, B, ...] window: per stage the downsample
+conv runs batched over all T*B frames (cuDNN, as XLA ran it in the JAX
+package), then ``ops/fused_scan.fused_stage_scan`` runs the attention
+pair and the ConvLSTM on the hand-written kernels. Inter-stage features
+travel as bf16.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rvt_tpu_torch import resolve_device
+from rvt_tpu_torch.config import ModelConfig
+from rvt_tpu_torch.models.backbone import LstmStates, RVTBackbone
+from rvt_tpu_torch.models.yolox import YoloPAFPN, YoloXHead
+from rvt_tpu_torch.ops.fused_attention import attention_block_params
+from rvt_tpu_torch.ops.fused_scan import fused_stage_scan
+from rvt_tpu_torch.ops.s2d import BLOCK, fold_stem_kernel, s2d_input_hw
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return {"float32": torch.float32,
+            "bfloat16": torch.bfloat16}[cfg.compute_dtype]
+
+
+class RVTDetector(nn.Module):
+    """Parameters under upstream names: ``backbone``, ``fpn``,
+    ``yolox_head``."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        bb = cfg.backbone
+        self.backbone = RVTBackbone(bb)
+        in_ch = tuple(bb.stage_dims[s - 1] for s in cfg.fpn.in_stages)
+        strides = tuple(bb.strides[s - 1] for s in cfg.fpn.in_stages)
+        self.fpn = YoloPAFPN(cfg.fpn, in_ch)
+        self.yolox_head = YoloXHead(cfg.head, in_ch, strides)
+
+    def forward_detect(self, features) -> torch.Tensor:
+        """features: NHWC stage maps at strides (8, 16, 32). Returns
+        [B, A, 5+C] f32 (decoded cxcywh + obj/cls logits)."""
+        dtype = compute_dtype(self.cfg)
+        nchw = [f.permute(0, 3, 1, 2) for f in features]  # channels_last
+        return self.yolox_head(self.fpn(nchw, dtype), dtype)
+
+
+def _init_weights(model: RVTDetector, gen: torch.Generator) -> None:
+    """Random weights from ``gen`` with the JAX package's init scheme:
+    lecun-normal (truncated) kernels, zero biases, unit norms, LayerScale
+    at ``ls_init_value``, the head's prior-probability biases kept."""
+    ls = model.cfg.backbone.attention.ls_init_value
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "gamma":
+                p.fill_(ls)
+            elif leaf == "mask_token":
+                p.normal_(0.0, 0.02, generator=gen)
+            elif p.dim() >= 2:
+                std = math.sqrt(1.0 / p[0].numel()) / 0.87962566103423978
+                nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
+                                      generator=gen)
+            elif leaf == "weight":
+                p.fill_(1.0)
+            elif not name.startswith(("yolox_head.cls_preds",
+                                      "yolox_head.obj_preds")):
+                p.zero_()
+
+
+def init_detector(cfg: ModelConfig, seed: int = 0,
+                  device="cuda") -> RVTDetector:
+    """Build the detector with random weights made from ``seed``."""
+    dev = resolve_device(device)
+    model = RVTDetector(cfg)
+    _init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()
+
+
+def model_input_hw_c(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """Spatial + channel shape of one input frame (depends on stem_s2d)."""
+    H, W = cfg.backbone.in_res_hw
+    C = cfg.backbone.input_channels
+    if cfg.backbone.stem_s2d:
+        hp, wp = s2d_input_hw((H, W))
+        return hp, wp, BLOCK * BLOCK * C
+    return H, W, C
+
+
+def downsample_conv_apply(x: torch.Tensor, stage, cfg, is_stem: bool,
+                          dtype=torch.bfloat16) -> torch.Tensor:
+    """The ConvDownsample conv alone on NHWC ``x`` (its LayerNorm runs in
+    the stage kernels): operands in ``dtype``, no bias, NHWC out."""
+    w = stage.downsample_cf2cl.conv.weight.detach()
+    k = w.shape[-1]
+    if is_stem and cfg.stem_s2d:
+        w = fold_stem_kernel(w.permute(2, 3, 1, 0)).permute(3, 2, 0, 1)
+        stride, pad = 1, 0
+    else:
+        stride = cfg.stem_patch_size if is_stem else 2
+        pad = k // 2 if cfg.downsample.overlap else 0
+    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), w.to(dtype), None,
+                 stride, pad)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def downsample_ln_params(stage, cfg, C: int, dtype=torch.bfloat16):
+    """(scale, bias) of the downsample LayerNorm as [C] vectors (identity
+    when the config has no affine norm)."""
+    norm = stage.downsample_cf2cl.norm
+    dev = stage.downsample_cf2cl.conv.weight.device
+    if cfg.downsample.norm_affine:
+        return (norm.weight.detach().to(dtype), norm.bias.detach().to(dtype))
+    return (torch.ones(C, dtype=dtype, device=dev),
+            torch.zeros(C, dtype=dtype, device=dev))
+
+
+def backbone_kernel_params(model: RVTDetector) -> List[Dict]:
+    """Each stage's weights as its kernels take them (bf16, LayerScale
+    folded, [in, out] layouts). The serving step makes them once, when it
+    is made, instead of once per window."""
+    cfg = model.cfg.backbone
+    bf16 = torch.bfloat16
+    out = []
+    with torch.no_grad():
+        for stage, C in zip(model.backbone.stages, cfg.stage_dims):
+            lstm = stage.lstm.conv1x1
+            blk = stage.att_blocks[0]
+            out.append(dict(
+                params_window=attention_block_params(blk.att_window, True),
+                params_grid=attention_block_params(blk.att_grid, False),
+                lstm_w=lstm.weight[:, :, 0, 0].t().to(bf16).contiguous(),
+                lstm_b=lstm.bias.to(bf16),
+                ds_ln_params=downsample_ln_params(stage, cfg, C)))
+    return out
+
+
+def fused_scan_backbone(model: RVTDetector, ev_seq: torch.Tensor,
+                        init_states: LstmStates, params: List[Dict], *,
+                        plain: bool = False
+                        ) -> Tuple[Tuple[torch.Tensor, ...], LstmStates]:
+    """Serving scan over a [T, B, H, W, C] window (uint8 or float input).
+
+    Per stage: the downsample conv over all T*B frames, then
+    ``fused_stage_scan`` (LN, attention pair and LSTM on the kernels) with
+    the stage's ``params`` from ``backbone_kernel_params``. ``plain=True``
+    runs the kernels' plain versions instead, on any device. Returns
+    (features per ``cfg.fpn.in_stages``, each [T, B, h, w, c] bf16; final
+    (h, c) f32 per stage)."""
+    cfg = model.cfg.backbone
+    if model.cfg.compute_dtype != "bfloat16" or any(
+            n != 1 for n in cfg.num_blocks):
+        raise NotImplementedError(
+            "the serving scan runs bf16 compute with one block per stage")
+    att = cfg.attention
+    T, B = ev_seq.shape[:2]
+    x = ev_seq.reshape((T * B,) + tuple(ev_seq.shape[2:]))
+    feats: Dict[int, torch.Tensor] = {}
+    states_out = []
+    for idx, stage in enumerate(model.backbone.stages):
+        x = downsample_conv_apply(x, stage, cfg, idx == 0, torch.bfloat16)
+        h_dim, w_dim, C = x.shape[1:]
+        h0, c0 = init_states[idx]
+        h_seq, hT, cT = fused_stage_scan(
+            x.view(T, B, h_dim, w_dim, C), h0=h0, c0=c0,
+            heads=C // att.dim_head, dim_head=att.dim_head,
+            part=tuple(att.partition_size), eps=att.norm_eps,
+            ds_eps=cfg.downsample.norm_eps, plain=plain, **params[idx])
+        states_out.append((hT, cT))
+        feats[idx + 1] = h_seq
+        x = h_seq.view(T * B, h_dim, w_dim, C)
+    in_stages = model.cfg.fpn.in_stages
+    return tuple(feats[s] for s in in_stages), tuple(states_out)

@@ -1,0 +1,162 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface and loaded with ``ctypes``. Nothing is built at
+import: the first launch of a kernel builds its library, or
+``build_all()`` builds every one, one ``nvcc`` process per source, all
+started together. Libraries go to ``build/kernels/`` at the repository
+root (listed in ``.gitignore``), named by the hash of the source and its
+headers, so an unchanged source is not rebuilt.
+
+Every exported C function returns ``cudaGetLastError()`` after its
+launch; ``check`` raises on a nonzero value.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("ln_rows", "gemm_bf16", "partition_attention", "lstm_scan")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# The exported launcher of each source and its C signature (argtypes);
+# each returns an int, cudaGetLastError() after the launch.
+SIGNATURES = {
+    "ln_rows": ("rvt_ln_rows", (_P, _I, _P, _P, _P, _P, _I, _I, _F, _P)),
+    "gemm_bf16": ("rvt_gemm_bf16", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "partition_attention": ("rvt_partition_attention",
+                            (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                             _P)),
+    "lstm_scan": ("rvt_lstm_scan", (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _P)),
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    cand = [os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"]
+    for root in cand:
+        p = Path(root) / "bin" / "nvcc"
+        if root and p.exists():
+            return str(p)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a machine with the CUDA toolkit")
+    return found
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def _start(name: str):
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    BUILD_LOGS[name] = log
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all() -> None:
+    """Compile every source that is not built yet, one nvcc each, all
+    running at once; raises if any build fails."""
+    jobs = {n: _start(n) for n in SOURCES}
+    errors = []
+    for n in SOURCES:
+        try:
+            _finish(n, jobs[n])
+        except RuntimeError as e:  # collect, then raise once all have ended
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    if name not in _LIBS:
+        _finish(name, _start(name))
+        cdll = ctypes.CDLL(str(_lib_path(name)))
+        fn, argtypes = SIGNATURES[name]
+        f = getattr(cdll, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+        _LIBS[name] = cdll
+    return _LIBS[name]
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def need(cond: bool, what: str) -> None:
+    """Raise ValueError(what) unless ``cond``: the wrappers' operand checks."""
+    if not cond:
+        raise ValueError(what)
+
+
+def check_operands(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        need(t.is_cuda and t.is_contiguous() and t.data_ptr() % 16 == 0,
+             f"{name}: every operand must be a contiguous, 16-byte aligned "
+             f"CUDA tensor (got {t.device}, {tuple(t.shape)})")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {what} failed: error {err}")
+
+
+class Counter:
+    """Launch count of one kernel: each wrapper adds one where it launches
+    its kernel and nowhere else."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+    def reset(self) -> None:
+        self.launches = 0

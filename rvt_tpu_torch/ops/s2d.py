@@ -1,0 +1,51 @@
+"""Space-to-depth input blocking for the stem convolution (copy of
+``rvt_tpu/ops/s2d.py``).
+
+The 7x7 stride-4 stem over 20 channels is re-expressed as a 2x2 stride-1
+conv over 4x4-space-to-depth-blocked input (contraction depth 16*C). The
+blocking runs on the host as a uint8 re-layout; the model folds its
+stored 7x7 kernel into the equivalent 2x2 kernel (exact).
+
+Derivation: output(i,j) = sum_{u,v} x[4i+u-3, 4j+v-3] w[u,v]. With block
+index p = floor(r/4), offset a = r mod 4 (r = input row), the taps regroup
+as w2[t, a] = w7[4t + a - 1] for t in {0, 1} (the single out-of-range tap
+(t=0, a=0) is zero). Input is padded by one 4-block on top/left.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+BLOCK = 4  # stem patch size
+
+
+def host_space_to_depth(ev: np.ndarray, target_hw: Tuple[int, int]) -> np.ndarray:
+    """[..., H, W, C] uint8 -> [..., H'/4 + 1, W'/4 + 1, 16*C] where H', W'
+    = target_hw (corner-padded model resolution). Host-side numpy."""
+    *lead, H, W, C = ev.shape
+    th, tw = target_hw
+    assert th % BLOCK == 0 and tw % BLOCK == 0
+    pad = [(0, 0)] * len(lead) + [(BLOCK, th - H), (BLOCK, tw - W), (0, 0)]
+    x = np.pad(ev, pad)
+    Hp, Wp = (th + BLOCK) // BLOCK, (tw + BLOCK) // BLOCK
+    x = x.reshape(*lead, Hp, BLOCK, Wp, BLOCK, C)
+    x = np.moveaxis(x, -4, -3)  # [..., Hp, Wp, BLOCK, BLOCK, C]
+    return np.ascontiguousarray(x.reshape(*lead, Hp, Wp, BLOCK * BLOCK * C))
+
+
+def fold_stem_kernel(w7: torch.Tensor) -> torch.Tensor:
+    """[7, 7, C, D] (HWIO) stem kernel -> [2, 2, 16*C, D] blocked kernel.
+
+    Channel order matches host_space_to_depth: (row-offset a, col-offset b,
+    C). Pure reshape/permute of a zero-padded copy."""
+    C, D = w7.shape[2], w7.shape[3]
+    wp = torch.nn.functional.pad(w7, (0, 0, 0, 0, 1, 0, 1, 0))  # [8, 8, C, D]
+    wk = wp.reshape(2, BLOCK, 2, BLOCK, C, D)  # [t, a, s, b, C, D]
+    wk = wk.permute(0, 2, 1, 3, 4, 5)          # [t, s, a, b, C, D]
+    return wk.reshape(2, 2, BLOCK * BLOCK * C, D)
+
+
+def s2d_input_hw(target_hw: Tuple[int, int]) -> Tuple[int, int]:
+    return (target_hw[0] + BLOCK) // BLOCK, (target_hw[1] + BLOCK) // BLOCK

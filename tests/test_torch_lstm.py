@@ -1,0 +1,65 @@
+"""The port's ConvLSTM scan (kernel K4's plain version, on the CPU) against
+the JAX package's Pallas LSTM kernels in interpret mode."""
+import numpy as np
+
+import jax.numpy as jnp
+import torch
+
+from rvt_tpu.ops.fused_lstm import fused_conv_lstm as j_conv_lstm
+from rvt_tpu.ops.fused_scan import fused_lstm_scan as j_lstm_scan
+from rvt_tpu_torch.ops.fused_scan import (fused_conv_lstm, fused_lstm_scan,
+                                          lstm_scan_plain)
+
+T, B, H, W, C = 3, 2, 16, 20, 64
+
+
+def _inputs():
+    rng = np.random.RandomState(0)
+    x = (rng.randn(T, B, H, W, C) * 0.5).astype(np.float32)
+    lw = (rng.randn(2 * C, 4 * C) * 0.05).astype(np.float32)
+    lb = (rng.randn(4 * C) * 0.05).astype(np.float32)
+    h0 = (rng.randn(B, H, W, C) * 0.1).astype(np.float32)  # nonzero carry
+    c0 = (rng.randn(B, H, W, C) * 0.1).astype(np.float32)
+    return x, lw, lb, h0, c0
+
+
+def test_lstm_scan_matches_jax():
+    x, lw, lb, h0, c0 = _inputs()
+    bf = jnp.bfloat16
+    ref = j_lstm_scan(jnp.asarray(x, bf), jnp.asarray(lw, bf),
+                      jnp.asarray(lb, bf).reshape(1, -1), jnp.asarray(h0),
+                      jnp.asarray(c0), interpret=True)
+    t = torch.from_numpy
+    got = fused_lstm_scan(t(x).bfloat16(), t(lw).bfloat16(), t(lb).bfloat16(),
+                          t(h0), t(c0))
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == (T, B, H, W, C)
+    np.testing.assert_allclose(got[0].float().numpy(),
+                               np.asarray(ref[0], np.float32), atol=2e-2)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]), atol=2e-2)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), atol=4e-2)
+
+
+def test_conv_lstm_matches_jax():
+    """T = 1: the per-step cell of ops/fused_lstm.py, from f32 input."""
+    x, lw, lb, h0, c0 = _inputs()
+    bf = jnp.bfloat16
+    hr, cr = j_conv_lstm(jnp.asarray(x[0]), jnp.asarray(h0), jnp.asarray(c0),
+                         jnp.asarray(lw, bf),
+                         jnp.asarray(lb, bf).reshape(1, -1), interpret=True)
+    t = torch.from_numpy
+    hg, cg = fused_conv_lstm(t(x[0]), t(h0), t(c0), t(lw).bfloat16(),
+                             t(lb).bfloat16())
+    np.testing.assert_allclose(hg.numpy(), np.asarray(hr), atol=2e-2)
+    np.testing.assert_allclose(cg.numpy(), np.asarray(cr), atol=4e-2)
+
+
+def test_lstm_scan_plain_is_the_step_cell():
+    """The plain scan equals T applications of the T = 1 cell."""
+    x, lw, lb, h0, c0 = [torch.from_numpy(a) for a in _inputs()]
+    w, b = lw.bfloat16(), lb.bfloat16()
+    h_seq, hT, cT = lstm_scan_plain(x, w, b, h0, c0)
+    h, c = h0, c0
+    for step in range(T):
+        h, c = fused_conv_lstm(x[step], h, c, w, b)
+        assert torch.equal(h_seq[step], h.bfloat16())
+    assert torch.equal(hT, h) and torch.equal(cT, c)

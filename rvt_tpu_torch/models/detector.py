@@ -5,7 +5,9 @@ serving scan over a whole [T, B, ...] window: per stage the downsample
 conv runs batched over all T*B frames (cuDNN, as XLA ran it in the JAX
 package), then ``ops/fused_scan.fused_stage_scan`` runs the attention
 pair and the ConvLSTM on the hand-written kernels. Inter-stage features
-travel as bf16.
+travel as bf16. ``RVTDetector.forward`` is one time step (the JAX
+module's ``__call__``): the same scan over a window of one frame, each
+stage then being ``ops/fused_scan.fused_stage``.
 """
 from __future__ import annotations
 
@@ -43,6 +45,31 @@ class RVTDetector(nn.Module):
         strides = tuple(bb.strides[s - 1] for s in cfg.fpn.in_stages)
         self.fpn = YoloPAFPN(cfg.fpn, in_ch)
         self.yolox_head = YoloXHead(cfg.head, in_ch, strides)
+
+    def forward_backbone(self, x: torch.Tensor, prev_states: LstmStates,
+                         params: List[Dict], *, plain: bool = False
+                         ) -> Tuple[Dict[int, torch.Tensor], LstmStates]:
+        """One time step of the backbone: x [B, H, W, C_in] (uint8 or
+        float, padded to ``in_res_hw``), prev_states per stage. Each stage
+        is the downsample conv, then ``ops/fused_scan.fused_stage`` (the
+        downsample LN and the attention pair over the B frames, K1-K3;
+        the ConvLSTM cell, K4 at T = 1): ``fused_scan_backbone`` over a
+        window of one frame. ``params`` from ``backbone_kernel_params``.
+        Returns ({stage: h_t f32}, new states)."""
+        _, states = fused_scan_backbone(self, x.unsqueeze(0), prev_states,
+                                        params, plain=plain)
+        return {i + 1: h for i, (h, _) in enumerate(states)}, states
+
+    def forward(self, x: torch.Tensor, prev_states: LstmStates,
+                params: List[Dict], *, plain: bool = False
+                ) -> Tuple[torch.Tensor, LstmStates]:
+        """Single-step full forward (the JAX module's ``__call__``):
+        returns (preds [B, A, 5+C] f32, new states)."""
+        feats, states = self.forward_backbone(x, prev_states, params,
+                                              plain=plain)
+        preds = self.forward_detect([feats[s]
+                                     for s in self.cfg.fpn.in_stages])
+        return preds, states
 
     def forward_detect(self, features) -> torch.Tensor:
         """features: NHWC stage maps at strides (8, 16, 32). Returns

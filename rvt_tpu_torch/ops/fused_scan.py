@@ -116,6 +116,26 @@ def fused_stage_scan(x_seq: torch.Tensor,
                            plain=plain)
 
 
+def fused_stage(x: torch.Tensor, params_window: Dict[str, torch.Tensor],
+                params_grid: Dict[str, torch.Tensor], lstm_w: torch.Tensor,
+                lstm_b: torch.Tensor, h: torch.Tensor, c: torch.Tensor, *,
+                heads: int, dim_head: int, part: Tuple[int, int], eps: float,
+                ds_ln_params: Sequence[torch.Tensor] = (),
+                ds_eps: float = 1e-5, plain: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One backbone stage for one time step
+    (``rvt_tpu/ops/fused_attention.py:fused_stage``): the attention pair
+    over the B frames x [B, H, W, C] (K1-K3), then the ConvLSTM cell (K4 at
+    T = 1) from (h, c) f32. x is bf16 and layer-normed, or the raw
+    downsample-conv output with ``ds_ln_params``, as in
+    ``fused_stage_scan``. Returns (h_t, c_t) f32."""
+    _, h_t, c_t = fused_stage_scan(
+        x.unsqueeze(0), params_window, params_grid, lstm_w, lstm_b, h, c,
+        heads=heads, dim_head=dim_head, part=part, eps=eps,
+        ds_ln_params=ds_ln_params, ds_eps=ds_eps, plain=plain)
+    return h_t, c_t
+
+
 # The JAX package's 'split' serving mode (pair over T*B frames, then the
 # LSTM scan) is the only composition on Hopper.
 split_stage_scan = fused_stage_scan

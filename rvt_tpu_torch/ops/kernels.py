@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("ln_rows", "gemm_bf16", "partition_attention", "lstm_scan")
+SOURCES = ("ln_rows", "gemm_bf16", "partition_attention", "lstm_scan",
+           "stacked_histogram")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +43,9 @@ SIGNATURES = {
                              _P)),
     "lstm_scan": ("rvt_lstm_scan", (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                     _I, _I, _I, _P)),
+    "stacked_histogram": ("rvt_stacked_histogram",
+                          (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _P)),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

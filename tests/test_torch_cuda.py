@@ -80,3 +80,39 @@ def test_lstm_scan_kernel(dev, C, xdtype):
     for g, r in zip(got, ref):
         _close(g, r, atol=2e-2, rtol=2e-2)
 
+
+
+@pytest.mark.parametrize("case", ["uniform", "clustered", "dropped",
+                                  "bin_edges"])
+def test_stacked_histogram_kernel(dev, case):
+    """Integer counts: the kernel equals its plain version exactly,
+    whatever order its atomics ran in."""
+    from rvt_tpu_torch.ops import voxelization as vx
+
+    B, N, bins, H, W = 3, 5000, 10, 30, 37  # 3*2*10*30*37 % 16 = 8: tail
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (B, N), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    x, y, p = ints(0, W), ints(0, H), ints(0, 2)
+    t = torch.sort(ints(0, 50_000), dim=1).values
+    counts = torch.tensor([N, N - 17, 0], dtype=torch.int32, device=dev)
+    if case == "clustered":
+        x[0], y[0] = 7, 11
+    elif case == "dropped":
+        x[1, ::7], y[1, 1::7], p[1, 2::7] = W, -1, 2
+        x[0, ::5] = -3
+    elif case == "bin_edges":  # spans where inexact f32 math moves a bin
+        spans = torch.tensor([25, 50, 100], device=dev)
+        t = (torch.minimum(torch.arange(N, device=dev)[None], spans[:, None])
+             + 1000).to(torch.int32)
+        counts = (spans + 1).to(torch.int32)
+    n = vx.STACKED_HISTOGRAM.launches
+    got = vx.stacked_histogram_batched(x, y, p, t, counts, bins, H, W)
+    assert vx.STACKED_HISTOGRAM.launches == n + 1
+    ref = vx.stacked_histogram_plain(x, y, p, t, counts, bins, H, W)
+    assert got.dtype == torch.uint8 and torch.equal(got, ref)
+    if case == "clustered":
+        assert int(got[0].max()) == 255

@@ -11,6 +11,7 @@ import torch
 from rvt_tpu_torch.ops import fused_attention as fa
 from rvt_tpu_torch.ops import fused_scan as fs
 from rvt_tpu_torch.ops import kernels
+from rvt_tpu_torch.ops import voxelization as vx
 
 
 class _FakeLib:
@@ -45,7 +46,7 @@ class _FakeLib:
 def fake_cuda(monkeypatch):
     monkeypatch.setattr(kernels, "lib", _FakeLib)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    for mod in (fa, fs):
+    for mod in (fa, fs, vx):
         monkeypatch.setattr(mod, "stream_ptr", lambda t: 0)
     _FakeLib.calls = []
     return _FakeLib.calls
@@ -57,7 +58,7 @@ def _bf(*shape):
 
 def test_wrappers_launch_once_and_count(fake_cuda):
     counters = (fa.LN_ROWS, fa.GEMM_BF16, fa.PARTITION_ATTENTION,
-                fs.LSTM_SCAN)
+                fs.LSTM_SCAN, vx.STACKED_HISTOGRAM)
     before = [c.launches for c in counters]
     y, yf = fa.ln_rows(torch.randn(40, 64), _bf(64), _bf(64), 1e-5,
                        with_f32=True)
@@ -75,9 +76,14 @@ def test_wrappers_launch_once_and_count(fake_cuda):
         torch.randn(3, 2, 4, 5, 64), _bf(128, 256), _bf(256),
         torch.zeros(2, 4, 5, 64), torch.zeros(2, 4, 5, 64))
     assert h_seq.dtype == torch.bfloat16 and hT.shape == (2, 4, 5, 64)
+    ev = [torch.zeros(2, 100, dtype=torch.int32) for _ in range(4)]
+    hist = vx.stacked_histogram_batched(
+        *ev, torch.full((2,), 90, dtype=torch.int32), 10, 24, 32)
+    assert hist.dtype == torch.uint8 and hist.shape == (2, 20, 24, 32)
     assert fake_cuda == ["rvt_ln_rows"] + ["rvt_gemm_bf16"] * 3 + [
-        "rvt_partition_attention", "rvt_lstm_scan"]
-    assert [c.launches - b for c, b in zip(counters, before)] == [1, 3, 1, 1]
+        "rvt_partition_attention", "rvt_lstm_scan", "rvt_stacked_histogram"]
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 3, 1, 1,
+                                                                  1]
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(fake_cuda):
@@ -90,4 +96,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(fake_cuda):
         fs.fused_lstm_scan(torch.randn(3, 2, 4, 5, 96), _bf(192, 384),
                            _bf(384), torch.zeros(2, 4, 5, 96),
                            torch.zeros(2, 4, 5, 96))
+    ev = [torch.zeros(2, 100, dtype=torch.int32) for _ in range(3)]
+    t64 = torch.zeros(2, 100, dtype=torch.long)
+    with pytest.raises(ValueError):  # int64 t
+        vx.stacked_histogram_batched(*ev, t64,
+                                     torch.full((2,), 90, dtype=torch.int32),
+                                     10, 24, 32)
+    with pytest.raises(ValueError):  # a cutoff that uint8 cannot hold
+        vx.stacked_histogram_batched(*ev, ev[0],
+                                     torch.full((2,), 90, dtype=torch.int32),
+                                     10, 24, 32, count_cutoff=300)
     assert fake_cuda == []

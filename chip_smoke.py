@@ -6,8 +6,8 @@
 Phases, each of which raises (exit code != 0) when it fails:
 
   1. report the card (name and power limit, from nvidia-smi);
-  2. build the five CUDA kernels from rvt_tpu_torch/csrc (one nvcc per
-     source, in parallel) and print the build time;
+  2. build the CUDA kernels from rvt_tpu_torch/csrc (one nvcc per source,
+     all in parallel) and print the build time;
   3. hold each kernel against its plain PyTorch version on the card, at
      every gen1 RVT-B stage shape (T*B = 168 frames): ln_rows on bf16 and
      f32 rows, gemm_bf16 with each epilogue at the qkv/proj/fc1/fc2
@@ -33,7 +33,27 @@ Phases, each of which raises (exit code != 0) when it fails:
      versions (identical histogram); time each stage's ``fused_stage``
      against its plain version; print frames/s, ms per batch-frame, MFU
      and the idle share of one profiled call;
-  6. print the kernels line, then the device line last.
+  6. hold each training kernel against its plain version at every gen1
+     RVT-B stage shape (T*B = 168 frames), forward and backward: K2's
+     train epilogues, K4 with c_seq, K5 ln_rows_bwd, K6 gemm_bf16_wgrad,
+     K7 partition_attention_bwd, K8 lstm_scan_bwd and train_reduce (its
+     in-order sums timed at every shape of partials the step gives it);
+     time each (kernel, plain, library yardstick) beside its bound and
+     its calls per train step; K1 and K3 count again for the train step;
+  7. run the port's RVT-B gen1 TBPTT train step (bf16, no s2d stem, B = 8,
+     T = 21, K = 6, M = 48, labels on every 5th frame, random weights from
+     seed 0) for 1 + 5 steps with the states carried; check that every
+     kernel of the path was launched; print ms per step, frames/s, train
+     MFU and peak memory; profile one step; hold one step against the
+     same step on the plain versions from identical model, BatchNorm
+     buffers, optimizer and states, the kernel step's head fed the plain
+     step's features with the kernel backbone's gradient (features, loss
+     parts, each gradient leaf, grad_norm, final states, buffers);
+  8. check that the calls each kernel was timed at per step are the
+     launches its paths made per step; print the kernels line (per
+     kernel: launches by path, and ms, plain, bound and library summed
+     over one step of each path it serves, and by path), then the device
+     line last.
 
 It imports nothing of JAX. It exits 2 without a CUDA device or without
 the rvt_tpu_torch package beside it.
@@ -51,6 +71,7 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 BATCH, SEQ_LEN, LABEL_EVERY, WINDOWS = 8, 21, 5, 4
+TRAIN_STEPS = 5
 EVENTS, RAW_FRAMES, RAW_CALLS = 32768, 4, 21
 STAGES = ((64, 80, 64), (32, 40, 128), (16, 20, 256), (8, 10, 512))
 PART, DIM_HEAD = (8, 10), 32
@@ -80,38 +101,55 @@ def time_ms(fn, iters: int = 5) -> float:
 
 
 class Record:
-    """One kernel's entry of the kernels line: sums over its launches in
-    one step of the path it serves (count x per-launch time), the
-    largest error seen."""
+    """One kernel's entry of the kernels line. For each path it serves
+    (eval step, raw step, train step) it sums count x per-launch time over
+    one step's calls; ``ms``, ``plain_ms``, ``bound_ms`` and
+    ``library_ms`` add the paths, ``by_path`` keeps them apart."""
 
-    def __init__(self, name, source, replaces, per="eval step"):
-        self.per = per
+    def __init__(self, name, source, replaces):
         self.d = dict(name=name, route="cuda", source=source,
                       replaces=replaces, launches=0, max_abs_err=0.0,
                       ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None,
-                      library_ms=None)
-        self.bytes_ms = 0.0
-        self.ops_ms = 0.0
+                      library_ms=None, by_path={})
+        self.paths = {}
 
-    def add(self, count, err, ms, plain_ms, nbytes, ops, peak, lib_ms):
+    def add(self, path, count, err, ms, plain_ms, nbytes, ops, peak, lib_ms,
+            launches_per_call=1):
+        """``count`` calls per ``path`` step of a function timed at ``ms``
+        per call, which launches the kernel ``launches_per_call`` times."""
         d = self.d
         d["max_abs_err"] = max(d["max_abs_err"], err)
         b_ms, o_ms = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
-        log(f"    per launch: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        log(f"    per call: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {lib} ms, bound {max(b_ms, o_ms):.4f} ms "
             f"({'bytes' if b_ms >= o_ms else 'operations'}); "
-            f"{count} per {self.per}")
+            f"{count} per {path}")
         if count == 0:
             return
-        d["ms"] += count * ms
-        d["plain_ms"] += count * plain_ms
-        self.bytes_ms += count * nbytes / PEAK_BYTES * 1e3
-        self.ops_ms += count * ops / peak * 1e3
-        d["bound_ms"] = max(self.bytes_ms, self.ops_ms)
-        d["bound_by"] = "bytes" if self.bytes_ms >= self.ops_ms else "operations"
+        q = self.paths.setdefault(path, dict(
+            launches=0, ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+            library_ms=None))
+        q["launches"] += count * launches_per_call
+        q["ms"] += count * ms
+        q["plain_ms"] += count * plain_ms
+        q["bytes_ms"] += count * b_ms
+        q["ops_ms"] += count * o_ms
         if lib_ms is not None:
-            d["library_ms"] = (d["library_ms"] or 0.0) + count * lib_ms
+            q["library_ms"] = (q["library_ms"] or 0.0) + count * lib_ms
+        qs = self.paths.values()
+        for k in ("ms", "plain_ms"):
+            d[k] = sum(q[k] for q in qs)
+        d["bound_ms"] = sum(max(q["bytes_ms"], q["ops_ms"]) for q in qs)
+        d["bound_by"] = ("bytes" if sum(q["bytes_ms"] for q in qs)
+                         >= sum(q["ops_ms"] for q in qs) else "operations")
+        libs = [q["library_ms"] for q in qs if q["library_ms"] is not None]
+        d["library_ms"] = sum(libs) if libs else None
+        d["by_path"] = {p: dict(launches=q["launches"], ms=q["ms"],
+                                plain_ms=q["plain_ms"],
+                                bound_ms=max(q["bytes_ms"], q["ops_ms"]),
+                                library_ms=q["library_ms"])
+                        for p, q in self.paths.items()}
 
 
 def compare(name, got, ref, atol, rtol, mean_tol=1e-3):
@@ -166,7 +204,8 @@ def check_kernels():
         M = n_frames * H * W
         log(f"stage {H}x{W}x{C}: {n_frames} frames, {M} rows")
         s, b = randn(C, scale=0.2) + 1.0, randn(C, scale=0.2)
-        # K1: the ds-LN reads the bf16 conv output, LN1/LN2 the f32 residual
+        # K1: the ds-LN reads the bf16 conv output, LN1/LN2 the f32
+        # residual; the train step runs each twice (forward, recompute)
         for dtype, count in ((torch.bfloat16, 1), (torch.float32, 3)):
             x = randn(M, C, scale=2.0, dtype=dtype) + 0.5
             y = fa.ln_rows(x, s, b, 1e-5)
@@ -176,9 +215,10 @@ def check_kernels():
             pms = time_ms(lambda: fa.ln_rows_plain(x, s, b, 1e-5))
             sw, bw = s.to(dtype), b.to(dtype)
             lms = time_ms(lambda: F.layer_norm(x, (C,), sw, bw, 1e-5))
-            recs["ln_rows"].add(count, err, ms, pms,
-                                M * C * (x.element_size() + 2) + 4 * C,
-                                8 * M * C, PEAK_F32_FLOPS, lms)
+            for path, n in (("eval step", count), ("train step", 2 * count)):
+                recs["ln_rows"].add(path, n, err, ms, pms,
+                                    M * C * (x.element_size() + 2) + 4 * C,
+                                    8 * M * C, PEAK_F32_FLOPS, lms)
         # K2: every product of the two sub-blocks
         for label, K, N, epi in (("qkv", C, 3 * C, "bias"),
                                  ("proj", C, C, "residual"),
@@ -188,18 +228,19 @@ def check_kernels():
             w = randn(K, N, scale=K ** -0.5)
             bias = randn(N, scale=0.1)
             R0 = randn(M, N, dtype=torch.float32) if epi == "residual" else None
-            got = fa.gemm_bf16(a, w, bias, epi,
-                               R0.clone() if R0 is not None else None)
-            ref = fa.gemm_bf16_plain(a, w, bias, epi,
-                                     R0.clone() if R0 is not None else None)
+            got = fa.gemm_bf16(a, w, epi, bias=bias,
+                               out=R0.clone() if R0 is not None else None)
+            ref = fa.gemm_bf16(a, w, epi, bias=bias, plain=True,
+                               out=R0.clone() if R0 is not None else None)
             err = compare(f"gemm_bf16[{label} {epi}]", got, ref, 3.2e-2,
                           1e-2)
             R1 = R0.clone() if R0 is not None else None
-            ms = time_ms(lambda: fa.gemm_bf16(a, w, bias, epi, R1))
-            pms = time_ms(lambda: fa.gemm_bf16_plain(a, w, bias, epi, R1))
+            ms = time_ms(lambda: fa.gemm_bf16(a, w, epi, bias=bias, out=R1))
+            pms = time_ms(lambda: fa.gemm_bf16(a, w, epi, bias=bias, out=R1,
+                                               plain=True))
             lms = time_ms(lambda: torch.matmul(a, w))
             out_bytes = M * N * (8 if epi == "residual" else 2)
-            recs["gemm_bf16"].add(2, err, ms, pms,
+            recs["gemm_bf16"].add("eval step", 2, err, ms, pms,
                                   2 * (M * K + K * N + N) + out_bytes,
                                   2 * M * N * K, PEAK_BF16_FLOPS, lms)
         # K3: window and grid attention
@@ -223,10 +264,12 @@ def check_kernels():
                                    generator=g, device=dev,
                                    dtype=torch.bfloat16) for _ in range(3)]
             lms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-            recs["partition_attention"].add(
-                1, err, ms, pms, M * 4 * C * 2,
-                4 * n_frames * parts * heads * n_tok * n_tok * DIM_HEAD,
-                PEAK_BF16_FLOPS, lms)
+            # the train step: the forward and the backward's recompute
+            for path, n in (("eval step", 1), ("train step", 2)):
+                recs["partition_attention"].add(
+                    path, n, err, ms, pms, M * 4 * C * 2,
+                    4 * n_frames * parts * heads * n_tok * n_tok * DIM_HEAD,
+                    PEAK_BF16_FLOPS, lms)
         # K4: the window scan on the f32 residual (main path) and T = 1
         w = randn(2 * C, 4 * C, scale=(2 * C) ** -0.5)
         bias = randn(4 * C, scale=0.1)
@@ -251,8 +294,9 @@ def check_kernels():
             P = B * H * W
             nbytes = (steps * P * C * (x.element_size() + 2)
                       + 2 * (8 * C * C + 4 * C) + 4 * P * C * 4)
-            recs["lstm_scan"].add(1 if steps == T else 0, err, ms, pms,
-                                  nbytes, 2 * steps * P * 2 * C * 4 * C,
+            recs["lstm_scan"].add("eval step", 1 if steps == T else 0, err,
+                                  ms, pms, nbytes,
+                                  2 * steps * P * 2 * C * 4 * C,
                                   PEAK_BF16_FLOPS, None)
         torch.cuda.empty_cache()
     return recs
@@ -363,7 +407,7 @@ def check_voxelizer():
 
     rec = Record("stacked_histogram",
                  "rvt_tpu_torch/csrc/stacked_histogram.cu",
-                 "rvt_tpu/ops/voxelization.py:127", per="raw step")
+                 "rvt_tpu/ops/voxelization.py:127")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
     B, N, bins = BATCH, EVENTS, 10
@@ -430,7 +474,7 @@ def check_voxelizer():
     n_valid = int(torch.clamp(ev[4], 0, N).sum())
     # each kept event's x, y, p, t read once, counts read, uint8 out;
     # ~10 operations per event for its bin, one per output bin to narrow
-    rec.add(1, err, ms, pms, 16 * n_valid + 4 * B + B * plane,
+    rec.add("raw step", 1, err, ms, pms, 16 * n_valid + 4 * B + B * plane,
             10 * n_valid + B * plane, PEAK_F32_FLOPS, lms)
     return rec
 
@@ -623,6 +667,537 @@ def time_fused_stage(cfg, params):
         f"plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
 
 
+def compare_rel(name, got, ref, tol):
+    """max |got - ref| <= tol * max |ref|: for sums over many rows, whose
+    order differs between the kernel and the plain version. Returns the
+    max abs err."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    scale = max(float(r.abs().max()), 1e-12)
+    err = float((g - r).abs().max())
+    log(f"  {name}: max|err| {err:.3e} (tolerance {tol:g}*max|ref| = "
+        f"{tol * scale:.3e})")
+    if not bool(torch.isfinite(g).all()) or err > tol * scale:
+        fail(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+class first_pass_only:
+    """Within it the training wrappers skip the in-order sum of their
+    partials (``sum_parts`` gives partial 0 back): so K2's gelu backward,
+    K5 and K6 are timed without the ``train_reduce`` launch that follows
+    each, which is timed on its own at the same partials."""
+
+    def __enter__(self):
+        from rvt_tpu_torch.ops import fused_attention as fa
+        self.fa, self.saved = fa, fa.sum_parts
+        fa.sum_parts = lambda part, **_: part[0]
+
+    def __exit__(self, *exc):
+        self.fa.sum_parts = self.saved
+
+
+def check_train_kernels(recs):
+    """Phase 6: the training kernels at the train step's shapes (the pair
+    over T*B frames, the LSTM over B lanes and T steps), added to ``recs``
+    (new entries for the new kernels) with their calls per train step."""
+    import torch
+    import torch.nn.functional as F
+
+    from rvt_tpu_torch.ops import fused_attention as fa
+    from rvt_tpu_torch.ops import fused_scan as fs
+    from rvt_tpu_torch.ops.kernels import sm_count
+
+    def rec(name, src, replaces):
+        return Record(name, f"rvt_tpu_torch/csrc/{src}",
+                      f"rvt_tpu/ops/fused_train.py:{replaces}")
+
+    recs.update({
+        "ln_rows_bwd": rec("ln_rows_bwd", "ln_rows_bwd.cu", 127),
+        "gemm_bf16_wgrad": rec("gemm_bf16_wgrad", "gemm_bf16_wgrad.cu", 158),
+        "partition_attention_bwd": rec("partition_attention_bwd",
+                                       "partition_attention_bwd.cu", 234),
+        "lstm_scan_bwd": rec("lstm_scan_bwd", "lstm_scan_bwd.cu", 1479),
+        "train_reduce": rec("train_reduce", "train_reduce.cu", 495),
+    })
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    f32, bf16 = torch.float32, torch.bfloat16
+    TS = "train step"
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def first(x):
+        return x[0] if isinstance(x, tuple) else x
+
+    def sum_parts(label, part, count):
+        """``train_reduce``'s in-order sum at partials the path gives it;
+        plain = torch's sum over the same partials."""
+        err = compare_rel(f"sum_parts[{label} {list(part.shape)}]",
+                          fa.sum_parts(part), part.sum(0), 1e-5)
+        ms = time_ms(lambda: fa.sum_parts(part))
+        pms = time_ms(lambda: fa.sum_parts(part, plain=True))
+        lms = time_ms(lambda: torch.sum(part, 0))
+        recs["train_reduce"].add(TS, count, err, ms, pms,
+                                 4 * (part.numel() + part[0].numel()),
+                                 part.numel(), PEAK_F32_FLOPS, lms)
+        for k, v in zip(sp, (count, count * ms, count * pms, count * lms)):
+            sp[k] += v
+
+    T, B, n_frames = SEQ_LEN, BATCH, SEQ_LEN * BATCH
+    sms = sm_count(torch.empty(1, device=dev))
+    sp = dict(calls=0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+    for (H, W, C) in STAGES:
+        M = n_frames * H * W
+        rpb = fa._rows_per_block(M)
+        log(f"train stage {H}x{W}x{C}: {n_frames} frames, {M} rows")
+        # K2: every product of the pair's forward, recompute and backward,
+        # with its count per train step (2 blocks; forward + recompute)
+        for label, epi, K, N, count in (
+                ("qkv", "bias", C, 3 * C, 4),
+                ("proj", "residual_ls", C, C, 4),
+                ("fc1", "gelu", C, 4 * C, 4),
+                ("fc2", "residual_ls", 4 * C, C, 2),
+                ("m", "bias", 4 * C, C, 2),
+                ("dg", "rt_gelu_bwd", C, 4 * C, 2),
+                ("dy", "rt_f32", 4 * C, C, 2),
+                ("dattn", "rt_bf16", C, C, 2),
+                ("dxa", "rt_f32", 3 * C, C, 1),
+                ("dxbf", "rt_acc", 3 * C, C, 1)):
+            rt = epi.startswith("rt_")
+            a = randn(M, K)
+            w = randn(*((N, K) if rt else (K, N)), scale=K ** -0.5)
+            kw = {}
+            if not rt:
+                kw["bias"] = randn(N, scale=0.1)
+            if epi == "residual_ls":
+                kw.update(gamma=randn(N, scale=0.3, dtype=f32),
+                          res_in=randn(M, N, dtype=f32))
+            if epi == "rt_gelu_bwd":
+                kw["aux"] = randn(M, N)
+            R = randn(M, N, dtype=f32) if epi == "rt_acc" else None
+            want = epi in ("gelu", "residual_ls")
+
+            def run(plain, out=None):
+                return fa.gemm_bf16(a, w, epi, out=out, want_aux=want,
+                                    plain=plain, **kw)
+
+            got = run(False, None if R is None else R.clone())
+            ref = run(True, None if R is None else R.clone())
+            err = compare(f"gemm_bf16[{label} {epi}]", first(got),
+                          first(ref), 3.2e-2, 1e-2)
+            if epi == "rt_gelu_bwd":
+                compare_rel("  its column sums", got[1], ref[1], 1e-3)
+            elif want:
+                compare("  its bf16 branch output", got[1], ref[1], 3.2e-2,
+                        1e-2)
+            del got, ref
+            with first_pass_only():
+                ms = time_ms(lambda: run(False, R))
+            pms = time_ms(lambda: run(True, R), 2)
+            lms = time_ms(lambda: torch.matmul(a, w.t() if rt else w))
+            per_elem = {"bias": 2, "gelu": 4, "residual_ls": 10,
+                        "rt_f32": 4, "rt_bf16": 2, "rt_acc": 8,
+                        "rt_gelu_bwd": 4}[epi]
+            recs["gemm_bf16"].add(
+                TS, count, err, ms, pms, 2 * (M * K + K * N) + M * N * per_elem,
+                2 * M * N * K, PEAK_BF16_FLOPS, lms)
+            del a, w, kw, R
+        sum_parts("gelu-bwd column sums", randn(-(-M // fa._GEMM_BM), 4 * C,
+                                                dtype=f32), 2)
+        # K5: LN2 and LN1 (f32 residual in, added into dR), ds-LN (bf16)
+        s = randn(C, scale=0.2) + 1.0
+        for xdt, add, count in ((f32, True, 3), (bf16, False, 1)):
+            x = randn(M, C, scale=2.0, dtype=xdt) + 0.5
+            dy = randn(M, C, dtype=f32)
+            d0 = randn(M, C, dtype=f32) if add else None
+
+            def run(plain, d=None):
+                return fa.ln_rows_bwd(x, dy, s, 1e-5, dres=d, plain=plain)
+
+            got = run(False, None if d0 is None else d0.clone())
+            ref = run(True, None if d0 is None else d0.clone())
+            lab = "f32 += dx" if add else "bf16 dx"
+            err = compare(f"ln_rows_bwd[{lab}] dx", got[0], ref[0],
+                          1e-3 if add else 3.2e-2, 1e-2)
+            compare_rel("  ds", got[1], ref[1], 1e-3)
+            compare_rel("  db", got[2], ref[2], 1e-3)
+            del got, ref
+            with first_pass_only():
+                ms = time_ms(lambda: run(False, d0))
+            pms = time_ms(lambda: run(True, d0), 2)
+            xr = x.detach().requires_grad_(True)
+            sw = s.to(xdt, copy=True).requires_grad_(True)
+            bw = torch.zeros_like(sw, requires_grad=True)
+            y = F.layer_norm(xr, (C,), sw, bw, 1e-5)
+            dyy = dy.to(xdt)
+            lms = time_ms(lambda: torch.autograd.grad(y, (xr, sw, bw), dyy,
+                                                      retain_graph=True))
+            del y, xr
+            recs["ln_rows_bwd"].add(
+                TS, count, err, ms, pms,
+                M * C * (x.element_size() + 4 + (8 if add else 2)),
+                20 * M * C, PEAK_F32_FLOPS, lms)
+        sum_parts("ln_rows_bwd ds/db", randn(-(-M // rpb), 2, C, dtype=f32),
+                  4)
+        # K6: every weight gradient (two blocks, the LSTM)
+        for label, Ka, Nb, count in (("qkv", C, 3 * C, 2), ("proj", C, C, 2),
+                                     ("fc1", C, 4 * C, 2),
+                                     ("fc2", 4 * C, C, 2),
+                                     ("lstm", 2 * C, 4 * C, 1)):
+            a, b = randn(M, Ka), randn(M, Nb)
+            got = fa.gemm_bf16_wgrad(a, b)
+            err = compare_rel(f"gemm_bf16_wgrad[{label} {Ka}x{Nb}]", got,
+                              fa.gemm_bf16_wgrad_plain(a, b), 1e-3)
+            if not torch.equal(got, fa.gemm_bf16_wgrad(a, b)):
+                fail("gemm_bf16_wgrad: two runs differ")
+            with first_pass_only():
+                ms = time_ms(lambda: fa.gemm_bf16_wgrad(a, b))
+            pms = time_ms(lambda: fa.gemm_bf16_wgrad_plain(a, b), 2)
+            lms = time_ms(lambda: torch.matmul(a.t(), b))
+            splits = fa.wgrad_splits(M, Ka, Nb, sms)[0]
+            recs["gemm_bf16_wgrad"].add(
+                TS, count, err, ms, pms,
+                2 * M * (Ka + Nb) + 4 * Ka * Nb,
+                2 * M * Ka * Nb, PEAK_BF16_FLOPS, lms)
+            del a, b, got
+            if splits > 1:
+                sum_parts(f"wgrad {label}", randn(splits, Ka, Nb, dtype=f32),
+                          count)
+        # K7: window and grid attention backward
+        heads = C // DIM_HEAD
+        n_tok = PART[0] * PART[1]
+        parts = (H // PART[0]) * (W // PART[1])
+        qkv = randn(n_frames, H, W, 3 * C)
+        do = randn(n_frames, H, W, C)
+        q, k, v = [torch.randn(n_frames * parts, heads, n_tok, DIM_HEAD,
+                               generator=g, device=dev, dtype=bf16
+                               ).requires_grad_(True) for _ in range(3)]
+        o = F.scaled_dot_product_attention(q, k, v)
+        do_l = torch.randn(o.shape, generator=g, device=dev, dtype=bf16)
+        for window in (True, False):
+            kw = dict(heads=heads, dim_head=DIM_HEAD, part=PART,
+                      window=window)
+            got = fa.partition_attention_bwd(qkv, do, **kw)
+            ref = fa.partition_attention_bwd(qkv, do, plain=True, **kw)
+            mode = "window" if window else "grid"
+            err = compare(f"partition_attention_bwd[{mode}]", got, ref,
+                          3.2e-2, 2e-2)
+            ms = time_ms(lambda: fa.partition_attention_bwd(qkv, do, **kw))
+            pms = time_ms(lambda: fa.partition_attention_bwd(
+                qkv, do, plain=True, **kw), 2)
+            lms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), do_l,
+                                                      retain_graph=True))
+            recs["partition_attention_bwd"].add(
+                TS, 1, err, ms, pms, M * C * 14, 10 * M * n_tok * C,
+                PEAK_BF16_FLOPS, lms)
+        del qkv, do, q, k, v, o
+        # K4 with c_seq, then K8 (+ K6 for dW, train_reduce for db)
+        x = randn(T, B, H, W, C, dtype=f32)
+        w = randn(2 * C, 4 * C, scale=(2 * C) ** -0.5)
+        bias = randn(4 * C, scale=0.1)
+        h0 = randn(B, H, W, C, scale=0.5, dtype=f32)
+        c0 = randn(B, H, W, C, scale=0.5, dtype=f32)
+        fwd = fs.fused_lstm_scan(x, w, bias, h0, c0, with_c_seq=True)
+        ref4 = fs.fused_lstm_scan(x, w, bias, h0, c0, with_c_seq=True,
+                                  plain=True)
+        err = 0.0
+        for nm, gt, rf, tol in zip(("h_seq", "c_seq", "h_T", "c_T"), fwd,
+                                   ref4, (2e-2, 5e-2, 2e-2, 5e-2)):
+            err = max(err, compare(f"lstm_scan[c_seq] {nm}", gt, rf, tol,
+                                   2e-2, 2e-3))
+        ms = time_ms(lambda: fs.fused_lstm_scan(x, w, bias, h0, c0,
+                                                with_c_seq=True))
+        pms = time_ms(lambda: fs.fused_lstm_scan(x, w, bias, h0, c0,
+                                                 with_c_seq=True, plain=True),
+                      1)
+        P = B * H * W
+        recs["lstm_scan"].add(
+            TS, 1, err, ms, pms,
+            T * P * C * (4 + 2 + 4) + 2 * (8 * C * C + 4 * C) + 4 * P * C * 4,
+            2 * T * P * 2 * C * 4 * C, PEAK_BF16_FLOPS, None)
+        h_seq, c_seq = ref4[0], ref4[1]
+        del fwd, ref4
+        dh_seq = randn(T, B, H, W, C, scale=0.5)
+        dhT = randn(B, H, W, C, scale=0.5, dtype=f32)
+        dcT = randn(B, H, W, C, scale=0.5, dtype=f32)
+        args = (x, w, bias, h0, c0, h_seq, c_seq, dh_seq, dhT, dcT)
+        got = fs.lstm_scan_bwd(*args)
+        ref = fs.lstm_scan_bwd(*args, plain=True)
+        err = 0.0
+        for nm, gt, rf in zip(("dx", "dW", "db", "dh0", "dc0"), got, ref):
+            err = max(err, compare_rel(f"lstm_scan_bwd {nm}", gt, rf, 2e-2))
+        del got, ref
+        ms = time_ms(lambda: fs.lstm_scan_bwd_launch(*args))
+        pms = time_ms(lambda: fs.lstm_scan_bwd(*args, plain=True), 1)
+        recs["lstm_scan_bwd"].add(
+            TS, 1, err, ms, pms, T * P * C * 28 + 2 * (8 * C * C + 4 * C),
+            32 * T * P * C * C, PEAK_BF16_FLOPS, None)
+        del x, h_seq, c_seq, dh_seq, args
+        sum_parts("lstm db", randn(B * -(-H * W // fs._PT), 4 * C, dtype=f32),
+                  1)
+        # train_reduce: the LayerScale backward and the qkv-bias column
+        # sums, each with the in-order sum of its partials
+        dR, v = randn(M, C, dtype=f32), randn(M, C)
+        gam = randn(C, scale=0.3, dtype=f32)
+        got = fa.layer_scale_bwd(dR, v, gam)
+        ref = fa.layer_scale_bwd_plain(dR, v, gam)
+        if not torch.equal(got[0], ref[0]):
+            fail("layer_scale_bwd: bf16(dR * gamma) differs")
+        err = max(compare_rel("layer_scale_bwd dbias", got[1], ref[1], 1e-4),
+                  compare_rel("layer_scale_bwd dgamma", got[2], ref[2],
+                              1e-4))
+        ms = time_ms(lambda: fa.layer_scale_bwd(dR, v, gam))
+        pms = time_ms(lambda: fa.layer_scale_bwd_plain(dR, v, gam))
+        lms = time_ms(lambda: (dR * gam).sum(0))
+        recs["train_reduce"].add(TS, 4, err, ms, pms, M * C * 8, 4 * M * C,
+                                 PEAK_F32_FLOPS, lms, launches_per_call=2)
+        dq = randn(M, 3 * C)
+        err = compare_rel("col_sum[dqkv]", fa.col_sum(dq),
+                          dq.float().sum(0), 1e-4)
+        ms = time_ms(lambda: fa.col_sum(dq))
+        pms = time_ms(lambda: dq.float().sum(0))
+        lms = time_ms(lambda: torch.sum(dq, 0, dtype=f32))
+        recs["train_reduce"].add(TS, 2, err, ms, pms, M * 3 * C * 2,
+                                 M * 3 * C, PEAK_F32_FLOPS, lms,
+                                 launches_per_call=2)
+        del dR, v, dq
+        torch.cuda.empty_cache()
+    log(f"sum_parts of K2's gelu backward, K5, K6 and K8, per train step: "
+        f"{sp['calls']} calls, kernel {sp['ms']:.4f} ms, plain "
+        f"{sp['plain_ms']:.4f} ms, torch.sum {sp['library_ms']:.4f} ms")
+
+
+def train_batch(cfg, device):
+    """The profile_train.py batch: uint8 events in [0, 8) of [B, T, 240,
+    304, 20] from numpy seed 0; three boxes on every 5th frame."""
+    import numpy as np
+    import torch
+
+    B, T = BATCH, SEQ_LEN
+    M = cfg.dataset.max_labels_per_frame
+    rng = np.random.RandomState(0)
+    ev = rng.randint(0, 8, size=(B, T, 240, 304, 20)).astype(np.uint8)
+    labels = np.zeros((B, T, M, 7), np.float32)
+    label_mask = np.zeros((B, T, M), bool)
+    for t in range(LABEL_EVERY - 1, T, LABEL_EVERY):
+        labels[:, t, :3] = [(0, 100.0, 80.0, 40.0, 30.0, 0.0, 1.0),
+                            (0, 30.0, 40.0, 25.0, 20.0, 1.0, 1.0),
+                            (0, 200.0, 120.0, 50.0, 35.0, 0.0, 1.0)]
+        label_mask[:, t, :3] = True
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return (t(ev), t(labels), t(label_mask), t(label_mask.any(-1)),
+            torch.zeros(B, dtype=torch.bool, device=device))
+
+
+def run_train_path():
+    """Phase 7. Returns (ms per step, frames/s, train MFU %, peak GB,
+    launch counts by kernel)."""
+    import copy
+    from dataclasses import replace
+
+    import torch
+
+    from rvt_tpu_torch.config import preset
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.ops import fused_attention as fa
+    from rvt_tpu_torch.ops import fused_scan as fs
+    from rvt_tpu_torch.training import step as step_mod
+    from rvt_tpu_torch.training.step import init_train_state, make_train_step
+    from rvt_tpu_torch.utils.flops import detector_flops_per_frame
+
+    cfg = preset("gen1", "base")
+    cfg = replace(cfg, model=replace(
+        cfg.model, compute_dtype="bfloat16",
+        backbone=replace(cfg.model.backbone, fused_kernels=True)))
+    bb = cfg.model.backbone
+    if bb.stem_s2d or bb.enable_masking:
+        fail("the train cell runs without the s2d stem and token masks")
+    model, opt = init_train_state(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():  # LayerScale gammas as the earlier phases draw them
+        for name, p in model.named_parameters():
+            if name.endswith(".gamma"):
+                p.normal_(0.0, 0.1, generator=gen)
+    batch = train_batch(cfg, "cuda")
+    states = zero_states(bb, BATCH, device="cuda")
+    step = make_train_step(model, cfg, opt)
+    counters = (fa.LN_ROWS, fa.PARTITION_ATTENTION, fs.LSTM_SCAN,
+                fa.GEMM_BF16, fa.LN_ROWS_BWD, fa.GEMM_BF16_WGRAD,
+                fa.PARTITION_ATTENTION_BWD, fs.LSTM_SCAN_BWD,
+                fa.TRAIN_REDUCE)
+
+    for c in counters:
+        c.reset()
+    states, m = step(states, *batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        states, m = step(states, *batch)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    counts = {c.name: c.launches for c in counters}
+    log(f"train path: 1 + {TRAIN_STEPS} steps, launches {counts}")
+    for name, n in counts.items():
+        if n == 0:
+            fail(f"kernel {name} was not launched on the train path")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = {k: float(v) for k, v in m.items()}
+    log(f"train metrics (step {1 + TRAIN_STEPS}): {metrics}")
+    if not all(math.isfinite(v) for v in metrics.values()) or loss <= 0:
+        fail("train step: non-finite or non-positive loss")
+
+    fl = detector_flops_per_frame(cfg.model)
+    K = cfg.dataset.max_labeled_frames
+    step_flops = 3 * (fl["backbone"] * BATCH * SEQ_LEN
+                      + (fl["fpn"] + fl["head"]) * BATCH * K)
+    mfu = 100.0 * step_flops / dt / PEAK_BF16_FLOPS
+    fps = BATCH * SEQ_LEN / dt
+    log(f"train step: {dt * 1e3:.2f} ms per step, {fps:.1f} frames/s, "
+        f"train MFU {mfu:.2f}% ({step_flops / 1e12:.3f} TFLOP per step over "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16), peak memory "
+        f"{peak:.2f} GiB")
+    log("launches per train step: " + ", ".join(
+        f"{k} {v // (1 + TRAIN_STEPS)}" for k, v in counts.items()))
+    profile_window(lambda: step(states, *batch), "train step", top=40)
+
+    # one step on the plain versions, then the same step on the kernels,
+    # from identical model, BatchNorm buffers, optimizer and states. The
+    # kernel step's head is fed the plain step's features (their values,
+    # with the kernel backbone's gradient): the FPN/head, BatchNorm,
+    # SimOTA and the loss then see identical inputs on both sides, and
+    # every gradient leaf and grad_norm differ only by what the backbone's
+    # kernels do. Fed its own features, the head amplifies their one-ulp
+    # differences with random weights: SimOTA's picks flip, and with the
+    # picks held the step's grad_norm still moved by 12 % (H100, this
+    # cell) where a 1e-3 move of one stem weight moved it by 4 %.
+    pmodel, popt = copy.deepcopy((model, opt))
+    kept = {}
+    scan = step_mod.fused_train_scan_backbone
+    step_mod.fused_train_scan_backbone = shared_features(scan, kept)
+    try:
+        st_p, m_p = make_train_step(pmodel, cfg, popt, plain=True)(states,
+                                                                  *batch)
+        st_k, m_k = step(states, *batch)
+    finally:
+        step_mod.fused_train_scan_backbone = scan
+    for i, (fk, fp) in enumerate(zip(kept["own"], kept["first"])):
+        compare(f"train features {i + 1} vs plain", fk, fp, 5e-2, 2e-2, 5e-3)
+    for k in ("loss", "iou_loss", "conf_loss", "cls_loss", "num_fg"):
+        a, b = float(m_k[k]), float(m_p[k])
+        tol = 1e-4 * max(abs(b), 1e-3)  # identical inputs; cuDNN's order
+        log(f"  train {k}: kernels {a:.6g}, plain {b:.6g} (tolerance "
+            f"{tol:.3g})")
+        if not abs(a - b) <= tol:
+            fail(f"train step {k} disagrees with the plain versions")
+
+    # each gradient leaf within 5e-2 of its max |ref|; grad_norm within 2 %
+    def grads(mdl):
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in mdl.parameters()]
+
+    rows = sorted(((compare_rel_quiet(gk, gp), name)
+                   for (name, _), gk, gp in zip(
+                       model.named_parameters(), grads(model),
+                       grads(pmodel))), reverse=True)
+    over = [r for r in rows if not r[0] <= 5e-2]
+    log(f"  train gradients vs plain, {len(rows)} leaves: median "
+        f"{rows[len(rows) // 2][0]:.3e} of max|ref|; worst "
+        + "; ".join(f"{n} {e:.3e}" for e, n in rows[:5])
+        + " (tolerance 5e-2)")
+    nk, npl = float(m_k["grad_norm"]), float(m_p["grad_norm"])
+    log(f"  train grad_norm: kernels {nk:.6g}, plain {npl:.6g} (tolerance "
+        "2e-2 x plain)")
+    if over or not abs(nk - npl) <= 2e-2 * npl:
+        fail(f"train gradients disagree with the plain versions "
+             f"({len(over)} leaves out of tolerance)")
+    for i, ((hk, ck), (hp, cp)) in enumerate(zip(st_k, st_p)):
+        compare(f"train stage {i + 1} h_T vs plain", hk, hp, 5e-2, 2e-2,
+                5e-3)
+        compare(f"train stage {i + 1} c_T vs plain", ck, cp, 1e-1, 2e-2,
+                5e-3)
+    bk, bp = dict(model.named_buffers()), dict(pmodel.named_buffers())
+    berr = max(compare_rel_quiet(bk[n], bp[n]) for n in bk
+               if n.endswith(("running_mean", "running_var")))
+    log(f"  BatchNorm buffers vs plain: worst {berr:.3e} of max|ref| "
+        "(tolerance 2e-2)")
+    if not berr <= 2e-2:
+        fail("BatchNorm buffers disagree with the plain versions")
+    del pmodel, popt, st_p
+    torch.cuda.empty_cache()
+    return dt * 1e3, fps, mfu, peak, counts
+
+
+def shared_features(scan, kept):
+    """A stand-in for the train step's backbone scan: the first call keeps
+    its features in ``kept["first"]``; each later call keeps its own in
+    ``kept["own"]`` and returns the first call's values, with its own
+    gradient (straight through: f + (first - f), the difference detached,
+    exact in f32 and rounded back to the first call's bf16 values)."""
+    def run(model, ev_seq, init_states, *, plain=False):
+        feats, states = scan(model, ev_seq, init_states, plain=plain)
+        if "first" not in kept:
+            kept["first"] = tuple(f.detach() for f in feats)
+            return feats, states
+        kept["own"] = tuple(f.detach() for f in feats)
+        return tuple((f.float() + (r.float() - f.float()).detach()
+                      ).to(f.dtype) for f, r in zip(feats, kept["first"])
+                     ), states
+
+    return run
+
+
+def compare_rel_quiet(got, ref):
+    return float((got.float() - ref.float()).abs().max()) / max(
+        float(ref.float().abs().max()), 1e-12)
+
+
+def stage_bounds():
+    """The least time the card could take for three composed TPU kernels
+    of the kernel table, from their shapes: row 3 (``fused_stage_scan``,
+    the eval window's stage: x_seq bf16 in, h_seq bf16 out, h/c in and
+    out, both blocks' and the LSTM's weights once), row 5
+    (``fused_conv_lstm``, the raw step's cell at T = 1 on the f32 pair
+    output) and row 8 (``fused_stage_scan_train`` forward and backward:
+    x_seq, h0, c0 and the weights in, h_seq, hT, cT and every gradient
+    out; three times the forward's operations). Sums over the four
+    stages; prints and returns {row: (bound ms, by)}."""
+    out = {}
+    tok = PART[0] * PART[1]
+    for row, what in ((3, "eval window"), (5, "raw step"),
+                      (8, "train step")):
+        nbytes = ops = 0
+        for (H, W, C) in STAGES:
+            B = BATCH
+            T = 1 if row == 5 else SEQ_LEN
+            M, P = T * B * H * W, B * H * W
+            wbytes = 2 * (2 * 12 * C * C + 8 * C * C)
+            pair_ops = M * 2 * (24 * C * C + 4 * tok * C)
+            lstm_ops = M * 16 * C * C
+            if row == 3:
+                nbytes += M * C * 4 + 4 * P * C * 4 + wbytes
+                ops += pair_ops + lstm_ops
+            elif row == 5:
+                nbytes += P * C * (4 + 2 + 4 * 4) + 2 * 8 * C * C
+                ops += lstm_ops
+            else:
+                # in: x_seq, dh_seq (bf16), h0, c0, dhT, dcT; out: dx_seq
+                # (bf16), h_seq, hT, cT, dh0, dc0; weights and gradients
+                nbytes += M * C * 8 + 10 * P * C * 4 + 2 * wbytes
+                ops += 3 * (pair_ops + lstm_ops)
+        b_ms = nbytes / PEAK_BYTES * 1e3
+        o_ms = ops / PEAK_BF16_FLOPS * 1e3
+        by = "bytes" if b_ms >= o_ms else "operations"
+        out[row] = (max(b_ms, o_ms), by)
+        log(f"row {row} bound per {what}, 4 stages: {max(b_ms, o_ms):.4f} "
+            f"ms ({by}; bytes {b_ms:.4f} ms, operations {o_ms:.4f} ms)")
+    return out
+
+
 def profile_window(fn, what, top=14):
     """Device time of one call of ``fn`` by kernel name (torch.profiler),
     and the device's idle share of the call's wall time."""
@@ -690,16 +1265,32 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    stage_bounds()
     recs = check_kernels()
     recs["stacked_histogram"] = check_voxelizer()
+    check_train_kernels(recs)
     fps, mfu, counts = run_main_path()
     raw_fps, raw_mfu, raw_counts = run_raw_path()
+    torch.cuda.empty_cache()
+    t_ms, t_fps, t_mfu, t_peak, t_counts = run_train_path()
+    # the calls each record timed per step must be the launches the path
+    # made per step (eval: 4 windows; raw: 1 + 21 calls; train: 1 + 5)
+    steps = {"eval step": WINDOWS, "raw step": 1 + RAW_CALLS,
+             "train step": 1 + TRAIN_STEPS}
     for name, rec in recs.items():
-        by_path = {"eval": counts.get(name, 0), "raw": raw_counts[name]}
+        by_path = {"eval step": counts.get(name, 0),
+                   "raw step": raw_counts.get(name, 0),
+                   "train step": t_counts.get(name, 0)}
         rec.d["launches"] = sum(by_path.values())
         rec.d["launches_by_path"] = by_path
+        for path, q in rec.paths.items():
+            if q["launches"] * steps[path] != by_path[path]:
+                fail(f"{name}: {q['launches']} launches per {path} timed, "
+                     f"{by_path[path] / steps[path]:g} made")
     log(f"card: {card}; eval step {fps:.1f} frames/s, MFU {mfu:.2f}%; "
-        f"raw step {raw_fps:.1f} frames/s, MFU {raw_mfu:.2f}%")
+        f"raw step {raw_fps:.1f} frames/s, MFU {raw_mfu:.2f}%; train step "
+        f"{t_ms:.2f} ms, {t_fps:.1f} frames/s, MFU {t_mfu:.2f}%, peak "
+        f"{t_peak:.2f} GiB")
     print(json.dumps({"kernels": [r.d for r in recs.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

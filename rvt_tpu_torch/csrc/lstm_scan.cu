@@ -6,7 +6,10 @@
 //   mix = bf16(bf16([x_t, bf16(h)] . W[2C, 4C]) + b)      f32 accumulation
 //   f, i, o = bf16(sigmoid(mix[:3C]))    g = bf16(tanh(mix[3C:]))
 //   c = f*c + i*g    h = o*tanh(c)        (f32; h fed back as bf16)
-// Outputs h_seq [T, B, P, C] bf16 per step and h_T, c_T [B, P, C] f32.
+// Outputs h_seq [T, B, P, C] bf16 per step and h_T, c_T [B, P, C] f32;
+// for training (rvt_tpu/ops/fused_train.py:_lstm_scan_fwd_train_kernel)
+// also c_seq [T, B, P, C] f32 when ``cseq`` is set: with h_seq these are
+// the per-step carries the backward (lstm_scan_bwd.cu) reads.
 //
 // The TPU's sequential grid axis over t becomes a loop inside the block:
 // one block owns 16 pixels of one lane for the whole window, so the
@@ -60,8 +63,8 @@ __global__ void __launch_bounds__(128 * G)
 lstm_scan_kernel(const TX* __restrict__ x, const bf16* __restrict__ w,
                  const bf16* __restrict__ bias, const float* __restrict__ h0,
                  const float* __restrict__ c0, bf16* __restrict__ hseq,
-                 float* __restrict__ hT, float* __restrict__ cT, int T,
-                 int B, int P, int C) {
+                 float* __restrict__ cseq, float* __restrict__ hT,
+                 float* __restrict__ cT, int T, int B, int P, int C) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem S(C, G);
   const int CC = S.CC, NT = 128 * G;
@@ -145,6 +148,7 @@ lstm_scan_kernel(const TX* __restrict__ x, const bf16* __restrict__ w,
         if (r < rows) {
           const long out = (xrow + r) * C + ch;
           hseq[out] = __float2bfloat16_rn(h);
+          if (cseq != nullptr) cseq[out] = c;
           if (t == T - 1) {
             const long st = ((long)lane_b * P + p0 + r) * C + ch;
             hT[st] = h;
@@ -164,8 +168,9 @@ lstm_scan_kernel(const TX* __restrict__ x, const bf16* __restrict__ w,
 
 template <typename TX, int G>
 int launch_groups(const void* x, const bf16* w, const bf16* b,
-                  const float* h0, const float* c0, bf16* hseq, float* hT,
-                  float* cT, int T, int B, int P, int C, cudaStream_t st) {
+                  const float* h0, const float* c0, bf16* hseq, float* cseq,
+                  float* hT, float* cT, int T, int B, int P, int C,
+                  cudaStream_t st) {
   const size_t smem = Smem(C, G).bytes(C);
   cudaError_t e = cudaFuncSetAttribute(
       lstm_scan_kernel<TX, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -173,7 +178,7 @@ int launch_groups(const void* x, const bf16* w, const bf16* b,
   if (e != cudaSuccess) return (int)e;
   dim3 grid((P + PT - 1) / PT, B);
   lstm_scan_kernel<TX, G><<<grid, 128 * G, smem, st>>>(
-      (const TX*)x, w, b, h0, c0, hseq, hT, cT, T, B, P, C);
+      (const TX*)x, w, b, h0, c0, hseq, cseq, hT, cT, T, B, P, C);
   return (int)cudaGetLastError();
 }
 
@@ -182,8 +187,8 @@ int launch_groups(const void* x, const bf16* w, const bf16* b,
 // channel chunks over up to four groups.
 template <typename TX>
 int launch(const void* x, const bf16* w, const bf16* b, const float* h0,
-           const float* c0, bf16* hseq, float* hT, float* cT, int T, int B,
-           int P, int C, cudaStream_t st) {
+           const float* c0, bf16* hseq, float* cseq, float* hT, float* cT,
+           int T, int B, int P, int C, cudaStream_t st) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -191,24 +196,29 @@ int launch(const void* x, const bf16* w, const bf16* b, const float* h0,
   const int chunks = C / (C < 64 ? C : 64);
   int g = blocks >= 2 * sms ? 1 : (chunks >= 4 ? 4 : chunks >= 2 ? 2 : 1);
   if (g == 4)
-    return launch_groups<TX, 4>(x, w, b, h0, c0, hseq, hT, cT, T, B, P, C, st);
+    return launch_groups<TX, 4>(x, w, b, h0, c0, hseq, cseq, hT, cT, T, B, P,
+                                C, st);
   if (g == 2)
-    return launch_groups<TX, 2>(x, w, b, h0, c0, hseq, hT, cT, T, B, P, C, st);
-  return launch_groups<TX, 1>(x, w, b, h0, c0, hseq, hT, cT, T, B, P, C, st);
+    return launch_groups<TX, 2>(x, w, b, h0, c0, hseq, cseq, hT, cT, T, B, P,
+                                C, st);
+  return launch_groups<TX, 1>(x, w, b, h0, c0, hseq, cseq, hT, cT, T, B, P, C,
+                              st);
 }
 
 }  // namespace
 
 extern "C" int rvt_lstm_scan(const void* x, int x_is_f32, const void* w,
                              const void* b, const void* h0, const void* c0,
-                             void* hseq, void* hT, void* cT, int T, int B,
-                             int P, int C, void* stream) {
+                             void* hseq, void* cseq, void* hT, void* cT,
+                             int T, int B, int P, int C, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const bf16* W = (const bf16*)w;
   const bf16* bb = (const bf16*)b;
   if (x_is_f32)
     return launch<float>(x, W, bb, (const float*)h0, (const float*)c0,
-                         (bf16*)hseq, (float*)hT, (float*)cT, T, B, P, C, st);
+                         (bf16*)hseq, (float*)cseq, (float*)hT, (float*)cT, T,
+                         B, P, C, st);
   return launch<bf16>(x, W, bb, (const float*)h0, (const float*)c0,
-                      (bf16*)hseq, (float*)hT, (float*)cT, T, B, P, C, st);
+                      (bf16*)hseq, (float*)cseq, (float*)hT, (float*)cT, T, B,
+                      P, C, st);
 }

@@ -103,6 +103,7 @@ def make_raw_inference_step(model: RVTDetector, cfg: ExperimentConfig, *,
     def step(states: LstmStates, x: torch.Tensor, y: torch.Tensor,
              p: torch.Tensor, t: torch.Tensor, counts: torch.Tensor,
              is_first_sample: torch.Tensor):
+        model.eval()  # BatchNorm on its running statistics
         states = reset_states(states, is_first_sample)
         frames = event_frames(x, y, p, t, counts, cfg,
                               ds2_direct=ds2_direct, plain=plain)

@@ -7,7 +7,10 @@ package), then ``ops/fused_scan.fused_stage_scan`` runs the attention
 pair and the ConvLSTM on the hand-written kernels. Inter-stage features
 travel as bf16. ``RVTDetector.forward`` is one time step (the JAX
 module's ``__call__``): the same scan over a window of one frame, each
-stage then being ``ops/fused_scan.fused_stage``.
+stage then being ``ops/fused_scan.fused_stage``. ``fused_train_scan_backbone``
+is the differentiable scan of the train step: the same stage loop, each
+stage ``ops/fused_train.split_stage_scan_train`` on weights cast inside
+autograd.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from rvt_tpu_torch.models.backbone import LstmStates, RVTBackbone
 from rvt_tpu_torch.models.yolox import YoloPAFPN, YoloXHead
 from rvt_tpu_torch.ops.fused_attention import attention_block_params
 from rvt_tpu_torch.ops.fused_scan import fused_stage_scan
+from rvt_tpu_torch.ops.fused_train import (StageCfg, split_stage_scan_train,
+                                           train_block_params)
 from rvt_tpu_torch.ops.s2d import BLOCK, fold_stem_kernel, s2d_input_hw
 
 
@@ -73,7 +78,8 @@ class RVTDetector(nn.Module):
 
     def forward_detect(self, features) -> torch.Tensor:
         """features: NHWC stage maps at strides (8, 16, 32). Returns
-        [B, A, 5+C] f32 (decoded cxcywh + obj/cls logits)."""
+        [B, A, 5+C] f32 (decoded cxcywh + obj/cls logits). In train mode
+        BatchNorm runs on batch statistics and updates its buffers."""
         dtype = compute_dtype(self.cfg)
         nchw = [f.permute(0, 3, 1, 2) for f in features]  # channels_last
         return self.yolox_head(self.fpn(nchw, dtype), dtype)
@@ -125,7 +131,7 @@ def downsample_conv_apply(x: torch.Tensor, stage, cfg, is_stem: bool,
                           dtype=torch.bfloat16) -> torch.Tensor:
     """The ConvDownsample conv alone on NHWC ``x`` (its LayerNorm runs in
     the stage kernels): operands in ``dtype``, no bias, NHWC out."""
-    w = stage.downsample_cf2cl.conv.weight.detach()
+    w = stage.downsample_cf2cl.conv.weight
     k = w.shape[-1]
     if is_stem and cfg.stem_s2d:
         w = fold_stem_kernel(w.permute(2, 3, 1, 0)).permute(3, 2, 0, 1)
@@ -144,7 +150,7 @@ def downsample_ln_params(stage, cfg, C: int, dtype=torch.bfloat16):
     norm = stage.downsample_cf2cl.norm
     dev = stage.downsample_cf2cl.conv.weight.device
     if cfg.downsample.norm_affine:
-        return (norm.weight.detach().to(dtype), norm.bias.detach().to(dtype))
+        return norm.weight.to(dtype), norm.bias.to(dtype)
     return (torch.ones(C, dtype=dtype, device=dev),
             torch.zeros(C, dtype=dtype, device=dev))
 
@@ -200,6 +206,54 @@ def fused_scan_backbone(model: RVTDetector, ev_seq: torch.Tensor,
             heads=C // att.dim_head, dim_head=att.dim_head,
             part=tuple(att.partition_size), eps=att.norm_eps,
             ds_eps=cfg.downsample.norm_eps, plain=plain, **params[idx])
+        states_out.append((hT, cT))
+        feats[idx + 1] = h_seq
+        x = h_seq.view(T * B, h_dim, w_dim, C)
+    in_stages = model.cfg.fpn.in_stages
+    return tuple(feats[s] for s in in_stages), tuple(states_out)
+
+
+def fused_train_scan_backbone(model: RVTDetector, ev_seq: torch.Tensor,
+                              init_states: LstmStates, *,
+                              plain: bool = False
+                              ) -> Tuple[Tuple[torch.Tensor, ...],
+                                         LstmStates]:
+    """Differentiable backbone scan over a [T, B, H, W, C] window
+    (``rvt_tpu/models/detector.py:fused_train_scan_backbone``, whole-window
+    stages). Per stage: the downsample conv over all T*B frames (cuDNN,
+    with gradients), then ``split_stage_scan_train`` (the attention pair
+    over the T*B frames and the LSTM scan, forward and backward on the
+    kernels) with the stage's weights cast to the kernels' layout inside
+    autograd, as ``train_block_params`` does on every step. Returns
+    (features per ``cfg.fpn.in_stages``, each [T, B, h, w, c] bf16; final
+    (h, c) f32 per stage)."""
+    cfg = model.cfg.backbone
+    if (model.cfg.compute_dtype != "bfloat16"
+            or any(n != 1 for n in cfg.num_blocks)):
+        raise NotImplementedError(
+            "the train scan runs bf16 compute with one block per stage")
+    att = cfg.attention
+    T, B = ev_seq.shape[:2]
+    bf16 = torch.bfloat16
+    x = ev_seq.reshape((T * B,) + tuple(ev_seq.shape[2:]))
+    feats: Dict[int, torch.Tensor] = {}
+    states_out = []
+    for idx, stage in enumerate(model.backbone.stages):
+        x = downsample_conv_apply(x, stage, cfg, idx == 0, bf16)
+        h_dim, w_dim, C = x.shape[1:]
+        lstm = stage.lstm.conv1x1
+        blk = stage.att_blocks[0]
+        ds_s, ds_b = downsample_ln_params(stage, cfg, C)
+        h0, c0 = init_states[idx]
+        scfg = StageCfg(C // att.dim_head, att.dim_head,
+                        tuple(att.partition_size), att.norm_eps,
+                        cfg.downsample.norm_eps, plain)
+        h_seq, hT, cT = split_stage_scan_train(
+            scfg, x.view(T, B, h_dim, w_dim, C), ds_s, ds_b,
+            train_block_params(blk.att_window, True),
+            train_block_params(blk.att_grid, False),
+            lstm.weight[:, :, 0, 0].to(bf16).t().contiguous(),
+            lstm.bias.to(bf16), h0, c0)
         states_out.append((hT, cT))
         feats[idx + 1] = h_seq
         x = h_seq.view(T * B, h_dim, w_dim, C)

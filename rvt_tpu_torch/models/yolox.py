@@ -8,6 +8,10 @@ The forward runs on NCHW-shaped tensors that are NHWC in memory
 Dtype flow, as in the JAX package: a BaseConv's conv runs in the compute
 dtype (bf16 when serving), its BatchNorm (running statistics) and SiLU
 in f32; the ``*_pred`` 1x1 convs run in f32 and the box decode is f32.
+In train mode (``model.train()``, as the train step sets it) each
+BatchNorm normalises with the batch statistics and updates its running
+buffers as flax's ``nn.BatchNorm`` does (``rvt_tpu/models/yolox.py:60``,
+momentum 0.9).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from torch import nn
 from rvt_tpu_torch.config import FPNConfig, HeadConfig
 
 BN_EPS = 1e-5  # the JAX package's nn.BatchNorm epsilon
+BN_MOMENTUM = 0.9  # and its momentum (flax: ra = m * ra + (1 - m) * batch)
 
 
 def _act(name: str):
@@ -49,9 +54,30 @@ class BaseConv(nn.Module):
         y = F.conv2d(x.to(dtype), c.weight.to(dtype), None, c.stride,
                      c.padding, 1, c.groups)
         bn = self.bn
-        y = F.batch_norm(y.float(), bn.running_mean, bn.running_var,
-                         bn.weight, bn.bias, False, 0.0, bn.eps)
-        return _act(self.act)(y)
+        if not bn.training:
+            y = F.batch_norm(y.float(), bn.running_mean, bn.running_var,
+                             bn.weight, bn.bias, False, 0.0, bn.eps)
+            return _act(self.act)(y)
+        return _act(self.act)(batch_norm_train(y, bn))
+
+
+def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """flax ``nn.BatchNorm(use_running_average=False)`` on an NCHW-shaped
+    y: f32 batch statistics over (N, H, W) with the fast variance
+    max(E[y^2] - E[y]^2, 0) (biased), y' = (y - mean) * (rsqrt(var + eps) *
+    scale) + bias; the running buffers become 0.9 * ra + 0.1 * batch,
+    with the biased variance (``F.batch_norm`` would store the unbiased
+    one)."""
+    yf = y.float()
+    mean = yf.mean((0, 2, 3))
+    var = torch.clamp((yf * yf).mean((0, 2, 3)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        m = BN_MOMENTUM
+        bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+        bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (yf - mean[:, None, None]) * mul[:, None, None] \
+        + bn.bias[:, None, None]
 
 
 class DWConv(nn.Module):

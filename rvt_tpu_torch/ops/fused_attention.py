@@ -25,6 +25,16 @@ points. A wrapper takes the plain version for CPU tensors, or when the
 caller passes ``plain=True`` (the chip check holds the kernel path
 against that); for a CUDA tensor it otherwise launches its kernel or
 raises.
+
+Training (``ops/fused_train.py``) adds the backward kernels of the pair:
+
+  K2 ``gemm_bf16``           train epilogues: the unfolded-LayerScale
+                             residual, a.w^T data gradients, the gelu
+                             backward
+  K5 ``ln_rows_bwd``         LayerNorm backward, ds/db partial sums
+  K6 ``gemm_bf16_wgrad``     a^T.b weight gradients, rows split over blocks
+  K7 ``partition_attention_bwd``  per-(frame, partition, head) backward
+  ``train_reduce``           column sums (bias, gamma, split-sum passes)
 """
 from __future__ import annotations
 
@@ -34,13 +44,21 @@ import torch
 
 from rvt_tpu_torch.ops import kernels
 from rvt_tpu_torch.ops.kernels import (Counter, check, check_operands, need,
-                                       ptr, stream_ptr)
+                                       ptr, sm_count, stream_ptr)
 
 LN_ROWS = Counter("ln_rows")
 GEMM_BF16 = Counter("gemm_bf16")
 PARTITION_ATTENTION = Counter("partition_attention")
+LN_ROWS_BWD = Counter("ln_rows_bwd")
+GEMM_BF16_WGRAD = Counter("gemm_bf16_wgrad")
+PARTITION_ATTENTION_BWD = Counter("partition_attention_bwd")
+TRAIN_REDUCE = Counter("train_reduce")
 
-EPILOGUES = {"bias": 0, "gelu": 1, "residual": 2}
+# 0-3 take w [K, N] and a bias; the rt_ modes take w [N, K] (a . w^T) and
+# no bias.
+EPILOGUES = {"bias": 0, "gelu": 1, "residual": 2, "residual_ls": 3,
+             "rt_f32": 4, "rt_bf16": 5, "rt_acc": 6, "rt_gelu_bwd": 7}
+_GEMM_BM = 64  # rows per K2 block (its column-sum partials)
 
 
 # ---------------------------------------------------------------------------
@@ -48,16 +66,35 @@ EPILOGUES = {"bias": 0, "gelu": 1, "residual": 2}
 # ---------------------------------------------------------------------------
 
 
-def ln_rows_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                  eps: float) -> torch.Tensor:
-    """flax LayerNorm as the JAX kernel computes it (``_layer_norm_f32``):
-    f32 stats with the fast variance, affine in f32, bf16 result."""
-    xf = x.float()
+def _ln_fwd(xf: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            eps: float):
+    """flax LayerNorm as the JAX kernels compute it (``_layer_norm_f32``,
+    ``fused_train._ln_fwd``): f32 stats with the fast variance, affine in
+    f32. Returns (y bf16, xhat f32, rstd f32)."""
     mu = xf.mean(-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    y = y * scale.float().reshape(-1) + bias.float().reshape(-1)
-    return y.to(torch.bfloat16)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (xf - mu) * rstd
+    y = xhat * scale.float().reshape(-1) + bias.float().reshape(-1)
+    return y.to(torch.bfloat16), xhat, rstd
+
+
+def _ln_bwd(dy: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor,
+            scale: torch.Tensor):
+    """LayerNorm backward (``fused_train._ln_bwd``) on [M, C] rows.
+    Returns (dx f32, ds [C], db [C])."""
+    ds = (dy * xhat).sum(0)
+    db = dy.sum(0)
+    dxhat = dy * scale.float().reshape(-1)
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    return rstd * (dxhat - m1 - xhat * m2), ds, db
+
+
+def ln_rows_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """flax LayerNorm as the JAX kernel computes it: bf16 result."""
+    return _ln_fwd(x.float(), scale, bias, eps)[0]
 
 
 def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -92,61 +129,141 @@ def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+_C0, _C1 = 0.7978845608028654, 0.044715  # sqrt(2/pi), the cubic term
+
+
 def _gelu_tanh(xf: torch.Tensor) -> torch.Tensor:
     """The JAX kernel's tanh-gelu (``fused_attention._gelu``), in f32."""
-    inner = 0.7978845608028654 * (xf + 0.044715 * xf * xf * xf)
+    inner = _C0 * (xf + _C1 * xf * xf * xf)
     return 0.5 * xf * (1.0 + torch.tanh(inner))
 
 
-def gemm_bf16_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                    epilogue: str, residual: torch.Tensor | None = None):
-    out = (a.float() @ w.float()).to(torch.bfloat16)
-    out = (out.float() + bias.float().reshape(-1)).to(torch.bfloat16)
+def _gelu_grad(hf: torch.Tensor) -> torch.Tensor:
+    """d gelu / d h as ``fused_train._gelu_bwd`` writes it, in f32."""
+    t = torch.tanh(_C0 * (hf + _C1 * hf * hf * hf))
+    dinner = 0.5 * hf * (1.0 - t * t) * _C0 * (1.0 + 3.0 * _C1 * hf * hf)
+    return 0.5 * (1.0 + t) + dinner
+
+
+def gemm_bf16_plain(a: torch.Tensor, w: torch.Tensor, epilogue: str,
+                    bias=None, gamma=None, res_in=None, out=None, aux=None):
+    """The rounding points of each ``gemm_bf16`` epilogue. Returns what the
+    wrapper returns, with the bf16 value before the epilogue beside the
+    result of "gelu" and "residual_ls"."""
+    if epilogue.startswith("rt_"):
+        acc = a.float() @ w.float().t()
+        if epilogue == "rt_f32":
+            return acc
+        if epilogue == "rt_bf16":
+            return acc.to(torch.bfloat16)
+        if epilogue == "rt_acc":
+            out += acc
+            return out
+        d = acc * _gelu_grad(aux.float())
+        return d.to(torch.bfloat16), d.sum(0)
+    v = (a.float() @ w.float()).to(torch.bfloat16)
+    v = (v.float() + bias.float().reshape(-1)).to(torch.bfloat16)
+    if epilogue == "bias":
+        return v
     if epilogue == "gelu":
-        return _gelu_tanh(out.float()).to(torch.bfloat16)
+        return _gelu_tanh(v.float()).to(torch.bfloat16), v
     if epilogue == "residual":
-        residual += out.float()
-        return residual
-    return out
+        out += v.float()
+        return out
+    r = res_in + v.float() * gamma.reshape(-1)
+    if out is None:
+        return r, v
+    out.copy_(r)
+    return out, v
 
 
-def gemm_bf16(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-              epilogue: str, residual: torch.Tensor | None = None, *,
-              plain: bool = False) -> torch.Tensor:
-    """``a [M, K] bf16 @ w [K, N] bf16`` with f32 accumulation, rounded to
-    bf16, plus the bf16 ``bias [N]``; then ``epilogue``:
+def gemm_bf16(a: torch.Tensor, w: torch.Tensor, epilogue: str, *,
+              bias=None, gamma=None, res_in=None, out=None, aux=None,
+              want_aux: bool = False, plain: bool = False):
+    """``a [M, K] bf16`` times a bf16 weight with f32 sums, then
+    ``epilogue``. With w [K, N] and the bf16 ``bias [N]``, the product is
+    rounded to bf16 and the bias added in bf16 (``v``):
 
-      "bias"      return the bf16 [M, N] result
-      "gelu"      return tanh-gelu of it, bf16
-      "residual"  ``residual [M, N] f32 += result`` in place; returns it
-    """
+      "bias"         v                                           -> bf16
+      "gelu"         tanh-gelu of v                              -> bf16
+      "residual"     ``out [M, N] f32 += v`` in place; returns out (the
+                     serving proj / fc2, LayerScale folded into w, bias)
+      "residual_ls"  ``out = res_in + f32(v) * gamma`` (``out`` may be
+                     ``res_in``; new when None); returns out (training:
+                     LayerScale unfolded)
+
+    with w [N, K] (a . w^T, the data gradients) and no bias:
+
+      "rt_f32"       a . w^T                                     -> f32
+      "rt_bf16"      bf16(a . w^T)
+      "rt_acc"       ``out += a . w^T``; returns out
+      "rt_gelu_bwd"  d = (a . w^T) * gelu'(aux = bf16 h1); returns
+                     (bf16(d), f32 column sums of d)
+
+    With ``want_aux`` "gelu" and "residual_ls" return (result, v)."""
     need(epilogue in EPILOGUES, f"gemm_bf16: unknown epilogue {epilogue}")
-    need((residual is not None) == (epilogue == "residual"),
-         "gemm_bf16: pass residual exactly for the residual epilogue")
+    need(not want_aux or epilogue in ("gelu", "residual_ls"),
+         "gemm_bf16: want_aux is for the gelu and residual_ls epilogues")
+    need((out is not None) or epilogue not in ("residual", "rt_acc"),
+         "gemm_bf16: the residual and rt_acc epilogues add into out")
     if plain or not a.is_cuda:
-        return gemm_bf16_plain(a, w, bias, epilogue, residual)
+        r = gemm_bf16_plain(a, w, epilogue, bias, gamma, res_in, out, aux)
+        if epilogue in ("gelu", "residual_ls") and not want_aux:
+            return r[0]
+        return r
     M, K = a.shape
-    N = w.shape[1]
-    b = bias.reshape(-1)
-    check_operands("gemm_bf16", a, w, b)
-    need(a.dtype == w.dtype == b.dtype == torch.bfloat16
-         and w.shape[0] == K and b.numel() == N and K % 8 == 0
-         and N % 8 == 0, "gemm_bf16: bf16 a [M, K], w [K, N], bias [N]; "
+    rt = epilogue.startswith("rt_")
+    N = w.shape[0] if rt else w.shape[1]
+    check_operands("gemm_bf16", a, w)
+    need(a.dtype == w.dtype == torch.bfloat16
+         and w.shape[1 if rt else 0] == K and K % 8 == 0 and N % 8 == 0,
+         "gemm_bf16: bf16 a [M, K], w [K, N] (or [N, K] for rt_); "
          "K and N multiples of 8")
-    if epilogue == "residual":
-        check_operands("gemm_bf16", residual)
-        need(residual.dtype == torch.float32
-             and tuple(residual.shape) == (M, N),
-             "gemm_bf16: residual must be f32 [M, N]")
-        out = residual
+    dev = a.device
+    b = g = part = None
+    if not rt:
+        b = bias.reshape(-1)
+        check_operands("gemm_bf16", b)
+        need(b.dtype == torch.bfloat16 and b.numel() == N,
+             "gemm_bf16: bias bf16 [N]")
+    if epilogue == "residual_ls":
+        g = gamma.reshape(-1)
+        check_operands("gemm_bf16", g, res_in)
+        need(g.dtype == res_in.dtype == torch.float32 and g.numel() == N
+             and tuple(res_in.shape) == (M, N),
+             "gemm_bf16: gamma f32 [N], res_in f32 [M, N]")
+        if out is None:
+            out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    if epilogue in ("residual", "residual_ls", "rt_acc"):
+        check_operands("gemm_bf16", out)
+        need(out.dtype == torch.float32 and tuple(out.shape) == (M, N),
+             "gemm_bf16: out must be f32 [M, N]")
+    elif epilogue == "rt_f32":
+        out = torch.empty((M, N), dtype=torch.float32, device=dev)
     else:
-        out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
+        out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    if epilogue == "rt_gelu_bwd":
+        check_operands("gemm_bf16", aux)
+        need(aux.dtype == torch.bfloat16 and tuple(aux.shape) == (M, N),
+             "gemm_bf16: rt_gelu_bwd reads h1 bf16 [M, N]")
+        part = torch.empty((-(-M // _GEMM_BM), N), dtype=torch.float32,
+                           device=dev)
+    elif want_aux:
+        aux = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    else:
+        aux = None
     err = kernels.lib("gemm_bf16").rvt_gemm_bf16(
-        ptr(a), ptr(w), ptr(b), ptr(out), M, N, K, EPILOGUES[epilogue],
-        stream_ptr(a))
+        ptr(a), ptr(w), ptr(b) if b is not None else None,
+        ptr(g) if g is not None else None,
+        ptr(res_in) if res_in is not None else None,
+        ptr(aux) if aux is not None else None, ptr(out),
+        ptr(part) if part is not None else None, M, N, K,
+        EPILOGUES[epilogue], stream_ptr(a))
     check(err, "gemm_bf16")
     GEMM_BF16.launches += 1
-    return out
+    if epilogue == "rt_gelu_bwd":
+        return out, sum_parts(part)
+    return (out, aux) if want_aux else out
 
 
 # ---------------------------------------------------------------------------
@@ -161,25 +278,65 @@ def partition_attention_plain(qkv: torch.Tensor, heads: int, dim_head: int,
     qkv [N, H, W, 3C] bf16 (per-head interleaved q | k | v); returns the
     image-order head concat [N, H, W, C] bf16."""
     N, H, W, C3 = qkv.shape
-    C, dh = C3 // 3, dim_head
+    p = _partitions(qkv, part, window).reshape(
+        -1, part[0] * part[1], heads, 3 * dim_head).float()
+    o, _ = _attn_heads_fwd(p, dim_head)
+    return _unpartitions(o.to(torch.bfloat16), (N, H, W, C3 // 3), part,
+                         window)
+
+
+def _partitions(t: torch.Tensor, part: Tuple[int, int],
+                window: bool) -> torch.Tensor:
+    """Image-order [N, H, W, D] -> [N * partitions, ph * pw, D] tokens."""
+    N, H, W, D = t.shape
     ph, pw = part
     nh, nw = H // ph, W // pw
     if window:
-        p = qkv.reshape(N, nh, ph, nw, pw, C3).permute(0, 1, 3, 2, 4, 5)
+        p = t.reshape(N, nh, ph, nw, pw, D).permute(0, 1, 3, 2, 4, 5)
     else:
-        p = qkv.reshape(N, ph, nh, pw, nw, C3).permute(0, 2, 4, 1, 3, 5)
-    p = p.reshape(N * nh * nw, ph * pw, heads, 3 * dh).float()
-    q, k, v = p[..., :dh], p[..., dh:2 * dh], p[..., 2 * dh:]
-    s = torch.einsum("pnhd,pmhd->phnm", q, k)
-    probs = torch.softmax(s * (dh ** -0.5), dim=-1)
-    probs = probs.to(torch.bfloat16).float()
-    o = torch.einsum("phnm,pmhd->pnhd", probs, v).to(torch.bfloat16)
-    o = o.reshape(N, nh, nw, ph, pw, C)
+        p = t.reshape(N, ph, nh, pw, nw, D).permute(0, 2, 4, 1, 3, 5)
+    return p.reshape(N * nh * nw, ph * pw, D)
+
+
+def _unpartitions(tok: torch.Tensor, shape, part: Tuple[int, int],
+                  window: bool) -> torch.Tensor:
+    """The inverse of ``_partitions`` back to ``shape`` [N, H, W, D]."""
+    N, H, W, D = shape
+    ph, pw = part
+    nh, nw = H // ph, W // pw
+    o = tok.reshape(N, nh, nw, ph, pw, D)
     if window:
         o = o.permute(0, 1, 3, 2, 4, 5)
     else:
         o = o.permute(0, 3, 1, 4, 2, 5)
-    return o.reshape(N, H, W, C)
+    return o.reshape(N, H, W, D)
+
+
+def _attn_heads_fwd(p: torch.Tensor, dh: int):
+    """``fused_train._attn_heads_fwd`` on f32 tokens [P, n, heads, 3dh]:
+    f32 softmax, bf16 probabilities. Returns (o [P, n, heads*dh] f32 of
+    bf16-exact sums, probs [P, heads, n, n] f32 of bf16 values)."""
+    q, k, v = p[..., :dh], p[..., dh:2 * dh], p[..., 2 * dh:]
+    s = torch.einsum("pnhd,pmhd->phnm", q, k)
+    probs = torch.softmax(s * (dh ** -0.5), dim=-1)
+    probs = probs.to(torch.bfloat16).float()
+    o = torch.einsum("phnm,pmhd->pnhd", probs, v)
+    return o.reshape(p.shape[0], p.shape[1], -1), probs
+
+
+def _attn_heads_bwd(do: torch.Tensor, p: torch.Tensor, probs: torch.Tensor,
+                    dh: int) -> torch.Tensor:
+    """``fused_train._attn_heads_bwd``: do [P, n, heads, dh] (bf16 values),
+    tokens p [P, n, heads, 3dh], probs from ``_attn_heads_fwd``. Returns
+    dqkv [P, n, heads, 3dh] bf16."""
+    q, k, v = p[..., :dh], p[..., dh:2 * dh], p[..., 2 * dh:]
+    dv = torch.einsum("phnm,pnhd->pmhd", probs, do)
+    dp = torch.einsum("pnhd,pmhd->phnm", do, v)
+    ssum = (dp * probs).sum(-1, keepdim=True)
+    ds = (probs * (dp - ssum) * (dh ** -0.5)).to(torch.bfloat16).float()
+    dq = torch.einsum("phnm,pmhd->pnhd", ds, k)
+    dk = torch.einsum("phnm,pnhd->pmhd", ds, q)
+    return torch.cat([dq, dk, dv], -1).to(torch.bfloat16)
 
 
 def partition_attention(qkv: torch.Tensor, *, heads: int, dim_head: int,
@@ -224,15 +381,17 @@ def _one_block(R: torch.Tensor, prm: Dict[str, torch.Tensor],
     R2 = R.view(M, C)
     xa = (x_in_bf16.reshape(M, C) if x_in_bf16 is not None else
           ln_rows(R2, prm["ln1_s"], prm["ln1_b"], eps, plain=plain))
-    qkv = gemm_bf16(xa, prm["qkv_w"], prm["qkv_b"], "bias", plain=plain)
+    qkv = gemm_bf16(xa, prm["qkv_w"], "bias", bias=prm["qkv_b"],
+                    plain=plain)
     o = partition_attention(qkv.view(N, H, W, 3 * C), heads=heads,
                             dim_head=dim_head, part=part, window=window,
                             plain=plain)
-    gemm_bf16(o.view(M, C), prm["proj_w"], prm["proj_b"], "residual", R2,
-              plain=plain)
+    gemm_bf16(o.view(M, C), prm["proj_w"], "residual", bias=prm["proj_b"],
+              out=R2, plain=plain)
     y = ln_rows(R2, prm["ln2_s"], prm["ln2_b"], eps, plain=plain)
-    y = gemm_bf16(y, prm["fc1_w"], prm["fc1_b"], "gelu", plain=plain)
-    gemm_bf16(y, prm["fc2_w"], prm["fc2_b"], "residual", R2, plain=plain)
+    y = gemm_bf16(y, prm["fc1_w"], "gelu", bias=prm["fc1_b"], plain=plain)
+    gemm_bf16(y, prm["fc2_w"], "residual", bias=prm["fc2_b"], out=R2,
+              plain=plain)
     return R
 
 
@@ -291,3 +450,228 @@ def attention_block_params(block, skip_first_norm: bool
                fc1_w=w(fc1), fc1_b=v(fc1.bias),
                fc2_w=w(fc2, g2), fc2_b=v(fc2.bias, g2))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training: column sums (train_reduce)
+# ---------------------------------------------------------------------------
+
+
+def _rows_per_block(M: int) -> int:
+    """Rows per block of the column-sum kernels: at most 1024 partial rows
+    for ``sum_parts`` to add, at least 64 rows per block."""
+    rpb = max(64, -(-M // 1024))
+    return -(-rpb // 8) * 8
+
+
+def sum_parts(part: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    """part [n, ...] f32 -> its sum over the first axis, in order (the
+    second pass of every split sum)."""
+    if plain or not part.is_cuda:
+        return part.sum(0)
+    check_operands("sum_parts", part)
+    need(part.dtype == torch.float32, "sum_parts: f32 partials")
+    out = torch.empty(part.shape[1:], dtype=torch.float32, device=part.device)
+    err = kernels.lib("train_reduce").rvt_sum_parts(
+        ptr(part), ptr(out), part.shape[0], out.numel(), stream_ptr(part))
+    check(err, "sum_parts")
+    TRAIN_REDUCE.launches += 1
+    return out
+
+
+def col_sum(x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    """Column sums of x [M, N] (f32 or bf16) in f32: the qkv bias
+    gradient (``_block_bwd`` :415 sums the bf16 dqkv)."""
+    if plain or not x.is_cuda:
+        return x.float().sum(0)
+    M, N = x.shape
+    check_operands("col_sum", x)
+    need(x.dtype in (torch.float32, torch.bfloat16), "col_sum: f32/bf16")
+    rpb = _rows_per_block(M)
+    part = torch.empty((-(-M // rpb), N), dtype=torch.float32,
+                       device=x.device)
+    err = kernels.lib("train_reduce").rvt_colsum(
+        ptr(x), int(x.dtype == torch.float32), ptr(part), M, N, rpb,
+        stream_ptr(x))
+    check(err, "col_sum")
+    TRAIN_REDUCE.launches += 1
+    return sum_parts(part)
+
+
+def layer_scale_bwd_plain(dR: torch.Tensor, v: torch.Tensor,
+                          gamma: torch.Tensor):
+    d = dR * gamma.reshape(-1)
+    return d.to(torch.bfloat16), d.sum(0), (v.float() * dR).sum(0)
+
+
+def layer_scale_bwd(dR: torch.Tensor, v: torch.Tensor, gamma: torch.Tensor,
+                    *, plain: bool = False):
+    """Backward of ``R_out = R_in + f32(v) * gamma`` followed by the bias
+    add that made v (``_block_bwd`` :369-374, :394-404): dR [M, C] f32, v
+    [M, C] bf16, gamma [C] f32. Returns (bf16(dR * gamma) [M, C], the bias
+    gradient sum(dR * gamma) [C], the gamma gradient sum(v * dR) [C])."""
+    if plain or not dR.is_cuda:
+        return layer_scale_bwd_plain(dR, v, gamma)
+    M, C = dR.shape
+    g = gamma.reshape(-1)
+    check_operands("layer_scale_bwd", dR, v, g)
+    need(dR.dtype == g.dtype == torch.float32 and v.dtype == torch.bfloat16
+         and tuple(v.shape) == (M, C) and g.numel() == C,
+         "layer_scale_bwd: dR f32 [M, C], v bf16 [M, C], gamma f32 [C]")
+    rpb = _rows_per_block(M)
+    d = torch.empty((M, C), dtype=torch.bfloat16, device=dR.device)
+    part = torch.empty((-(-M // rpb), 2, C), dtype=torch.float32,
+                       device=dR.device)
+    err = kernels.lib("train_reduce").rvt_ls_bwd(
+        ptr(dR), ptr(v), ptr(g), ptr(d), ptr(part), M, C, rpb,
+        stream_ptr(dR))
+    check(err, "layer_scale_bwd")
+    TRAIN_REDUCE.launches += 1
+    sums = sum_parts(part)
+    return d, sums[0], sums[1]
+
+
+# ---------------------------------------------------------------------------
+# Training: K5 ln_rows_bwd, K6 gemm_bf16_wgrad
+# ---------------------------------------------------------------------------
+
+
+def ln_rows_bwd_plain(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                      eps: float):
+    """(dx f32, ds, db) of the LayerNorm of x [M, C] with cotangent dy."""
+    _, xhat, rstd = _ln_fwd(x.float(), scale, torch.zeros_like(scale), eps)
+    return _ln_bwd(dy, xhat, rstd, scale)
+
+
+def ln_rows_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                eps: float, *, dres: torch.Tensor | None = None,
+                plain: bool = False):
+    """LayerNorm backward over the rows of x [M, C] (f32 or bf16; the
+    statistics are recomputed from it) with the f32 cotangent dy. With
+    ``dres`` [M, C] f32 the input gradient is added into it (in place) and
+    returned; otherwise it is returned as bf16. Returns (dx, ds [C] f32,
+    db [C] f32)."""
+    if plain or not x.is_cuda:
+        dx, ds, db = ln_rows_bwd_plain(x, dy, scale, eps)
+        if dres is None:
+            return dx.to(torch.bfloat16), ds, db
+        dres += dx
+        return dres, ds, db
+    M, C = x.shape
+    s = scale.reshape(-1)
+    check_operands("ln_rows_bwd", x, dy, s)
+    need(x.dtype in (torch.float32, torch.bfloat16)
+         and dy.dtype == torch.float32 and tuple(dy.shape) == (M, C)
+         and s.dtype == torch.bfloat16 and s.numel() == C
+         and C in (32, 64, 128, 256, 512),
+         "ln_rows_bwd: x f32/bf16 [M, C], dy f32 [M, C], scale bf16 [C]; "
+         "C in 32..512, a power of two")
+    dxb = None
+    if dres is not None:
+        check_operands("ln_rows_bwd", dres)
+        need(dres.dtype == torch.float32 and tuple(dres.shape) == (M, C),
+             "ln_rows_bwd: dres f32 [M, C]")
+    else:
+        dxb = torch.empty((M, C), dtype=torch.bfloat16, device=x.device)
+    rpb = _rows_per_block(M)
+    part = torch.empty((-(-M // rpb), 2, C), dtype=torch.float32,
+                       device=x.device)
+    err = kernels.lib("ln_rows_bwd").rvt_ln_rows_bwd(
+        ptr(x), int(x.dtype == torch.float32), ptr(dy), ptr(s), float(eps),
+        ptr(dres) if dres is not None else None,
+        ptr(dxb) if dxb is not None else None, ptr(part), M, C, rpb,
+        stream_ptr(x))
+    check(err, "ln_rows_bwd")
+    LN_ROWS_BWD.launches += 1
+    sums = sum_parts(part)
+    return (dres if dres is not None else dxb), sums[0], sums[1]
+
+
+def wgrad_splits(M: int, Ka: int, Nb: int, sms: int) -> Tuple[int, int]:
+    """(splits, rows per split) of K6: about four blocks per SM over the
+    [Ka, Nb] tiles, each split a multiple of 32 rows."""
+    tiles = -(-Ka // 64) * -(-Nb // 64)
+    splits = max(1, min(-(-4 * sms // tiles), -(-M // 32)))
+    per_split = -(-M // splits)
+    rps = -(-per_split // 32) * 32
+    return -(-M // rps), rps
+
+
+def gemm_bf16_wgrad_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a.float().t() @ b.float()
+
+
+def gemm_bf16_wgrad(a: torch.Tensor, b: torch.Tensor, *,
+                    plain: bool = False) -> torch.Tensor:
+    """a^T . b over the rows of a [M, Ka] and b [M, Nb] (bf16) -> f32
+    [Ka, Nb]: every weight gradient (``_dot_t``). The rows are split over
+    blocks, the splits summed in order by ``sum_parts``."""
+    if plain or not a.is_cuda:
+        return gemm_bf16_wgrad_plain(a, b)
+    M, Ka = a.shape
+    Nb = b.shape[1]
+    check_operands("gemm_bf16_wgrad", a, b)
+    need(a.dtype == b.dtype == torch.bfloat16 and b.shape[0] == M
+         and Ka % 8 == 0 and Nb % 8 == 0,
+         "gemm_bf16_wgrad: bf16 a [M, Ka], b [M, Nb]; Ka, Nb multiples of 8")
+    splits, rps = wgrad_splits(M, Ka, Nb, sm_count(a))
+    part = torch.empty((splits, Ka, Nb), dtype=torch.float32,
+                       device=a.device)
+    err = kernels.lib("gemm_bf16_wgrad").rvt_gemm_bf16_wgrad(
+        ptr(a), ptr(b), ptr(part), M, Ka, Nb, splits, rps, stream_ptr(a))
+    check(err, "gemm_bf16_wgrad")
+    GEMM_BF16_WGRAD.launches += 1
+    return part[0] if splits == 1 else sum_parts(part)
+
+
+# ---------------------------------------------------------------------------
+# Training: K7 partition_attention_bwd
+# ---------------------------------------------------------------------------
+
+
+def partition_attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor,
+                                  heads: int, dim_head: int,
+                                  part: Tuple[int, int],
+                                  window: bool) -> torch.Tensor:
+    """dqkv [N, H, W, 3C] bf16 of ``partition_attention`` for the bf16
+    cotangent do [N, H, W, C] of its output: the probabilities recomputed,
+    then ``_attn_heads_bwd``."""
+    N, H, W, C3 = qkv.shape
+    n = part[0] * part[1]
+    p = _partitions(qkv, part, window).reshape(-1, n, heads,
+                                               3 * dim_head).float()
+    _, probs = _attn_heads_fwd(p, dim_head)
+    d = _partitions(do, part, window).reshape(-1, n, heads,
+                                              dim_head).float()
+    dqkv = _attn_heads_bwd(d, p, probs, dim_head)
+    return _unpartitions(dqkv.reshape(-1, n, C3), (N, H, W, C3), part,
+                         window)
+
+
+def partition_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, *,
+                            heads: int, dim_head: int, part: Tuple[int, int],
+                            window: bool, plain: bool = False
+                            ) -> torch.Tensor:
+    """See ``partition_attention_bwd_plain``; one CUDA block per (frame,
+    partition, head) with K3's partition addressing."""
+    if plain or not qkv.is_cuda:
+        return partition_attention_bwd_plain(qkv, do, heads, dim_head, part,
+                                             window)
+    N, H, W, C3 = qkv.shape
+    ph, pw = part
+    C = C3 // 3
+    check_operands("partition_attention_bwd", qkv, do)
+    need(qkv.dtype == do.dtype == torch.bfloat16 and C == heads * dim_head
+         and tuple(do.shape) == (N, H, W, C)
+         and dim_head in (16, 32, 64) and H % ph == 0 and W % pw == 0
+         and ph * pw <= 128,
+         "partition_attention_bwd: bf16 qkv [N, H, W, 3*heads*dh], do "
+         "[N, H, W, heads*dh], dh in (16, 32, 64), H, W divisible by the "
+         "partition, <= 128 tokens")
+    dqkv = torch.empty_like(qkv)
+    err = kernels.lib("partition_attention_bwd").rvt_partition_attention_bwd(
+        ptr(qkv), ptr(do), ptr(dqkv), N, H, W, C, dim_head, ph, pw,
+        int(window), float(dim_head ** -0.5), stream_ptr(qkv))
+    check(err, "partition_attention_bwd")
+    PARTITION_ATTENTION_BWD.launches += 1
+    return dqkv

@@ -7,7 +7,9 @@ blocks run in parallel and in no order, so the stage is split where the
 recurrence allows it: the attention pair has none and runs over all T*B
 frames at once (``fused_attention_pair``: kernels K1-K3), and only the
 ConvLSTM scans, as kernel K4 ``lstm_scan`` with the time loop inside the
-block and the (h, c) carry in shared memory.
+block and the (h, c) carry in shared memory. For training K4 also writes
+the cell states c_seq, and K8 ``lstm_scan_bwd`` runs the scan backwards
+with the (dh, dc) carry (``ops/fused_train.py``).
 """
 from __future__ import annotations
 
@@ -16,47 +18,72 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from rvt_tpu_torch.ops import kernels
-from rvt_tpu_torch.ops.fused_attention import fused_attention_pair
+from rvt_tpu_torch.ops.fused_attention import (fused_attention_pair,
+                                               gemm_bf16_wgrad, sum_parts)
 from rvt_tpu_torch.ops.kernels import (Counter, check, check_operands, need,
                                        ptr, stream_ptr)
 
 LSTM_SCAN = Counter("lstm_scan")
+LSTM_SCAN_BWD = Counter("lstm_scan_bwd")
+_PT = 16  # pixels per K8 block (its db partials)
+
+
+def _lstm_cell(xh: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               c_prev: torch.Tensor):
+    """The cell as the JAX kernels recompute it (``fused_train.
+    _lstm_recompute``): xh [..., 2C] of bf16 values, f32 sums rounded to
+    bf16, + b in bf16; sigmoid gates and tanh cell input rounded to bf16;
+    c and h in f32. Returns (f, i, o, g, c_t, h_t)."""
+    C = c_prev.shape[-1]
+    mix = (xh @ w.float()).to(torch.bfloat16)
+    mix = (mix.float() + b.float().reshape(-1)).to(torch.bfloat16).float()
+    gates = torch.sigmoid(mix[..., :3 * C]).to(torch.bfloat16).float()
+    f, i, o = gates[..., :C], gates[..., C:2 * C], gates[..., 2 * C:]
+    g = torch.tanh(mix[..., 3 * C:]).to(torch.bfloat16).float()
+    c = f * c_prev + i * g
+    return f, i, o, g, c, o * torch.tanh(c)
+
+
+def _lstm_cell_bwd(f, i, o, g, c_prev, c_t, dh, dc):
+    """The cell's backward (``fused_train._lstm_bwd_chunked``): returns
+    (dmix [..., 4C] f32, dc_prev = dct * f)."""
+    tc = torch.tanh(c_t)
+    do = dh * tc
+    dct = dc + dh * o * (1.0 - tc * tc)
+    dmix = torch.cat([dct * c_prev * f * (1.0 - f),
+                      dct * g * i * (1.0 - i),
+                      do * o * (1.0 - o),
+                      dct * i * (1.0 - g * g)], dim=-1)
+    return dmix, dct * f
 
 
 def lstm_scan_plain(x_seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                    h0: torch.Tensor, c0: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The cell of ``_lstm_scan_kernel`` step by step: [x, h] in bf16 times
-    W with f32 accumulation, rounded to bf16, + b in bf16; sigmoid gates
-    and tanh cell input rounded to bf16; c and h in f32."""
-    C = h0.shape[-1]
-    wf = w.float()
-    bias = b.float().reshape(-1)
+                    h0: torch.Tensor, c0: torch.Tensor,
+                    with_c_seq: bool = False):
+    """The cell of ``_lstm_scan_kernel`` step by step (``_lstm_cell``),
+    h fed back as bf16. Returns (h_seq bf16, [c_seq f32,] h_T, c_T)."""
     h, c = h0.float(), c0.float()
-    hs = []
+    hs, cs = [], []
     for t in range(x_seq.shape[0]):
         xh = torch.cat([x_seq[t].to(torch.bfloat16), h.to(torch.bfloat16)],
                        dim=-1).float()
-        mix = (xh @ wf).to(torch.bfloat16)
-        mix = (mix.float() + bias).to(torch.bfloat16).float()
-        gates = torch.sigmoid(mix[..., :3 * C]).to(torch.bfloat16).float()
-        cell_input = torch.tanh(mix[..., 3 * C:]).to(torch.bfloat16).float()
-        c = gates[..., :C] * c + gates[..., C:2 * C] * cell_input
-        h = gates[..., 2 * C:] * torch.tanh(c)
+        *_, c, h = _lstm_cell(xh, w, b, c)
         hs.append(h.to(torch.bfloat16))
+        cs.append(c)
+    if with_c_seq:
+        return torch.stack(hs), torch.stack(cs), h, c
     return torch.stack(hs), h, c
 
 
 def fused_lstm_scan(x_seq: torch.Tensor, lstm_w: torch.Tensor,
                     lstm_b: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
-                    *, plain: bool = False
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                    *, with_c_seq: bool = False, plain: bool = False):
     """Scan the ConvLSTM cell over a [T, B, H, W, C] window (bf16 or f32
     input; the kernel rounds f32 to bf16 on load). lstm_w [2C, 4C] bf16,
     lstm_b [4C] bf16, h0/c0 [B, H, W, C] f32. Returns (h_seq bf16, h_T f32,
-    c_T f32)."""
+    c_T f32); with ``with_c_seq`` (training) (h_seq, c_seq f32, h_T, c_T)."""
     if plain or not x_seq.is_cuda:
-        return lstm_scan_plain(x_seq, lstm_w, lstm_b, h0, c0)
+        return lstm_scan_plain(x_seq, lstm_w, lstm_b, h0, c0, with_c_seq)
     T, B, H, W, C = x_seq.shape
     b = lstm_b.reshape(-1)
     h0, c0 = h0.float().contiguous(), c0.float().contiguous()
@@ -72,15 +99,109 @@ def fused_lstm_scan(x_seq: torch.Tensor, lstm_w: torch.Tensor,
          "or C % 64 == 0")
     h_seq = torch.empty(x_seq.shape, dtype=torch.bfloat16,
                         device=x_seq.device)
+    c_seq = torch.empty(x_seq.shape, dtype=torch.float32,
+                        device=x_seq.device) if with_c_seq else None
     hT = torch.empty_like(h0)
     cT = torch.empty_like(c0)
     err = kernels.lib("lstm_scan").rvt_lstm_scan(
         ptr(x_seq), int(x_seq.dtype == torch.float32), ptr(lstm_w),
-        ptr(b), ptr(h0), ptr(c0), ptr(h_seq), ptr(hT), ptr(cT),
+        ptr(b), ptr(h0), ptr(c0), ptr(h_seq),
+        ptr(c_seq) if c_seq is not None else None, ptr(hT), ptr(cT),
         T, B, H * W, C, stream_ptr(x_seq))
     check(err, "lstm_scan")
     LSTM_SCAN.launches += 1
+    if with_c_seq:
+        return h_seq, c_seq, hT, cT
     return h_seq, hT, cT
+
+
+def lstm_scan_bwd_plain(x_seq, w, b, h0, c0, h_seq, c_seq, dh_seq, dhT, dcT):
+    """BPTT of the cell over the window, step by step in reverse
+    (``_lstm_scan_bwd_kernel``): the gates recomputed from bf16(x_t), the
+    carry inputs h_{t-1} (bf16) and c_{t-1}; dmix rounded to bf16 for the
+    products, db from the f32 dmix. Returns (dx f32, dW f32 [2C, 4C],
+    db f32 [4C], dh0, dc0)."""
+    T = x_seq.shape[0]
+    C = h0.shape[-1]
+    wf = w.float()
+    dh, dc = dhT.float(), dcT.float()
+    dx = torch.empty(x_seq.shape, dtype=torch.float32, device=x_seq.device)
+    dW = torch.zeros((2 * C, 4 * C), dtype=torch.float32,
+                     device=x_seq.device)
+    db = torch.zeros(4 * C, dtype=torch.float32, device=x_seq.device)
+    for t in reversed(range(T)):
+        h_prev = h0.to(torch.bfloat16) if t == 0 else h_seq[t - 1]
+        c_prev = c0.float() if t == 0 else c_seq[t - 1]
+        xh = torch.cat([x_seq[t].to(torch.bfloat16), h_prev], dim=-1).float()
+        f, i, o, g, c_t, _ = _lstm_cell(xh, w, b, c_prev)
+        dmix, dc = _lstm_cell_bwd(f, i, o, g, c_prev, c_t,
+                                  dh + dh_seq[t].float(), dc)
+        dmix_bf = dmix.to(torch.bfloat16).float()
+        dW += xh.reshape(-1, 2 * C).t() @ dmix_bf.reshape(-1, 4 * C)
+        db += dmix.reshape(-1, 4 * C).sum(0)
+        dxh = dmix_bf @ wf.t()
+        dx[t] = dxh[..., :C]
+        dh = dxh[..., C:]
+    return dx, dW, db, dh, dc
+
+
+def lstm_scan_bwd(x_seq, w, b, h0, c0, h_seq, c_seq, dh_seq, dhT, dcT, *,
+                  plain: bool = False):
+    """Backward of ``fused_lstm_scan(..., with_c_seq=True)``: x_seq
+    [T, B, H, W, C] f32 (the cell input, rounded to bf16 as in the
+    forward), w [2C, 4C] / b [4C] bf16, h0/c0 f32, the forward's h_seq
+    (bf16) and c_seq (f32), the cotangents dh_seq (bf16), dhT and dcT
+    (f32). K8 runs the reverse scan and writes bf16(dmix) and [x, h_prev];
+    K6 forms dW from them; db is the in-order sum of K8's partials.
+    Returns (dx f32, dW f32, db f32, dh0, dc0)."""
+    if plain or not x_seq.is_cuda:
+        return lstm_scan_bwd_plain(x_seq, w, b, h0, c0, h_seq, c_seq,
+                                   dh_seq, dhT, dcT)
+    T, B, H, W, C = x_seq.shape
+    bb = b.reshape(-1)
+    check_operands("lstm_scan_bwd", x_seq, w, bb, h0, c0, h_seq, c_seq,
+                   dh_seq, dhT, dcT)
+    need(x_seq.dtype in (torch.float32, torch.bfloat16)
+         and w.dtype == bb.dtype == h_seq.dtype == dh_seq.dtype
+         == torch.bfloat16
+         and h0.dtype == c0.dtype == c_seq.dtype == dhT.dtype == dcT.dtype
+         == torch.float32
+         and tuple(w.shape) == (2 * C, 4 * C) and bb.numel() == 4 * C
+         and h_seq.shape == c_seq.shape == dh_seq.shape == x_seq.shape
+         and tuple(h0.shape) == tuple(c0.shape) == tuple(dhT.shape)
+         == tuple(dcT.shape) == (B, H, W, C)
+         and C % 16 == 0 and (C < 64 or C % 64 == 0)
+         and w.data_ptr() % 32 == 0,
+         "lstm_scan_bwd: x [T, B, H, W, C] f32/bf16, w [2C, 4C] / b [4C] "
+         "bf16, h_seq / dh_seq bf16, c_seq f32 like x, h0 / c0 / dhT / dcT "
+         "f32 [B, H, W, C]; C % 16 == 0 and C < 64 or C % 64 == 0")
+    dx, dmix, xh, part, dh0, dc0 = lstm_scan_bwd_launch(
+        x_seq, w, bb, h0, c0, h_seq, c_seq, dh_seq, dhT, dcT)
+    return dx, gemm_bf16_wgrad(xh, dmix), sum_parts(part), dh0, dc0
+
+
+def lstm_scan_bwd_launch(x_seq, w, bb, h0, c0, h_seq, c_seq, dh_seq, dhT,
+                         dcT):
+    """K8 alone (operands checked by ``lstm_scan_bwd``): returns (dx,
+    bf16(dmix) [T*B*P, 4C], xh [T*B*P, 2C], db partials, dh0, dc0)."""
+    T, B, H, W, C = x_seq.shape
+    P = H * W
+    dev = x_seq.device
+    dx = torch.empty(x_seq.shape, dtype=torch.float32, device=dev)
+    dmix = torch.empty((T * B * P, 4 * C), dtype=torch.bfloat16, device=dev)
+    xh = torch.empty((T * B * P, 2 * C), dtype=torch.bfloat16, device=dev)
+    dh0 = torch.empty_like(h0)
+    dc0 = torch.empty_like(c0)
+    part = torch.empty((B * -(-P // _PT), 4 * C), dtype=torch.float32,
+                       device=dev)
+    err = kernels.lib("lstm_scan_bwd").rvt_lstm_scan_bwd(
+        ptr(x_seq), int(x_seq.dtype == torch.float32), ptr(w), ptr(bb),
+        ptr(h0), ptr(c0), ptr(h_seq), ptr(c_seq), ptr(dh_seq), ptr(dhT),
+        ptr(dcT), ptr(dx), ptr(dmix), ptr(xh), ptr(dh0), ptr(dc0), ptr(part),
+        T, B, P, C, stream_ptr(x_seq))
+    check(err, "lstm_scan_bwd")
+    LSTM_SCAN_BWD.launches += 1
+    return dx, dmix, xh, part, dh0, dc0
 
 
 def fused_conv_lstm(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,

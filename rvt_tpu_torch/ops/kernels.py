@@ -26,26 +26,38 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("ln_rows", "gemm_bf16", "partition_attention", "lstm_scan",
-           "stacked_histogram")
+           "stacked_histogram", "ln_rows_bwd", "gemm_bf16_wgrad",
+           "partition_attention_bwd", "lstm_scan_bwd", "train_reduce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_long
 _F = ctypes.c_float
-# The exported launcher of each source and its C signature (argtypes);
-# each returns an int, cudaGetLastError() after the launch.
+# The exported launchers of each source and their C signatures
+# (argtypes); each returns an int, cudaGetLastError() after the launch.
 SIGNATURES = {
-    "ln_rows": ("rvt_ln_rows", (_P, _I, _P, _P, _P, _P, _I, _I, _F, _P)),
-    "gemm_bf16": ("rvt_gemm_bf16", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
-    "partition_attention": ("rvt_partition_attention",
-                            (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                             _P)),
-    "lstm_scan": ("rvt_lstm_scan", (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                    _I, _I, _I, _P)),
-    "stacked_histogram": ("rvt_stacked_histogram",
-                          (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _P)),
+    "ln_rows": {"rvt_ln_rows": (_P, _I, _P, _P, _P, _P, _I, _I, _F, _P)},
+    "gemm_bf16": {"rvt_gemm_bf16": (_P,) * 8 + (_I, _I, _I, _I, _P)},
+    "partition_attention": {
+        "rvt_partition_attention": (_P, _P) + (_I,) * 8 + (_F, _P)},
+    "lstm_scan": {"rvt_lstm_scan": (_P, _I) + (_P,) * 8 + (_I,) * 4
+                  + (_P,)},
+    "stacked_histogram": {
+        "rvt_stacked_histogram": (_P,) * 7 + (_I,) * 6 + (_P,)},
+    "ln_rows_bwd": {"rvt_ln_rows_bwd": (_P, _I, _P, _P, _F, _P, _P, _P, _L,
+                                        _I, _I, _P)},
+    "gemm_bf16_wgrad": {"rvt_gemm_bf16_wgrad": (_P, _P, _P, _L, _I, _I, _I,
+                                                _L, _P)},
+    "partition_attention_bwd": {
+        "rvt_partition_attention_bwd": (_P, _P, _P) + (_I,) * 8 + (_F, _P)},
+    "lstm_scan_bwd": {"rvt_lstm_scan_bwd": (_P, _I) + (_P,) * 15
+                      + (_I,) * 4 + (_P,)},
+    "train_reduce": {
+        "rvt_sum_parts": (_P, _P, _I, _L, _P),
+        "rvt_colsum": (_P, _I, _P, _L, _I, _I, _P),
+        "rvt_ls_bwd": (_P, _P, _P, _P, _P, _L, _I, _I, _P)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -120,10 +132,10 @@ def lib(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         _finish(name, _start(name))
         cdll = ctypes.CDLL(str(_lib_path(name)))
-        fn, argtypes = SIGNATURES[name]
-        f = getattr(cdll, fn)
-        f.argtypes = list(argtypes)
-        f.restype = ctypes.c_int
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(cdll, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
         _LIBS[name] = cdll
     return _LIBS[name]
 
@@ -147,6 +159,12 @@ def check_operands(name: str, *tensors: torch.Tensor) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """Streaming multiprocessors of the card ``t`` lies on (the split
+    sums size their partial buffers by it)."""
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

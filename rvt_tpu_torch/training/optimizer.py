@@ -1,0 +1,118 @@
+"""Optimizer and learning-rate schedule.
+
+Port of ``rvt_tpu/training/optimizer.py``, which chains (under
+``optax.flatten``) a global-norm gradient clip and AdamW with a OneCycle
+schedule of two linear segments (upstream ``modules/detection.py:
+360-392``, clip 1.0 from ``train.py:122``). The update follows optax's
+arithmetic, op by op:
+
+  * clip: when ||g|| >= max_norm, g = (g / ||g||) * max_norm (optax scales
+    only then; ``clip_grad_norm_`` would add 1e-6);
+  * Adam: mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu, each divided by
+    1 - b^(count+1) in f32; u = mu_hat / (sqrt(nu_hat) + eps), eps = 1e-8
+    outside the root; decoupled weight decay u += wd * p;
+  * p += -lr(count) * u, with the schedule at count = 0 on the first step
+    (max_lr / div_factor).
+
+The moments are f32 tensors beside the parameters; the update runs as
+``torch._foreach_*`` ops over all of them. The optimizer is not a TPU
+kernel in the JAX package and is not one here.
+"""
+from __future__ import annotations
+
+from typing import Callable, Iterable, List
+
+import numpy as np
+import torch
+
+from rvt_tpu_torch.config import TrainingConfig
+
+B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule in f32: (init - end) * (1 - c / steps) + end
+    with c clipped to [0, steps]; constant ``init`` when steps <= 0."""
+    if steps <= 0:
+        return lambda count: float(np.float32(init))
+
+    def schedule(count: int) -> float:
+        c = np.float32(min(max(count, 0), steps))
+        frac = np.float32(1) - c / np.float32(steps)
+        return float(np.float32(init - end) * frac + np.float32(end))
+    return schedule
+
+
+def onecycle_schedule(cfg: TrainingConfig) -> Callable[[int], float]:
+    """The learning rate at optimizer step ``count`` (0 on the first)."""
+    s = cfg.lr_scheduler
+    max_lr = cfg.learning_rate
+    if not s.use:
+        return lambda count: float(np.float32(max_lr))
+    warmup = int(s.pct_start * s.total_steps)
+    first = _linear(max_lr / s.div_factor, max_lr, warmup)
+    second = _linear(max_lr, max_lr / s.final_div_factor,
+                     s.total_steps - warmup)
+    return lambda count: first(count) if count < warmup else second(
+        count - warmup)
+
+
+class OneCycleAdamW:
+    """Global-norm clip + AdamW + OneCycle over ``params`` (f32). ``step``
+    reads each parameter's ``.grad`` (None counts as zero), leaves it
+    unchanged, updates the parameters in place and returns the norm of the
+    raw gradients (the ``grad_norm`` metric)."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter],
+                 cfg: TrainingConfig):
+        self.params: List[torch.nn.Parameter] = list(params)
+        self.max_norm = float(cfg.gradient_clip_val)
+        self.weight_decay = float(cfg.weight_decay)
+        self.schedule = onecycle_schedule(cfg)
+        self.mu = [torch.zeros_like(p, dtype=torch.float32)
+                   for p in self.params]
+        self.nu = [torch.zeros_like(p, dtype=torch.float32)
+                   for p in self.params]
+        self.count = 0
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        norms = torch._foreach_norm(grads)
+        g_norm = torch.linalg.vector_norm(torch.stack(norms))
+        # one host read per step: the clip's branch and the metric
+        if float(g_norm) >= self.max_norm:
+            grads = torch._foreach_div(grads, g_norm)
+            torch._foreach_mul_(grads, self.max_norm)
+        t = torch._foreach_mul(grads, 1.0 - B1)
+        torch._foreach_mul_(self.mu, B1)
+        torch._foreach_add_(self.mu, t)
+        t = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(t, 1.0 - B2)
+        torch._foreach_mul_(self.nu, B2)
+        torch._foreach_add_(self.nu, t)
+        n = self.count + 1
+        bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(n))
+        bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(n))
+        mu_hat = torch._foreach_div(self.mu, bc1)
+        nu_hat = torch._foreach_div(self.nu, bc2)
+        torch._foreach_sqrt_(nu_hat)
+        torch._foreach_add_(nu_hat, EPS)
+        upd = torch._foreach_div(mu_hat, nu_hat)
+        if self.weight_decay:
+            torch._foreach_add_(upd, torch._foreach_mul(self.params,
+                                                        self.weight_decay))
+        torch._foreach_mul_(upd, -self.schedule(self.count))
+        torch._foreach_add_(self.params, upd)
+        self.count = n
+        return g_norm
+
+
+def make_optimizer(params: Iterable[torch.nn.Parameter],
+                   cfg: TrainingConfig) -> OneCycleAdamW:
+    return OneCycleAdamW(params, cfg)

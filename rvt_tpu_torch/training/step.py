@@ -1,15 +1,19 @@
-"""The streaming evaluation step.
+"""The TBPTT train step and the streaming evaluation step.
 
-Port of the serving half of ``rvt_tpu/training/step.py``: reset the LSTM
-states of restarted lanes, scan the backbone over the window on the
-hand-written kernels, gather the labelled frames, run PAFPN + YOLOX head,
-sigmoid, and the on-device confidence filter + NMS. Mirrors the upstream
-``_val_test_step_impl`` (modules/detection.py:208-280) in stream mode.
+Port of ``rvt_tpu/training/step.py``. The train step (upstream
+``modules/detection.py:104-158``): reset the LSTM states of restarted
+lanes, scan the backbone over the window with gradients on the
+hand-written forward and backward kernels, gather the labelled frames and
+their labels, run PAFPN + YOLOX head with batch-statistics BatchNorm, the
+SimOTA YOLOX loss, backpropagate, clip and AdamW. The eval step: the same
+scan without gradients, then sigmoid and the on-device confidence filter +
+NMS (``_val_test_step_impl``, modules/detection.py:208-280, stream mode).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -17,9 +21,14 @@ from rvt_tpu_torch.config import ExperimentConfig
 from rvt_tpu_torch.models.backbone import LstmStates
 from rvt_tpu_torch.models.detector import (RVTDetector,
                                            backbone_kernel_params,
-                                           fused_scan_backbone)
+                                           fused_scan_backbone,
+                                           fused_train_scan_backbone,
+                                           init_detector)
+from rvt_tpu_torch.models.yolox import make_grids_and_strides
 from rvt_tpu_torch.ops.boxes import postprocess
 from rvt_tpu_torch.ops.s2d import s2d_input_hw
+from rvt_tpu_torch.training.losses import yolox_loss
+from rvt_tpu_torch.training.optimizer import OneCycleAdamW, make_optimizer
 
 
 class EvalOutput(NamedTuple):
@@ -62,6 +71,32 @@ def gather_labeled_frames(feats: Tuple[torch.Tensor, ...],
     return tuple(gather_one(f) for f in feats), frame_idx, gathered_valid
 
 
+def head_grid(cfg: ExperimentConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """The anchors' grid cells [A, 2] and strides [A] of the head."""
+    H, W = cfg.model.backbone.in_res_hw
+    strides = tuple(cfg.model.backbone.strides[s - 1]
+                    for s in cfg.model.fpn.in_stages)
+    grid, stride = make_grids_and_strides([(H // s, W // s) for s in strides],
+                                          strides)
+    return grid, stride[:, 0]
+
+
+def gather_labels(labels: torch.Tensor, label_mask: torch.Tensor,
+                  frame_idx: torch.Tensor):
+    """labels [B, T, M, 7] storage rows (t, x, y, w, h, class, ...) of the
+    gathered frames -> YOLOX targets [B*K, M, 5] (class, cx, cy, w, h) and
+    their mask [B*K, M] (labels.py:341-355)."""
+    B, T, M, _ = labels.shape
+    K = frame_idx.shape[1]
+    lanes = torch.arange(B, device=frame_idx.device)[:, None]
+    lab = labels[lanes, frame_idx].reshape(B * K, M, 7)
+    mask = label_mask[lanes, frame_idx].reshape(B * K, M)
+    cx = lab[..., 1] + 0.5 * lab[..., 3]
+    cy = lab[..., 2] + 0.5 * lab[..., 4]
+    return torch.stack([lab[..., 5], cx, cy, lab[..., 3], lab[..., 4]],
+                       dim=-1), mask
+
+
 def pad_ev_repr(ev: torch.Tensor, target_hw: Tuple[int, int], dtype,
                 stem_s2d: bool = False) -> torch.Tensor:
     """Zero-pad bottom/right to the model resolution and convert dtype
@@ -102,6 +137,7 @@ def make_eval_step(model: RVTDetector, cfg: ExperimentConfig, *,
     def eval_step(lstm_states: LstmStates, ev_repr: torch.Tensor,
                   frame_valid: torch.Tensor,
                   is_first_sample: torch.Tensor) -> EvalOutput:
+        model.eval()  # BatchNorm on its running statistics
         lstm_states = reset_states(lstm_states, is_first_sample)
         ev_seq = pad_ev_repr(ev_repr, in_res, None, stem_s2d)
         ev_seq = ev_seq.transpose(0, 1)
@@ -122,3 +158,68 @@ def make_eval_step(model: RVTDetector, cfg: ExperimentConfig, *,
                           preds)
 
     return eval_step
+
+
+class TrainState(NamedTuple):
+    """What the train step updates: the model (parameters and BatchNorm
+    buffers) and the optimizer (moments and step count)."""
+    model: RVTDetector
+    optimizer: OneCycleAdamW
+
+
+def init_train_state(cfg: ExperimentConfig, seed: int = 0,
+                     device="cuda") -> TrainState:
+    """Random weights from ``seed`` and a fresh optimizer, on ``device``."""
+    model = init_detector(cfg.model, seed=seed, device=device)
+    return TrainState(model, make_optimizer(model.parameters(),
+                                            cfg.training))
+
+
+def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
+                    optimizer: OneCycleAdamW, *, plain: bool = False):
+    """One TBPTT window on the model's device.
+
+    ``train_step(lstm_states, ev_repr [B, T, H, W, C], labels [B, T, M, 7],
+    label_mask [B, T, M], frame_valid [B, T], is_first_sample [B])``
+    updates the model's parameters and BatchNorm buffers and the
+    optimizer in place and returns (the final LSTM states, detached: the
+    TBPTT cut; metrics ``loss``, ``iou_loss``, ``conf_loss``,
+    ``cls_loss``, ``num_fg`` and ``grad_norm``, the norm of the raw
+    gradients, which stay in each parameter's ``.grad``). ``plain=True``
+    runs the kernels' plain PyTorch versions."""
+    grid_np, stride_np = head_grid(cfg)
+    dev = next(model.parameters()).device
+    grid = torch.from_numpy(grid_np).to(dev)
+    anchor_strides = torch.from_numpy(stride_np).to(dev)
+    num_classes = cfg.model.head.num_classes
+    K = cfg.dataset.max_labeled_frames
+    in_res = cfg.model.backbone.in_res_hw
+    stem_s2d = cfg.model.backbone.stem_s2d
+
+    def train_step(lstm_states: LstmStates, ev_repr: torch.Tensor,
+                   labels: torch.Tensor, label_mask: torch.Tensor,
+                   frame_valid: torch.Tensor, is_first_sample: torch.Tensor
+                   ) -> Tuple[LstmStates, Dict[str, torch.Tensor]]:
+        lstm_states = reset_states(
+            tuple((h.detach().float(), c.detach().float())
+                  for h, c in lstm_states), is_first_sample)
+        ev_seq = pad_ev_repr(ev_repr, in_res, torch.float32,
+                             stem_s2d).transpose(0, 1)
+        model.train()  # BatchNorm on batch statistics
+        optimizer.zero_grad()
+        feats, final_states = fused_train_scan_backbone(
+            model, ev_seq, lstm_states, plain=plain)
+        gathered, frame_idx, gval = gather_labeled_frames(feats, frame_valid,
+                                                          K)
+        targets, target_mask = gather_labels(labels.float(), label_mask,
+                                             frame_idx)
+        preds = model.forward_detect(gathered)
+        losses = yolox_loss(preds, targets, target_mask, gval.reshape(-1),
+                            grid, anchor_strides, num_classes)
+        losses["loss"].backward()
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["grad_norm"] = optimizer.step()
+        return tuple((h.detach(), c.detach())
+                     for h, c in final_states), metrics
+
+    return train_step

@@ -22,6 +22,7 @@ from rvt_tpu_torch.convert.from_flax import from_flax
 from rvt_tpu_torch.models.backbone import zero_states
 from rvt_tpu_torch.models.detector import RVTDetector
 from rvt_tpu_torch.models.detector import init_detector as t_init_detector
+from rvt_tpu_torch.training.step import init_train_state
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "rvt_tpu_torch"
@@ -84,8 +85,9 @@ def test_downsample_conv_matches_jax(variables, stage, s2d):
     sp = variables["params"]["backbone"][f"stage{stage + 1}"]
     ref = j_conv(jnp.asarray(x), sp, cfg, stage == 0)
     tcfg = replace(_cfg(t_preset).model.backbone, stem_s2d=s2d)
-    got = t_conv(torch.from_numpy(x), model.backbone.stages[stage], tcfg,
-                 stage == 0)
+    with torch.no_grad():  # as the serving steps call it
+        got = t_conv(torch.from_numpy(x), model.backbone.stages[stage], tcfg,
+                     stage == 0)
     assert got.dtype == torch.bfloat16 and got.is_contiguous()
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(ref, np.float32), rtol=1e-2,
@@ -143,6 +145,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         t_init_detector(cfg.model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         zero_states(cfg.model.backbone, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(cfg)
+    state = init_train_state(cfg, device="cpu")
+    assert state.optimizer.count == 0
+    assert all(p.device.type == "cpu" for p in state.model.parameters())
     model = t_init_detector(cfg.model, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
     states = zero_states(cfg.model.backbone, 2, device="cpu")

@@ -47,8 +47,10 @@ def test_gemm_kernel(dev, epi, mkn):
     bias = _randn(dev, N, scale=0.1, seed=2)
     R = _randn(dev, M, N, dtype=torch.float32, seed=3)
     res = (lambda: R.clone()) if epi == "residual" else (lambda: None)
-    _close(fa.gemm_bf16(a, w, bias, epi, res()),
-           fa.gemm_bf16_plain(a, w, bias, epi, res()))
+    n = fa.GEMM_BF16.launches
+    got = fa.gemm_bf16(a, w, epi, bias=bias, out=res())
+    assert fa.GEMM_BF16.launches == n + 1
+    _close(got, fa.gemm_bf16(a, w, epi, bias=bias, out=res(), plain=True))
 
 
 @pytest.mark.parametrize("window", [True, False])
@@ -116,3 +118,191 @@ def test_stacked_histogram_kernel(dev, case):
     assert got.dtype == torch.uint8 and torch.equal(got, ref)
     if case == "clustered":
         assert int(got[0].max()) == 255
+
+
+def _rel_close(got, ref, tol):
+    """max |got - ref| <= tol * max |ref|: for sums whose order differs."""
+    got, ref = got.float(), ref.float()
+    scale = max(float(ref.abs().max()), 1e-6)
+    err = float((got - ref).abs().max())
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("epi", ["bias", "gelu", "residual_ls", "rt_f32",
+                                 "rt_bf16", "rt_acc", "rt_gelu_bwd"])
+@pytest.mark.parametrize("mkn", [(1000, 96, 40), (130, 256, 192)])
+def test_gemm_train_kernel(dev, epi, mkn):
+    """K2's training epilogues, ragged in M and N (40 = one partial tile)."""
+    from rvt_tpu_torch.ops import fused_attention as fa
+
+    M, K, N = mkn
+    rt = epi.startswith("rt_")
+    a = _randn(dev, M, K)
+    w = _randn(dev, *((N, K) if rt else (K, N)), scale=K ** -0.5, seed=1)
+    kw = dict(bias=_randn(dev, N, scale=0.1, seed=2))
+    if epi == "residual_ls":
+        kw.update(gamma=_randn(dev, N, scale=0.3, dtype=torch.float32,
+                               seed=4),
+                  res_in=_randn(dev, M, N, dtype=torch.float32, seed=3))
+    if epi == "rt_acc":
+        R = _randn(dev, M, N, dtype=torch.float32, seed=3)
+    if epi == "rt_gelu_bwd":
+        kw["aux"] = _randn(dev, M, N, seed=5)
+    n = fa.GEMM_BF16.launches
+    want = epi in ("gelu", "residual_ls")
+
+    def run(plain):
+        extra = dict(out=R.clone()) if epi == "rt_acc" else {}
+        return fa.gemm_bf16(a, w, epi, want_aux=want, plain=plain, **kw,
+                            **extra)
+
+    got, ref = run(False), run(True)
+    assert fa.GEMM_BF16.launches == n + 1
+    if isinstance(ref, tuple):
+        _close(got[0], ref[0])
+        if epi == "rt_gelu_bwd":
+            _rel_close(got[1], ref[1], 1e-3)
+        else:  # the bf16 value before the epilogue
+            _close(got[1], ref[1])
+    else:
+        _close(got, ref)
+    if epi == "residual_ls":  # in place: out is res_in
+        R2 = kw["res_in"].clone()
+        out = fa.gemm_bf16(a, w, epi, out=R2, **dict(kw, res_in=R2))
+        _close(out, ref[0])
+
+
+@pytest.mark.parametrize("mkn", [(1000, 96, 40), (70000, 64, 192),
+                                 (3000, 512, 256)])
+def test_wgrad_kernel(dev, mkn):
+    """K6 with one and many row splits (ragged rows, a partial tile)."""
+    from rvt_tpu_torch.ops import fused_attention as fa
+
+    M, Ka, Nb = mkn
+    a, b = _randn(dev, M, Ka), _randn(dev, M, Nb, seed=1)
+    got = fa.gemm_bf16_wgrad(a, b)
+    _rel_close(got, fa.gemm_bf16_wgrad_plain(a, b), 1e-4)
+    assert torch.equal(got, fa.gemm_bf16_wgrad(a, b))  # deterministic
+
+
+@pytest.mark.parametrize("C", [32, 64, 512])
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+def test_ln_rows_bwd_kernel(dev, C, xdtype):
+    from rvt_tpu_torch.ops import fused_attention as fa
+
+    M = 1000
+    x = _randn(dev, M, C, scale=2.0, dtype=xdtype)
+    dy = _randn(dev, M, C, dtype=torch.float32, seed=1)
+    s = _randn(dev, C, seed=2) + 1
+    dres = _randn(dev, M, C, dtype=torch.float32, seed=3)
+    dx, ds, db = fa.ln_rows_bwd_plain(x, dy, s, 1e-5)
+    got, gs, gb = fa.ln_rows_bwd(x, dy, s, 1e-5, dres=dres.clone())
+    _close(got, dres + dx, atol=1e-4, rtol=1e-4)
+    _rel_close(gs, ds, 1e-4)
+    _rel_close(gb, db, 1e-4)
+    got_b, _, _ = fa.ln_rows_bwd(x, dy, s, 1e-5)
+    assert got_b.dtype == torch.bfloat16
+    _close(got_b, dx)
+
+
+@pytest.mark.parametrize("window", [True, False])
+@pytest.mark.parametrize("geom", [(16, 20, 64, 32, (8, 10)),
+                                  (12, 12, 32, 16, (2, 3)),
+                                  (16, 16, 128, 64, (8, 16))])
+def test_partition_attention_bwd_kernel(dev, window, geom):
+    """K7 at 80 tokens, at 6 (padded to 16) and at its limits (128 tokens,
+    dh 64)."""
+    from rvt_tpu_torch.ops import fused_attention as fa
+
+    H, W, C, dh, part = geom
+    qkv = _randn(dev, 3, H, W, 3 * C)
+    do = _randn(dev, 3, H, W, C, seed=1)
+    kw = dict(heads=C // dh, dim_head=dh, part=part, window=window)
+    n = fa.PARTITION_ATTENTION_BWD.launches
+    got = fa.partition_attention_bwd(qkv, do, **kw)
+    assert fa.PARTITION_ATTENTION_BWD.launches == n + 1
+    ref = fa.partition_attention_bwd(qkv, do, plain=True, **kw)
+    _close(got, ref, atol=2e-2, rtol=2e-2)
+
+
+def test_train_reduce_kernels(dev):
+    from rvt_tpu_torch.ops import fused_attention as fa
+
+    x = _randn(dev, 5000, 96, dtype=torch.float32)
+    _rel_close(fa.col_sum(x), x.sum(0), 1e-5)
+    _rel_close(fa.col_sum(x.to(torch.bfloat16)),
+               x.to(torch.bfloat16).float().sum(0), 1e-5)
+    v, g = _randn(dev, 5000, 96, seed=1), _randn(dev, 96, dtype=torch.float32,
+                                                 seed=2)
+    got = fa.layer_scale_bwd(x, v, g)
+    ref = fa.layer_scale_bwd_plain(x, v, g)
+    assert torch.equal(got[0], ref[0])
+    _rel_close(got[1], ref[1], 1e-5)
+    _rel_close(got[2], ref[2], 1e-5)
+
+
+@pytest.mark.parametrize("C", [32, 128, 256])
+def test_lstm_scan_bwd_kernel(dev, C):
+    """K4 with c_seq, then K8 + K6 against the plain BPTT (35 pixels: a
+    ragged last tile of 16)."""
+    from rvt_tpu_torch.ops import fused_scan as fs
+
+    T, B, H, W = 4, 2, 5, 7
+    x = _randn(dev, T, B, H, W, C, dtype=torch.float32)
+    w = _randn(dev, 2 * C, 4 * C, scale=(2 * C) ** -0.5, seed=1)
+    b = _randn(dev, 4 * C, scale=0.1, seed=2)
+    h0 = _randn(dev, B, H, W, C, scale=0.5, dtype=torch.float32, seed=3)
+    c0 = _randn(dev, B, H, W, C, scale=0.5, dtype=torch.float32, seed=4)
+    got = fs.fused_lstm_scan(x, w, b, h0, c0, with_c_seq=True)
+    ref = fs.fused_lstm_scan(x, w, b, h0, c0, with_c_seq=True, plain=True)
+    for g_, r_ in zip(got, ref):
+        _close(g_, r_, atol=2e-2, rtol=2e-2)
+    h_seq, c_seq = ref[0], ref[1]
+    dh_seq = _randn(dev, T, B, H, W, C, seed=5)
+    dhT = _randn(dev, B, H, W, C, dtype=torch.float32, seed=6)
+    dcT = _randn(dev, B, H, W, C, dtype=torch.float32, seed=7)
+    args = (x, w, b, h0, c0, h_seq, c_seq, dh_seq, dhT, dcT)
+    n = fs.LSTM_SCAN_BWD.launches
+    got = fs.lstm_scan_bwd(*args)
+    assert fs.LSTM_SCAN_BWD.launches == n + 1
+    ref = fs.lstm_scan_bwd(*args, plain=True)
+    for name, g_, r_ in zip(("dx", "dW", "db", "dh0", "dc0"), got, ref):
+        _rel_close(g_, r_, 2e-2)
+
+
+def test_pair_train_kernels_vs_plain(dev):
+    """FusedPairTrain forward and backward on the kernels against the same
+    Function on the plain versions, on the card."""
+    from rvt_tpu_torch.ops import fused_train as ft
+
+    H, W, C, dh, part, N = 16, 10, 64, 32, (8, 10), 4
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def leaf(*shape, scale=1.0, offset=0.0, dtype=torch.bfloat16):
+        t = torch.randn(shape, generator=g, device=dev) * scale + offset
+        return t.to(dtype).requires_grad_(True)
+
+    def block(sfn):
+        out = [] if sfn else [leaf(C, scale=0.2, offset=1), leaf(C, scale=0.2)]
+        return out + [leaf(C, 3 * C, scale=C ** -0.5), leaf(3 * C, scale=0.1),
+                      leaf(C, C, scale=C ** -0.5), leaf(C, scale=0.1),
+                      leaf(C, scale=0.1, offset=0.3, dtype=torch.float32),
+                      leaf(C, scale=0.2, offset=1), leaf(C, scale=0.2),
+                      leaf(C, 4 * C, scale=C ** -0.5), leaf(4 * C, scale=0.1),
+                      leaf(4 * C, C, scale=(4 * C) ** -0.5), leaf(C, scale=0.1),
+                      leaf(C, scale=0.1, offset=0.3, dtype=torch.float32)]
+
+    x = leaf(N, H, W, C, scale=2.0)
+    prm = [leaf(C, scale=0.2, offset=1), leaf(C, scale=0.2)] + block(True) \
+        + block(False)
+    wgt = torch.randn((N, H, W, C), generator=g, device=dev)
+    outs = []
+    for plain in (False, True):
+        for t in [x] + prm:
+            t.grad = None
+        cfg = ft.StageCfg(C // dh, dh, part, 1e-5, 1e-5, plain)
+        y = ft.FusedPairTrain.apply(cfg, x, *prm)
+        (y * wgt).sum().backward()
+        outs.append([y.detach()] + [t.grad.clone() for t in [x] + prm])
+    for got, ref in zip(*outs):
+        _rel_close(got, ref, 2e-2)

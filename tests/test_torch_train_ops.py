@@ -1,0 +1,236 @@
+"""The port's train-layout stage (rvt_tpu_torch.ops.fused_train, plain
+PyTorch versions of the kernels on the CPU) against the JAX package's
+``fused_pair_train`` / ``fused_lstm_scan_train`` in interpret mode, forward
+and every gradient, at (16, 10, 32), partition (8, 10), dh 32; and the
+train-mode BatchNorm against flax's."""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from rvt_tpu.ops import fused_train as jft
+from rvt_tpu_torch.ops import fused_train as tft
+
+H, W, C, PART, DH = 16, 10, 32, (8, 10), 32
+T, B = 3, 2
+EPS = 1e-5
+
+# Tolerances, relative to max |ref| of each tensor. Both sides run the same
+# arithmetic with the same bf16 rounding points; they differ in the order
+# of f32 sums (XLA's dot and reductions vs PyTorch's), which moves a bf16
+# rounding (of dS, dmix, the products' outputs) by one ulp now and then:
+# the largest seen is 0.006 (1.5 bf16 ulps). The JAX suite holds its
+# fused kernels against its XLA path at 6e-2 / 8e-2.
+FWD_TOL = 5e-3
+GRAD_TOL = 1.2e-2
+
+
+def _block(rng, sfn):
+    """One sub-block in the train layout (``train_block_params``), as
+    float32 numpy arrays of bf16-exact weights, and the dtype of each."""
+    def bf(a):
+        return np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+    leaves = []
+    if not sfn:
+        leaves += [(bf(1 + 0.2 * rng.randn(C)), "bf16"),
+                   (bf(0.2 * rng.randn(C)), "bf16")]
+    leaves += [(bf(rng.randn(C, 3 * C) * C ** -0.5), "bf16"),
+               (bf(0.1 * rng.randn(3 * C)), "bf16"),
+               (bf(rng.randn(C, C) * C ** -0.5), "bf16"),
+               (bf(0.1 * rng.randn(C)), "bf16"),
+               ((0.3 + 0.1 * rng.randn(C)).astype(np.float32), "f32"),
+               (bf(1 + 0.2 * rng.randn(C)), "bf16"),
+               (bf(0.2 * rng.randn(C)), "bf16"),
+               (bf(rng.randn(C, 4 * C) * C ** -0.5), "bf16"),
+               (bf(0.1 * rng.randn(4 * C)), "bf16"),
+               (bf(rng.randn(4 * C, C) * (4 * C) ** -0.5), "bf16"),
+               (bf(0.1 * rng.randn(C)), "bf16"),
+               ((0.3 + 0.1 * rng.randn(C)).astype(np.float32), "f32")]
+    return leaves
+
+
+def _jax(a, kind):
+    dt = jnp.bfloat16 if kind == "bf16" else jnp.float32
+    return jnp.asarray(a if a.ndim > 1 else a.reshape(1, -1), dt)
+
+
+def _torch(a, kind):
+    dt = torch.bfloat16 if kind == "bf16" else torch.float32
+    return torch.from_numpy(a).to(dt).requires_grad_(True)
+
+
+def _rel(got, ref):
+    got = np.asarray(got, np.float32).reshape(np.shape(ref))
+    ref = np.asarray(ref, np.float32)
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-6))
+
+
+@pytest.fixture(scope="module")
+def pair_case():
+    rng = np.random.RandomState(0)
+    N = T * B
+    x = np.asarray(jnp.asarray(rng.randn(N, H, W, C) * 2 + 0.3,
+                               jnp.bfloat16), np.float32)
+    ds = [(np.asarray(jnp.asarray(1 + 0.2 * rng.randn(C), jnp.bfloat16),
+                      np.float32), "bf16"),
+          (np.asarray(jnp.asarray(0.2 * rng.randn(C), jnp.bfloat16),
+                      np.float32), "bf16")]
+    win, grid = _block(rng, True), _block(rng, False)
+    wgt = rng.randn(N, H, W, C).astype(np.float32)
+
+    cfg = (C // DH, DH, PART, EPS, EPS, False, True)
+
+    def jloss(x, ds_s, ds_b, win, grid):
+        y = jft.fused_pair_train(cfg, x, ds_s, ds_b, tuple(win), tuple(grid))
+        return jnp.sum(y * wgt), y
+
+    jargs = (jnp.asarray(x, jnp.bfloat16), _jax(*ds[0]), _jax(*ds[1]),
+             [_jax(*l) for l in win], [_jax(*l) for l in grid])
+    (_, jy), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3, 4),
+                                     has_aux=True)(*jargs)
+
+    tx = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+    tds = [_torch(*l) for l in ds]
+    twin = [_torch(*l) for l in win]
+    tgrid = [_torch(*l) for l in grid]
+    cfg_t = tft.StageCfg(C // DH, DH, PART, EPS, EPS)
+    ty = tft.FusedPairTrain.apply(cfg_t, tx, *tds, *twin, *tgrid)
+    (ty * torch.from_numpy(wgt)).sum().backward()
+    return jy, jg, ty, tx, tds, twin, tgrid
+
+
+def test_pair_forward_matches_jax(pair_case):
+    jy, _, ty, *_ = pair_case
+    assert ty.dtype == torch.float32
+    assert _rel(ty.detach().numpy(), jy) < FWD_TOL
+
+
+def test_pair_grads_match_jax(pair_case):
+    _, jg, _, tx, tds, twin, tgrid = pair_case
+    jx, jds_s, jds_b, jwin, jgrid = jg
+    pairs = ([("x", tx, jx), ("ds_s", tds[0], jds_s),
+              ("ds_b", tds[1], jds_b)]
+             + [(f"win{i}", t, j) for i, (t, j) in enumerate(zip(twin, jwin))]
+             + [(f"grid{i}", t, j)
+                for i, (t, j) in enumerate(zip(tgrid, jgrid))])
+    for name, t, j in pairs:
+        # gradients leave in their parameter's dtype, as the JAX VJP's do
+        assert t.grad.dtype == t.dtype, name
+        assert str(j.dtype) == {torch.bfloat16: "bfloat16",
+                                torch.float32: "float32"}[t.dtype], name
+        err = _rel(t.grad.float().numpy(), j)
+        assert err < GRAD_TOL, (name, err)
+
+
+@pytest.fixture(scope="module")
+def lstm_case():
+    rng = np.random.RandomState(1)
+    x = (rng.randn(T, B, H, W, C) * 1.5).astype(np.float32)
+    w = np.asarray(jnp.asarray(rng.randn(2 * C, 4 * C) * (2 * C) ** -0.5,
+                               jnp.bfloat16), np.float32)
+    b = np.asarray(jnp.asarray(0.1 * rng.randn(4 * C), jnp.bfloat16),
+                   np.float32)
+    h0 = (rng.randn(B, H, W, C) * 0.3).astype(np.float32)
+    c0 = (rng.randn(B, H, W, C) * 0.3).astype(np.float32)
+    wh = rng.randn(T, B, H, W, C).astype(np.float32)
+    wT = rng.randn(B, H, W, C).astype(np.float32)
+
+    def total(h_seq, hT, cT, lib):
+        if lib is jnp:
+            hs = h_seq.astype(jnp.float32)
+        else:
+            hs = h_seq.float()
+            wh_, wT_ = torch.from_numpy(wh), torch.from_numpy(wT)
+            return ((hs * wh_).sum() + (hT * wT_).sum()
+                    + 0.5 * (torch.tanh(cT) * wT_).sum())
+        return (jnp.sum(hs * wh) + jnp.sum(hT * wT)
+                + 0.5 * jnp.sum(jnp.tanh(cT) * wT))
+
+    def jloss(x, w, b, h0, c0):
+        out = jft.fused_lstm_scan_train(True, x, w, b, h0, c0)
+        return total(*out, jnp), out
+
+    jargs = (jnp.asarray(x), jnp.asarray(w, jnp.bfloat16),
+             jnp.asarray(b.reshape(1, -1), jnp.bfloat16), jnp.asarray(h0),
+             jnp.asarray(c0))
+    (_, jout), jg = jax.value_and_grad(jloss, argnums=tuple(range(5)),
+                                       has_aux=True)(*jargs)
+    targs = [torch.from_numpy(x).requires_grad_(True),
+             torch.from_numpy(w).to(torch.bfloat16).requires_grad_(True),
+             torch.from_numpy(b).to(torch.bfloat16).requires_grad_(True),
+             torch.from_numpy(h0).requires_grad_(True),
+             torch.from_numpy(c0).requires_grad_(True)]
+    tout = tft.FusedLstmScanTrain.apply(False, *targs)
+    total(*tout, torch).backward()
+    return jout, jg, tout, targs
+
+
+def test_lstm_scan_forward_matches_jax(lstm_case):
+    jout, _, tout, _ = lstm_case
+    assert tout[0].dtype == torch.bfloat16
+    for name, t, j in zip(("h_seq", "h_T", "c_T"), tout, jout):
+        assert _rel(t.detach().float().numpy(), j) < FWD_TOL, name
+
+
+def test_lstm_scan_grads_match_jax(lstm_case):
+    _, jg, _, targs = lstm_case
+    for name, t, j in zip(("x", "w", "b", "h0", "c0"), targs, jg):
+        assert t.grad.dtype == t.dtype, name
+        err = _rel(t.grad.float().numpy(), j)
+        assert err < GRAD_TOL, (name, err)
+
+
+def test_batch_norm_train_mode_matches_flax():
+    """A train-mode BaseConv (bf16 conv, flax BatchNorm on batch
+    statistics): output, updated running buffers (biased variance,
+    momentum 0.9) and gradients against flax's."""
+    from rvt_tpu.models.yolox import BaseConv as JBaseConv
+    from rvt_tpu_torch.models.yolox import BaseConv
+
+    rng = np.random.RandomState(4)
+    x = rng.randn(4, 6, 8, 16).astype(np.float32)
+    jm = JBaseConv(features=24, ksize=3, stride=1, dtype=jnp.bfloat16)
+    v = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    v = jax.tree.map(
+        lambda a: a + 0.1 * jnp.asarray(rng.randn(*a.shape), a.dtype), v)
+    wgt = rng.randn(4, 6, 8, 24).astype(np.float32)
+
+    def jloss(params):
+        y, mut = jm.apply({"params": params,
+                           "batch_stats": v["batch_stats"]},
+                          jnp.asarray(x), True, mutable=["batch_stats"])
+        return jnp.sum(y * wgt), (y, mut)
+
+    (_, (jy, mut)), jg = jax.value_and_grad(jloss, has_aux=True)(v["params"])
+    tm = BaseConv(16, 24, 3, 1)
+    p, bs = v["params"], v["batch_stats"]
+    with torch.no_grad():
+        tm.conv.weight.copy_(torch.from_numpy(
+            np.asarray(p["conv"]["kernel"]).transpose(3, 2, 0, 1).copy()))
+        tm.bn.weight.copy_(torch.from_numpy(np.asarray(p["bn"]["scale"])))
+        tm.bn.bias.copy_(torch.from_numpy(np.asarray(p["bn"]["bias"])))
+        tm.bn.running_mean.copy_(torch.from_numpy(
+            np.asarray(bs["bn"]["mean"])))
+        tm.bn.running_var.copy_(torch.from_numpy(np.asarray(bs["bn"]["var"])))
+    tm.train()
+    y = tm(torch.from_numpy(x).permute(0, 3, 1, 2), torch.bfloat16)
+    (y.permute(0, 2, 3, 1) * torch.from_numpy(wgt)).sum().backward()
+    # f32 statistics and affine on identical bf16 conv outputs: f32 noise
+    np.testing.assert_allclose(y.permute(0, 2, 3, 1).detach().numpy(),
+                               np.asarray(jy), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(tm.bn.running_mean.numpy(),
+                               np.asarray(mut["batch_stats"]["bn"]["mean"]),
+                               atol=1e-6)
+    np.testing.assert_allclose(tm.bn.running_var.numpy(),
+                               np.asarray(mut["batch_stats"]["bn"]["var"]),
+                               rtol=1e-5)
+    for got, ref in ((tm.bn.weight.grad, jg["bn"]["scale"]),
+                     (tm.bn.bias.grad, jg["bn"]["bias"])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-4)
+    # the conv weight gradient is a bf16 product on both sides: one ulp
+    ref = np.asarray(jg["conv"]["kernel"])
+    got = tm.conv.weight.grad.numpy().transpose(2, 3, 1, 0)
+    assert np.abs(got - ref).max() <= 2 ** -7 * np.abs(ref).max()

@@ -24,15 +24,14 @@ class _FakeLib:
         self.name = name
 
     def __getattr__(self, fn):
-        expected, argtypes = kernels.SIGNATURES[self.name]
-        assert fn == expected
+        argtypes = kernels.SIGNATURES[self.name][fn]
 
         def launch(*args):
             assert len(args) == len(argtypes), (fn, len(args))
             for a, t in zip(args, argtypes):
                 if t is ctypes.c_void_p:
                     assert a is None or isinstance(a, (ctypes.c_void_p, int))
-                elif t is ctypes.c_int:
+                elif t in (ctypes.c_int, ctypes.c_long):
                     assert type(a) is int, (fn, a)
                 else:
                     assert type(a) is float, (fn, a)
@@ -48,6 +47,7 @@ def fake_cuda(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     for mod in (fa, fs, vx):
         monkeypatch.setattr(mod, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(fa, "sm_count", lambda t: 132)
     _FakeLib.calls = []
     return _FakeLib.calls
 
@@ -64,11 +64,11 @@ def test_wrappers_launch_once_and_count(fake_cuda):
                        with_f32=True)
     assert y.dtype == torch.bfloat16 and yf.dtype == torch.float32
     for epi in ("bias", "gelu"):
-        assert fa.gemm_bf16(_bf(40, 64), _bf(64, 96), _bf(96), epi).shape \
-            == (40, 96)
+        assert fa.gemm_bf16(_bf(40, 64), _bf(64, 96), epi,
+                            bias=_bf(96)).shape == (40, 96)
     R = torch.zeros(40, 96)
-    assert fa.gemm_bf16(_bf(40, 64), _bf(64, 96), _bf(96), "residual",
-                        R) is R
+    assert fa.gemm_bf16(_bf(40, 64), _bf(64, 96), "residual", bias=_bf(96),
+                        out=R) is R
     o = fa.partition_attention(_bf(2, 16, 20, 192), heads=2, dim_head=32,
                                part=(8, 10), window=False)
     assert o.shape == (2, 16, 20, 64)
@@ -88,7 +88,9 @@ def test_wrappers_launch_once_and_count(fake_cuda):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(fake_cuda):
     with pytest.raises(ValueError):  # K not a multiple of 8
-        fa.gemm_bf16(_bf(40, 12), _bf(12, 96), _bf(96), "bias")
+        fa.gemm_bf16(_bf(40, 12), _bf(12, 96), "bias", bias=_bf(96))
+    with pytest.raises(ValueError):  # the residual epilogue adds into out
+        fa.gemm_bf16(_bf(40, 64), _bf(64, 96), "residual", bias=_bf(96))
     with pytest.raises(ValueError):  # f32 qkv
         fa.partition_attention(torch.randn(2, 16, 20, 192), heads=2,
                                dim_head=32, part=(8, 10), window=True)
@@ -106,4 +108,72 @@ def test_wrappers_reject_what_the_kernels_do_not_take(fake_cuda):
         vx.stacked_histogram_batched(*ev, ev[0],
                                      torch.full((2,), 90, dtype=torch.int32),
                                      10, 24, 32, count_cutoff=300)
+    assert fake_cuda == []
+
+
+def test_train_wrappers_launch_once_and_count(fake_cuda):
+    """The training kernels' wrappers: one launch each (plus the in-order
+    sum of their partials, ``rvt_sum_parts``), counted where they launch."""
+    counters = (fa.GEMM_BF16, fa.LN_ROWS_BWD, fa.GEMM_BF16_WGRAD,
+                fa.PARTITION_ATTENTION_BWD, fa.TRAIN_REDUCE, fs.LSTM_SCAN,
+                fs.LSTM_SCAN_BWD)
+    before = [c.launches for c in counters]
+    a, w = _bf(40, 64), _bf(64, 96)
+    g, h1 = fa.gemm_bf16(a, w, "gelu", bias=_bf(96), want_aux=True)
+    assert g.shape == h1.shape == (40, 96) and h1.dtype == torch.bfloat16
+    R = torch.zeros(40, 96)
+    out = fa.gemm_bf16(a, w, "residual_ls", bias=_bf(96),
+                       gamma=torch.ones(96), res_in=R, out=R)
+    assert out is R
+    d, db = fa.gemm_bf16(_bf(40, 64), _bf(96, 64), "rt_gelu_bwd", aux=h1)
+    assert d.dtype == torch.bfloat16 and db.shape == (96,)
+    assert fa.gemm_bf16(_bf(40, 96), w, "rt_f32").dtype == torch.float32
+    dx, ds, dbias = fa.ln_rows_bwd(torch.randn(40, 64), torch.randn(40, 64),
+                                   _bf(64), 1e-5)
+    assert dx.dtype == torch.bfloat16 and ds.shape == dbias.shape == (64,)
+    assert fa.gemm_bf16_wgrad(_bf(5000, 64), _bf(5000, 96)).shape == (64, 96)
+    dqkv = fa.partition_attention_bwd(_bf(2, 16, 20, 192), _bf(2, 16, 20, 64),
+                                      heads=2, dim_head=32, part=(8, 10),
+                                      window=True)
+    assert dqkv.shape == (2, 16, 20, 192)
+    dm, dlb, dg = fa.layer_scale_bwd(torch.randn(40, 64), _bf(40, 64),
+                                     torch.ones(64))
+    assert dm.dtype == torch.bfloat16 and dg.shape == (64,)
+    assert fa.col_sum(_bf(40, 64)).shape == (64,)
+    T, B, H, W, C = 3, 2, 4, 5, 64
+    z = torch.zeros(B, H, W, C)
+    h_seq, c_seq, hT, cT = fs.fused_lstm_scan(
+        torch.randn(T, B, H, W, C), _bf(2 * C, 4 * C), _bf(4 * C), z, z,
+        with_c_seq=True)
+    assert c_seq.dtype == torch.float32 and c_seq.shape == (T, B, H, W, C)
+    dxs, dW, dlb, dh0, dc0 = fs.lstm_scan_bwd(
+        torch.randn(T, B, H, W, C), _bf(2 * C, 4 * C), _bf(4 * C), z, z,
+        _bf(T, B, H, W, C), torch.randn(T, B, H, W, C), _bf(T, B, H, W, C),
+        z, z)
+    assert dxs.dtype == torch.float32 and dh0.shape == (B, H, W, C)
+    assert fake_cuda == (
+        ["rvt_gemm_bf16"] * 2 + ["rvt_gemm_bf16", "rvt_sum_parts"]
+        + ["rvt_gemm_bf16"] + ["rvt_ln_rows_bwd", "rvt_sum_parts"]
+        + ["rvt_gemm_bf16_wgrad", "rvt_sum_parts"]
+        + ["rvt_partition_attention_bwd"] + ["rvt_ls_bwd", "rvt_sum_parts"]
+        + ["rvt_colsum", "rvt_sum_parts"] + ["rvt_lstm_scan"]
+        + ["rvt_lstm_scan_bwd", "rvt_gemm_bf16_wgrad", "rvt_sum_parts",
+           "rvt_sum_parts"])
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        4, 1, 2, 1, 9, 1, 1]
+
+
+def test_train_wrappers_reject_what_the_kernels_do_not_take(fake_cuda):
+    with pytest.raises(ValueError):  # C = 96 is not a power of two
+        fa.ln_rows_bwd(torch.randn(40, 96), torch.randn(40, 96), _bf(96),
+                       1e-5)
+    with pytest.raises(ValueError):  # 8 x 20 = 160 tokens > 128
+        fa.partition_attention_bwd(_bf(2, 16, 20, 192), _bf(2, 16, 20, 64),
+                                   heads=2, dim_head=32, part=(8, 20),
+                                   window=False)
+    with pytest.raises(ValueError):  # rt_gelu_bwd needs the bf16 h1
+        fa.gemm_bf16(_bf(40, 96), _bf(64, 96), "rt_gelu_bwd",
+                     aux=torch.randn(40, 64))
+    with pytest.raises(ValueError):  # f32 operands
+        fa.gemm_bf16_wgrad(torch.randn(64, 8), torch.randn(64, 8))
     assert fake_cuda == []

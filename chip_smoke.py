@@ -49,7 +49,23 @@ Phases, each of which raises (exit code != 0) when it fails:
      buffers, optimizer and states, the kernel step's head fed the plain
      step's features with the kernel backbone's gradient (features, loss
      parts, each gradient leaf, grad_norm, final states, buffers);
-  8. check that the calls each kernel was timed at per step are the
+  8. run the per-step train backbone (``fused_train_scan_backbone(
+     per_step=True)``: row 7, ``fused_stage_step_train``, at every stage
+     and time step) over the train cell's window with the states carried,
+     one forward and backward under a fixed linear loss; check that every
+     kernel was launched and row 7 once per stage and step; hold it
+     against the whole-window path (forward bit for bit, each gradient
+     leaf within 2e-2 of its max|ref|) and against its plain versions
+     (features and states as phase 7, each leaf within 5e-2); time every
+     kernel at the per-step shapes and row 7 per call at each stage;
+  9. run the Trainer at gen1 RVT-B with token masking (4 batches of the
+     train cell's shape, masks of ~20 % of the stage-1 tokens; logging
+     every step, checkpoints at 2 and 4 published to an artifact registry,
+     the gradflow and detection variants on their cadences), then a fresh
+     Trainer's ``restore()`` and another's ``restore_from_artifact``, each
+     held bit for bit and taking one more finite step; print ms per step
+     and frames/s;
+ 10. check that the calls each kernel was timed at per step are the
      launches its paths made per step; print the kernels line (per
      kernel: launches by path, and ms, plain, bound and library summed
      over one step of each path it serves, and by path), then the device
@@ -72,6 +88,7 @@ PEAK_F32_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 BATCH, SEQ_LEN, LABEL_EVERY, WINDOWS = 8, 21, 5, 4
 TRAIN_STEPS = 5
+STEP_SEQ_LEN = SEQ_LEN  # the per-step backbone's window (phase 8)
 EVENTS, RAW_FRAMES, RAW_CALLS = 32768, 4, 21
 STAGES = ((64, 80, 64), (32, 40, 128), (16, 20, 256), (8, 10, 512))
 PART, DIM_HEAD = (8, 10), 32
@@ -116,17 +133,27 @@ class Record:
     def add(self, path, count, err, ms, plain_ms, nbytes, ops, peak, lib_ms,
             launches_per_call=1):
         """``count`` calls per ``path`` step of a function timed at ``ms``
-        per call, which launches the kernel ``launches_per_call`` times."""
+        per call, which launches the kernel ``launches_per_call`` times.
+        ``path`` may be a dict {path: calls per step}, each multiplied by
+        ``count``."""
         d = self.d
         d["max_abs_err"] = max(d["max_abs_err"], err)
         b_ms, o_ms = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+        counts = {p: n * count for p, n in (
+            path.items() if isinstance(path, dict) else ((path, 1),))}
         log(f"    per call: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {lib} ms, bound {max(b_ms, o_ms):.4f} ms "
             f"({'bytes' if b_ms >= o_ms else 'operations'}); "
-            f"{count} per {path}")
-        if count == 0:
-            return
+            + ", ".join(f"{n} per {p}" for p, n in counts.items()))
+        for path, count in counts.items():
+            if count:
+                self._accumulate(path, count, ms, plain_ms, b_ms, o_ms,
+                                 lib_ms, launches_per_call)
+
+    def _accumulate(self, path, count, ms, plain_ms, b_ms, o_ms, lib_ms,
+                    launches_per_call):
+        d = self.d
         q = self.paths.setdefault(path, dict(
             launches=0, ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
             library_ms=None))
@@ -200,7 +227,7 @@ def check_kernels():
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
     T, B, n_frames = SEQ_LEN, BATCH, SEQ_LEN * BATCH
-    for (H, W, C) in STAGES:
+    for si, (H, W, C) in enumerate(STAGES):
         M = n_frames * H * W
         log(f"stage {H}x{W}x{C}: {n_frames} frames, {M} rows")
         s, b = randn(C, scale=0.2) + 1.0, randn(C, scale=0.2)
@@ -215,10 +242,13 @@ def check_kernels():
             pms = time_ms(lambda: fa.ln_rows_plain(x, s, b, 1e-5))
             sw, bw = s.to(dtype), b.to(dtype)
             lms = time_ms(lambda: F.layer_norm(x, (C,), sw, bw, 1e-5))
-            for path, n in (("eval step", count), ("train step", 2 * count)):
-                recs["ln_rows"].add(path, n, err, ms, pms,
-                                    M * C * (x.element_size() + 2) + 4 * C,
-                                    8 * M * C, PEAK_F32_FLOPS, lms)
+            # the trainer's stage 1 takes a normed, masked input: no ds-LN
+            masked = si == 0 and dtype == torch.bfloat16
+            recs["ln_rows"].add(
+                {"eval step": count, "train step": 2 * count,
+                 "trainer": 0 if masked else 2 * count}, 1, err, ms, pms,
+                M * C * (x.element_size() + 2) + 4 * C, 8 * M * C,
+                PEAK_F32_FLOPS, lms)
         # K2: every product of the two sub-blocks
         for label, K, N, epi in (("qkv", C, 3 * C, "bias"),
                                  ("proj", C, C, "residual"),
@@ -265,11 +295,11 @@ def check_kernels():
                                    dtype=torch.bfloat16) for _ in range(3)]
             lms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
             # the train step: the forward and the backward's recompute
-            for path, n in (("eval step", 1), ("train step", 2)):
-                recs["partition_attention"].add(
-                    path, n, err, ms, pms, M * 4 * C * 2,
-                    4 * n_frames * parts * heads * n_tok * n_tok * DIM_HEAD,
-                    PEAK_BF16_FLOPS, lms)
+            recs["partition_attention"].add(
+                {"eval step": 1, "train step": 2, "trainer": 2}, 1, err, ms,
+                pms, M * 4 * C * 2,
+                4 * n_frames * parts * heads * n_tok * n_tok * DIM_HEAD,
+                PEAK_BF16_FLOPS, lms)
         # K4: the window scan on the f32 residual (main path) and T = 1
         w = randn(2 * C, 4 * C, scale=(2 * C) ** -0.5)
         bias = randn(4 * C, scale=0.1)
@@ -698,10 +728,69 @@ class first_pass_only:
         self.fa.sum_parts = self.saved
 
 
-def check_train_kernels(recs):
+MASKED_PATHS = ("trainer",)  # stage 1's input arrives normed: no ds-LN
+
+
+def check_fwd_kernels(recs, paths, paths_ds, g, n_frames, H, W, C):
+    """K1 and K3 of a train path's forward and recompute at n_frames
+    frames of one stage, against their plain versions, with their calls
+    per step of ``paths`` (``paths_ds`` for the downsample LN)."""
+    import torch
+    import torch.nn.functional as F
+
+    from rvt_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    M = n_frames * H * W
+    s, b = randn(C, scale=0.2) + 1.0, randn(C, scale=0.2)
+    # the ds-LN (bf16 in) and LN1, LN2 x 2 (f32), forward and recompute
+    for dtype, count, where in ((torch.bfloat16, 2, paths_ds),
+                                (torch.float32, 6, paths)):
+        x = randn(M, C, scale=2.0, dtype=dtype) + 0.5
+        err = compare(f"ln_rows[{str(dtype)[6:]}]", fa.ln_rows(x, s, b, 1e-5),
+                      fa.ln_rows_plain(x, s, b, 1e-5), 3.2e-2, 1e-2)
+        ms = time_ms(lambda: fa.ln_rows(x, s, b, 1e-5))
+        pms = time_ms(lambda: fa.ln_rows_plain(x, s, b, 1e-5))
+        sw, bw = s.to(dtype), b.to(dtype)
+        lms = time_ms(lambda: F.layer_norm(x, (C,), sw, bw, 1e-5))
+        recs["ln_rows"].add(where, count, err, ms, pms,
+                            M * C * (x.element_size() + 2) + 4 * C,
+                            8 * M * C, PEAK_F32_FLOPS, lms)
+    heads, n_tok = C // DIM_HEAD, PART[0] * PART[1]
+    parts = (H // PART[0]) * (W // PART[1])
+    qkv = randn(n_frames, H, W, 3 * C)
+    q, k, v = [randn(n_frames * parts, heads, n_tok, DIM_HEAD)
+               for _ in range(3)]
+    for window in (True, False):
+        kw = dict(heads=heads, dim_head=DIM_HEAD, part=PART, window=window)
+        err = compare(f"partition_attention[{'window' if window else 'grid'}]",
+                      fa.partition_attention(qkv, **kw),
+                      fa.partition_attention_plain(qkv, heads, DIM_HEAD, PART,
+                                                   window), 3.2e-2, 1e-2)
+        ms = time_ms(lambda: fa.partition_attention(qkv, **kw))
+        pms = time_ms(lambda: fa.partition_attention_plain(
+            qkv, heads, DIM_HEAD, PART, window))
+        lms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        recs["partition_attention"].add(
+            paths, 2, err, ms, pms, M * 4 * C * 2,
+            4 * n_frames * parts * heads * n_tok * n_tok * DIM_HEAD,
+            PEAK_BF16_FLOPS, lms)
+
+
+def check_train_kernels(recs, frames=SEQ_LEN * BATCH, steps=SEQ_LEN,
+                        paths=None, with_fwd=False):
     """Phase 6: the training kernels at the train step's shapes (the pair
     over T*B frames, the LSTM over B lanes and T steps), added to ``recs``
-    (new entries for the new kernels) with their calls per train step."""
+    (new entries for the new kernels) with their calls per train step and
+    per trainer step (stage 1 masked). Phase 8 calls it again at the
+    per-step path's shapes (the pair over B frames, the LSTM at T = 1,
+    SEQ_LEN times per window) with ``with_fwd``: K1 and K3, which phase 3
+    times at the whole-window shapes, timed here too. ``paths``: {path:
+    calls per step of that path per call counted here}."""
     import torch
     import torch.nn.functional as F
 
@@ -713,18 +802,19 @@ def check_train_kernels(recs):
         return Record(name, f"rvt_tpu_torch/csrc/{src}",
                       f"rvt_tpu/ops/fused_train.py:{replaces}")
 
-    recs.update({
-        "ln_rows_bwd": rec("ln_rows_bwd", "ln_rows_bwd.cu", 127),
-        "gemm_bf16_wgrad": rec("gemm_bf16_wgrad", "gemm_bf16_wgrad.cu", 158),
-        "partition_attention_bwd": rec("partition_attention_bwd",
-                                       "partition_attention_bwd.cu", 234),
-        "lstm_scan_bwd": rec("lstm_scan_bwd", "lstm_scan_bwd.cu", 1479),
-        "train_reduce": rec("train_reduce", "train_reduce.cu", 495),
-    })
+    for name, src, line in (
+            ("ln_rows_bwd", "ln_rows_bwd.cu", 127),
+            ("gemm_bf16_wgrad", "gemm_bf16_wgrad.cu", 158),
+            ("partition_attention_bwd", "partition_attention_bwd.cu", 234),
+            ("lstm_scan_bwd", "lstm_scan_bwd.cu", 1479),
+            ("train_reduce", "train_reduce.cu", 495)):
+        if name not in recs:
+            recs[name] = rec(name, src, line)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
     f32, bf16 = torch.float32, torch.bfloat16
-    TS = "train step"
+    TS = paths or {"train step": 1, "trainer": 1}
+    per = next(iter(TS))  # the path the sum_parts summary line counts
 
     def randn(*shape, scale=1.0, dtype=bf16):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
@@ -732,7 +822,7 @@ def check_train_kernels(recs):
     def first(x):
         return x[0] if isinstance(x, tuple) else x
 
-    def sum_parts(label, part, count):
+    def sum_parts(label, part, count, where=None):
         """``train_reduce``'s in-order sum at partials the path gives it;
         plain = torch's sum over the same partials."""
         err = compare_rel(f"sum_parts[{label} {list(part.shape)}]",
@@ -740,19 +830,26 @@ def check_train_kernels(recs):
         ms = time_ms(lambda: fa.sum_parts(part))
         pms = time_ms(lambda: fa.sum_parts(part, plain=True))
         lms = time_ms(lambda: torch.sum(part, 0))
-        recs["train_reduce"].add(TS, count, err, ms, pms,
+        recs["train_reduce"].add(where or TS, count, err, ms, pms,
                                  4 * (part.numel() + part[0].numel()),
                                  part.numel(), PEAK_F32_FLOPS, lms)
-        for k, v in zip(sp, (count, count * ms, count * pms, count * lms)):
+        n = count * (where or TS)[per]
+        for k, v in zip(sp, (n, n * ms, n * pms, n * lms)):
             sp[k] += v
 
-    T, B, n_frames = SEQ_LEN, BATCH, SEQ_LEN * BATCH
+    T, B, n_frames = steps, BATCH, frames
     sms = sm_count(torch.empty(1, device=dev))
     sp = dict(calls=0, ms=0.0, plain_ms=0.0, library_ms=0.0)
-    for (H, W, C) in STAGES:
+    for si, (H, W, C) in enumerate(STAGES):
         M = n_frames * H * W
         rpb = fa._rows_per_block(M)
         log(f"train stage {H}x{W}x{C}: {n_frames} frames, {M} rows")
+        # the counts of the downsample LN's kernels (none on a masked
+        # path's stage 1)
+        TSm = {p: 0 if si == 0 and p in MASKED_PATHS else n
+               for p, n in TS.items()}
+        if with_fwd:
+            check_fwd_kernels(recs, TS, TSm, g, n_frames, H, W, C)
         # K2: every product of the pair's forward, recompute and backward,
         # with its count per train step (2 blocks; forward + recompute)
         for label, epi, K, N, count in (
@@ -837,11 +934,12 @@ def check_train_kernels(recs):
                                                       retain_graph=True))
             del y, xr
             recs["ln_rows_bwd"].add(
-                TS, count, err, ms, pms,
+                TS if add else TSm, count, err, ms, pms,
                 M * C * (x.element_size() + 4 + (8 if add else 2)),
                 20 * M * C, PEAK_F32_FLOPS, lms)
         sum_parts("ln_rows_bwd ds/db", randn(-(-M // rpb), 2, C, dtype=f32),
-                  4)
+                  1, {p: n * (3 if TSm[p] == 0 else 4)
+                      for p, n in TS.items()})
         # K6: every weight gradient (two blocks, the LSTM)
         for label, Ka, Nb, count in (("qkv", C, 3 * C, 2), ("proj", C, C, 2),
                                      ("fc1", C, 4 * C, 2),
@@ -965,7 +1063,7 @@ def check_train_kernels(recs):
                                  launches_per_call=2)
         del dR, v, dq
         torch.cuda.empty_cache()
-    log(f"sum_parts of K2's gelu backward, K5, K6 and K8, per train step: "
+    log(f"sum_parts of K2's gelu backward, K5, K6 and K8, per {per}: "
         f"{sp['calls']} calls, kernel {sp['ms']:.4f} ms, plain "
         f"{sp['plain_ms']:.4f} ms, torch.sum {sp['library_ms']:.4f} ms")
 
@@ -1132,14 +1230,365 @@ def run_train_path():
     return dt * 1e3, fps, mfu, peak, counts
 
 
+def gen1_base_train_cfg(**backbone):
+    """The train cell's config: gen1 RVT-B, bf16, the train kernels, no
+    s2d stem; ``backbone`` overrides (the trainer's token masking)."""
+    from dataclasses import replace
+
+    from rvt_tpu_torch.config import preset
+
+    cfg = preset("gen1", "base")
+    return replace(cfg, model=replace(
+        cfg.model, compute_dtype="bfloat16",
+        backbone=replace(cfg.model.backbone, fused_kernels=True,
+                         **backbone)))
+
+
+def gen1_base_model(cfg, seed=0):
+    """Random weights from ``seed``, LayerScale gammas drawn at 0.1 as the
+    earlier phases draw them."""
+    import torch
+
+    from rvt_tpu_torch.models.detector import init_detector
+
+    model = init_detector(cfg.model, seed=seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".gamma"):
+                p.normal_(0.0, 0.1, generator=gen)
+    return model
+
+
+def stage_step_counters():
+    from rvt_tpu_torch.ops import fused_attention as fa
+    from rvt_tpu_torch.ops import fused_scan as fs
+    from rvt_tpu_torch.ops import fused_train as ft
+
+    return (fa.LN_ROWS, fa.PARTITION_ATTENTION, fs.LSTM_SCAN, fa.GEMM_BF16,
+            fa.LN_ROWS_BWD, fa.GEMM_BF16_WGRAD, fa.PARTITION_ATTENTION_BWD,
+            fs.LSTM_SCAN_BWD, fa.TRAIN_REDUCE, ft.STAGE_STEP_TRAIN)
+
+
+def run_step_backbone_path(recs):
+    """Phase 8: the per-step train backbone (``fused_train_scan_backbone(
+    per_step=True)``, row 7 at every stage and time step) over the train
+    cell's window, states carried, one forward and backward under a fixed
+    linear loss on the features and final states. Held against the
+    whole-window path (forward bit for bit, each gradient leaf within 2e-2
+    of its max|ref|) and against its plain versions (features and states
+    as phase 7 holds them, each leaf within 5e-2). Times every kernel at
+    the per-step shapes and row 7 per call. Returns the launch counts of
+    the one kernel run."""
+    import torch
+
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.models.detector import fused_train_scan_backbone
+    from rvt_tpu_torch.ops import fused_train as ft
+    from rvt_tpu_torch.training.step import pad_ev_repr
+
+    cfg = gen1_base_train_cfg()
+    bb = cfg.model.backbone
+    model = gen1_base_model(cfg)
+    ev = train_batch(cfg, "cuda")[0][:, :STEP_SEQ_LEN]
+    ev_seq = pad_ev_repr(ev, bb.in_res_hw, torch.float32).transpose(0, 1)
+    T = ev_seq.shape[0]
+    with torch.no_grad():  # states carried from one window
+        _, states = fused_train_scan_backbone(
+            model, ev_seq, zero_states(bb, BATCH, device="cuda"))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    weights = {}
+    params = [(n, p) for n, p in model.named_parameters()
+              if n.startswith("backbone.")]
+
+    def run(per_step, plain=False):
+        model.zero_grad(set_to_none=True)
+        feats, final = fused_train_scan_backbone(
+            model, ev_seq, states, per_step=per_step, plain=plain)
+        outs = list(feats) + [t for hc in final for t in hc]
+        if not weights:
+            weights["w"] = [torch.randn(o.shape, generator=g, device="cuda")
+                            for o in outs]
+        loss = sum((o.float() * w).sum() for o, w in zip(outs, weights["w"]))
+        loss.backward()
+        return ([o.detach() for o in outs],
+                [p.grad.clone() if p.grad is not None
+                 else torch.zeros_like(p) for _, p in params])
+
+    counters = stage_step_counters()
+    for c in counters:
+        c.reset()
+    got, ggot = run(True)
+    torch.cuda.synchronize()
+    counts = {c.name: c.launches for c in counters}
+    log(f"per-step train backbone: T = {T}, launches {counts}")
+    for name, n in counts.items():
+        if n == 0:
+            fail(f"kernel {name} was not launched on the per-step path")
+    if counts[ft.STAGE_STEP_TRAIN.name] != T * len(STAGES):
+        fail("the per-step path did not call row 7 once per stage and step")
+    ms_step = time_ms(lambda: run(True), 2)
+    ms_win = time_ms(lambda: run(False), 2)
+    log(f"  backbone forward + backward: per step {ms_step:.2f} ms, whole "
+        f"window {ms_win:.2f} ms")
+    profile_window(lambda: run(True), "per-step backbone forward and "
+                   "backward", top=20)
+
+    def leaves(name, gk, gr, tol):
+        rows = sorted(((compare_rel_quiet(a, b), n) for (n, _), a, b in
+                       zip(params, gk, gr)), reverse=True)
+        median = rows[len(rows) // 2][0]
+        log(f"  {name}, {len(rows)} leaves: median {median:.3e} of "
+            "max|ref|; worst " + "; ".join(
+                f"{n} {e:.3e}" for e, n in rows[:3]) + f" (tolerance {tol})")
+        if not rows[0][0] <= tol:
+            fail(f"{name}: {sum(e > tol for e, _ in rows)} leaves out of "
+                 "tolerance")
+
+    win, gwin = run(False)
+    for i, (a, b) in enumerate(zip(got, win)):
+        if not torch.equal(a, b):
+            fail(f"per-step output {i} differs from the whole-window path")
+    log(f"  forward vs whole window: {len(got)} outputs bit for bit")
+    leaves("per-step vs whole-window gradients", ggot, gwin, 2e-2)
+    del win, gwin
+    ref, gref = run(True, plain=True)
+    n_f = len(got) - 2 * len(STAGES)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if i < n_f:
+            compare(f"per-step features {i + 1} vs plain", a, b, 5e-2, 2e-2,
+                    5e-3)
+        elif (i - n_f) % 2 == 0:
+            compare(f"per-step stage {(i - n_f) // 2 + 1} h_T vs plain", a, b,
+                    5e-2, 2e-2, 5e-3)
+        else:
+            compare(f"per-step stage {(i - n_f) // 2 + 1} c_T vs plain", a, b,
+                    1e-1, 2e-2, 5e-3)
+    leaves("per-step gradients vs plain", ggot, gref, 5e-2)
+    del got, ggot, ref, gref, weights["w"]
+    torch.cuda.empty_cache()
+
+    # every kernel at the per-step shapes (B frames, T = 1), T calls per
+    # stage, and row 7 per call
+    paths = {"per-step train": T}
+    check_train_kernels(recs, frames=BATCH, steps=1, paths=paths,
+                        with_fwd=True)
+    recs["fused_stage_step_train"] = time_stage_step_train(model, cfg, T)
+    return counts
+
+
+def time_stage_step_train(model, cfg, T):
+    """Row 7 (``fused_stage_step_train``, forward and backward) per call
+    at each stage with the model's weights, B frames, against its plain
+    version: every output cotangent's gradient within 5e-2 of max|ref|.
+    Returns its Record (T calls per stage per per-step step)."""
+    import torch
+
+    from rvt_tpu_torch.models.detector import downsample_ln_params
+    from rvt_tpu_torch.ops import fused_train as ft
+
+    rec = Record("fused_stage_step_train", "rvt_tpu_torch/ops/fused_train.py",
+                 "rvt_tpu/ops/fused_train.py:770")
+    att = cfg.model.backbone.attention
+    g = torch.Generator(device="cuda").manual_seed(7)
+    tok = PART[0] * PART[1]
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(
+            dtype)
+
+    for stage, (H, W, C) in zip(model.backbone.stages, STAGES):
+        blk, lstm = stage.att_blocks[0], stage.lstm.conv1x1
+        with torch.no_grad():
+            prm = [*downsample_ln_params(stage, cfg.model.backbone, C),
+                   *ft.train_block_params(blk.att_window, True),
+                   *ft.train_block_params(blk.att_grid, False),
+                   lstm.weight[:, :, 0, 0].to(torch.bfloat16).t(),
+                   lstm.bias.to(torch.bfloat16)]
+        prm = [p.detach().contiguous().requires_grad_(True) for p in prm]
+        x = randn(BATCH, H, W, C, scale=2.0,
+                  dtype=torch.bfloat16).requires_grad_(True)
+        h = randn(BATCH, H, W, C, scale=0.5).requires_grad_(True)
+        c = randn(BATCH, H, W, C, scale=0.5).requires_grad_(True)
+        dh, dc = randn(BATCH, H, W, C), randn(BATCH, H, W, C)
+        leaves = [x] + prm + [h, c]
+        n_win = len(prm) - 2 - 2 - ft._N_TRAIN
+
+        def call(plain):
+            scfg = ft.StageCfg(C // att.dim_head, att.dim_head, PART,
+                               att.norm_eps,
+                               cfg.model.backbone.downsample.norm_eps, plain)
+            out = ft.fused_stage_step_train(
+                scfg, x, prm[0], prm[1], prm[2:2 + n_win],
+                prm[2 + n_win:2 + n_win + ft._N_TRAIN], prm[-2], prm[-1], h,
+                c)
+            grads = torch.autograd.grad(out, leaves, (dh, dc))
+            return [o.detach() for o in out] + list(grads)
+
+        got, ref = call(False), call(True)
+        err = max(compare_rel(f"fused_stage_step_train {H}x{W}x{C} "
+                              f"{'output' if i < 2 else 'gradient'} {i}", a,
+                              b, 5e-2) for i, (a, b) in enumerate(zip(got,
+                                                                     ref)))
+        del got, ref
+        ms = time_ms(lambda: call(False))
+        pms = time_ms(lambda: call(True), 2)
+        P = BATCH * H * W
+        wbytes = 2 * (2 * 12 * C * C + 8 * C * C)
+        # x, dx bf16; h, c, h_t, c_t, dh_t, dc_t, dh, dc f32; the weights
+        # read, every gradient written; 3x the forward's operations
+        rec.add("per-step train", T, err, ms, pms,
+                P * C * (2 * 2 + 8 * 4) + 2 * wbytes,
+                3 * P * (2 * (24 * C * C + 4 * tok * C) + 16 * C * C),
+                PEAK_BF16_FLOPS, None)
+        del x, h, c, dh, dc, prm, leaves
+    return rec
+
+
+def trainer_batches(cfg, n=4):
+    """``n`` Batches of the train cell's shape from numpy seed 0: uint8
+    events in [0, 8), three boxes on every 5th frame stamped past the
+    Prophesee protocol's 0.5 s warm-up, and a token mask of about 20 %
+    True at the stage-1 token grid of the sensor, [B, T, 60, 76]."""
+    import numpy as np
+
+    from rvt_tpu_torch.data.types import Batch
+
+    B, T = BATCH, SEQ_LEN
+    M = cfg.dataset.max_labels_per_frame
+    ps = cfg.model.backbone.stem_patch_size
+    rng = np.random.RandomState(0)
+    out = []
+    for i in range(n):
+        ev = rng.randint(0, 8, size=(B, T, 240, 304, 20)).astype(np.uint8)
+        labels = np.zeros((B, T, M, 7), np.float32)
+        label_mask = np.zeros((B, T, M), bool)
+        for t in range(LABEL_EVERY - 1, T, LABEL_EVERY):
+            ts = 1e6 + 5e4 * (i * T + t)
+            labels[:, t, :3] = [(ts, 100.0, 80.0, 40.0, 30.0, 0.0, 1.0),
+                                (ts, 30.0, 40.0, 25.0, 20.0, 1.0, 1.0),
+                                (ts, 200.0, 120.0, 50.0, 35.0, 0.0, 1.0)]
+            label_mask[:, t, :3] = True
+        out.append(Batch(
+            ev_repr=ev, labels=labels, label_mask=label_mask,
+            frame_valid=label_mask.any(-1),
+            is_first_sample=np.full((B,), i == 0),
+            is_padded=np.zeros((B, T), bool),
+            token_mask=rng.rand(B, T, 240 // ps, 304 // ps) < 0.2))
+    return out
+
+
+def same_trainer_state(a, b, what):
+    """Parameters, buffers, moments, count and step, bit for bit."""
+    import torch
+
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    bad = [n for n in sa if not torch.equal(sa[n], sb[n])]
+    bad += [f"moment {i}" for i, (x, y) in enumerate(zip(
+        a.optimizer.mu + a.optimizer.nu, b.optimizer.mu + b.optimizer.nu))
+        if not torch.equal(x, y)]
+    if (bad or a.optimizer.count != b.optimizer.count
+            or a._host_step != b._host_step):
+        fail(f"{what}: state differs ({bad[:5]}, count "
+             f"{b.optimizer.count} vs {a.optimizer.count}, step "
+             f"{b._host_step} vs {a._host_step})")
+    log(f"  {what}: {len(sa)} tensors of the model, "
+        f"{2 * len(a.optimizer.mu)} moments, count and step bit for bit")
+
+
+def run_trainer_path():
+    """Phase 9: the Trainer at gen1 RVT-B (bf16, token masking, the train
+    kernels) over 4 batches: logging every step, checkpoints at 2 and 4
+    (published to an artifact registry), the gradflow and detection
+    variants on their cadences. Then a fresh Trainer's ``restore()`` and
+    another's ``restore_from_artifact("checkpoint@last")``, each held bit
+    for bit and taking one more step. Returns (ms per step, frames/s,
+    launch counts over the 4 + 1 + 1 steps)."""
+    import json
+    import tempfile
+    from dataclasses import replace
+    from pathlib import Path
+
+    import torch
+
+    from rvt_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = gen1_base_train_cfg(enable_masking=True)
+    items = trainer_batches(cfg)
+    counters = stage_step_counters()[:-1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
+        tcfg = TrainerConfig(
+            max_steps=4, log_every_n_steps=1, ckpt_every_n_steps=2,
+            gradflow_every_n_steps=4, detection_metrics_every_n_steps=4,
+            detection_metrics_n_batches=2, prefetch_depth=2,
+            ckpt_dir=f"{tmp}/run", artifact_dir=f"{tmp}/registry")
+        trainer = Trainer(cfg, tcfg, model=gen1_base_model(cfg))
+        for c in counters:
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = trainer.fit(iter(items))
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / tcfg.max_steps
+        lines = [json.loads(line) for line in
+                 (Path(tcfg.ckpt_dir) / "metrics.jsonl").read_text()
+                 .splitlines()]
+        losses = [line["train/loss"] for line in lines
+                  if "train/loss" in line]
+        gf = [line["step"] for line in lines
+              if any(k.startswith("train/gradflow/") for k in line)]
+        ap = [line for line in lines if "train/AP" in line]
+        log(f"trainer: 4 steps, losses {losses}, gradflow logged at {gf}, "
+            f"train/AP {[(a['step'], a['train/AP']) for a in ap]}")
+        if (trainer._host_step != 4 or len(losses) != 4 or gf != [4]
+                or not all(math.isfinite(v) for v in losses)):
+            fail("trainer: fit did not log 4 finite steps and the gradflow "
+                 "step")
+        # the step after restore() is a plain one (no checkpoint, variant
+        # or publish on step 5): its profile is the masked train step's
+        for what, kw, restore, profiled in (
+                ("restore()", dict(artifact_dir=None), lambda t: t.restore(),
+                 True),
+                ("restore_from_artifact", dict(ckpt_dir=f"{tmp}/fresh"),
+                 lambda t: t.restore_from_artifact("checkpoint@last"),
+                 False)):
+            fresh = Trainer(cfg, replace(tcfg, max_steps=5, **kw),
+                            model=gen1_base_model(cfg, seed=1))
+            if not restore(fresh):
+                fail(f"trainer: {what} found no checkpoint")
+            same_trainer_state(trainer, fresh, f"trainer {what}")
+            if profiled:
+                m = {}
+                profile_window(lambda: m.update(fresh.fit(iter(items[:1]))),
+                               "trainer step (masked, after restore)",
+                               top=20)
+            else:
+                m = fresh.fit(iter(items[:1]))
+            log(f"  one more step after {what}: loss {m['loss']:.6g}")
+            if fresh._host_step != 5 or not math.isfinite(m["loss"]):
+                fail(f"trainer: no finite step after {what}")
+            del fresh
+        counts = {c.name: c.launches for c in counters}
+    log(f"trainer path: 4 + 1 + 1 steps, launches {counts}")
+    for name, n in counts.items():
+        if n == 0:
+            fail(f"kernel {name} was not launched on the trainer path")
+    fps = BATCH * SEQ_LEN / dt
+    log(f"trainer: {dt * 1e3:.2f} ms per step over fit's 4 steps "
+        f"(checkpoints at 2 and 4, the detection variant on 3-4, gradflow "
+        f"on 4 included), {fps:.1f} frames/s; the trainer's own count "
+        f"{last['train/frames_per_s']:.1f} frames/s")
+    return dt * 1e3, fps, counts
+
+
 def shared_features(scan, kept):
     """A stand-in for the train step's backbone scan: the first call keeps
     its features in ``kept["first"]``; each later call keeps its own in
     ``kept["own"]`` and returns the first call's values, with its own
     gradient (straight through: f + (first - f), the difference detached,
     exact in f32 and rounded back to the first call's bf16 values)."""
-    def run(model, ev_seq, init_states, *, plain=False):
-        feats, states = scan(model, ev_seq, init_states, plain=plain)
+    def run(model, ev_seq, init_states, **kw):
+        feats, states = scan(model, ev_seq, init_states, **kw)
         if "first" not in kept:
             kept["first"] = tuple(f.detach() for f in feats)
             return feats, states
@@ -1157,18 +1606,22 @@ def compare_rel_quiet(got, ref):
 
 
 def stage_bounds():
-    """The least time the card could take for three composed TPU kernels
+    """The least time the card could take for four composed TPU kernels
     of the kernel table, from their shapes: row 3 (``fused_stage_scan``,
     the eval window's stage: x_seq bf16 in, h_seq bf16 out, h/c in and
     out, both blocks' and the LSTM's weights once), row 5
     (``fused_conv_lstm``, the raw step's cell at T = 1 on the f32 pair
-    output) and row 8 (``fused_stage_scan_train`` forward and backward:
-    x_seq, h0, c0 and the weights in, h_seq, hT, cT and every gradient
-    out; three times the forward's operations). Sums over the four
-    stages; prints and returns {row: (bound ms, by)}."""
+    output), row 7 (``fused_stage_step_train`` forward and backward, T
+    calls: each reads x, h, c, dh_t, dc_t and the weights and writes h_t,
+    c_t, dx, dh, dc and every gradient; three times the forward's
+    operations) and row 8 (``fused_stage_scan_train`` forward and
+    backward: x_seq, h0, c0 and the weights in, h_seq, hT, cT and every
+    gradient out; three times the forward's operations). Sums over the
+    four stages; prints and returns {row: (bound ms, by)}."""
     out = {}
     tok = PART[0] * PART[1]
     for row, what in ((3, "eval window"), (5, "raw step"),
+                      (7, f"per-step train window of {STEP_SEQ_LEN} calls"),
                       (8, "train step")):
         nbytes = ops = 0
         for (H, W, C) in STAGES:
@@ -1184,6 +1637,12 @@ def stage_bounds():
             elif row == 5:
                 nbytes += P * C * (4 + 2 + 4 * 4) + 2 * 8 * C * C
                 ops += lstm_ops
+            elif row == 7:
+                # per call: x, dx bf16; h, c, h_t, c_t, dh_t, dc_t, dh, dc
+                # f32; the weights read and every gradient written
+                nbytes += STEP_SEQ_LEN * (P * C * (2 * 2 + 8 * 4)
+                                          + 2 * wbytes)
+                ops += 3 * STEP_SEQ_LEN * (pair_ops + lstm_ops) // T
             else:
                 # in: x_seq, dh_seq (bf16), h0, c0, dhT, dcT; out: dx_seq
                 # (bf16), h_seq, hT, cT, dh0, dc0; weights and gradients
@@ -1273,14 +1732,22 @@ def main() -> int:
     raw_fps, raw_mfu, raw_counts = run_raw_path()
     torch.cuda.empty_cache()
     t_ms, t_fps, t_mfu, t_peak, t_counts = run_train_path()
+    torch.cuda.empty_cache()
+    s_counts = run_step_backbone_path(recs)
+    torch.cuda.empty_cache()
+    tr_ms, tr_fps, tr_counts = run_trainer_path()
     # the calls each record timed per step must be the launches the path
-    # made per step (eval: 4 windows; raw: 1 + 21 calls; train: 1 + 5)
+    # made per step (eval: 4 windows; raw: 1 + 21 calls; train: 1 + 5;
+    # per-step train: one forward and backward; trainer: 4 + 1 + 1)
     steps = {"eval step": WINDOWS, "raw step": 1 + RAW_CALLS,
-             "train step": 1 + TRAIN_STEPS}
+             "train step": 1 + TRAIN_STEPS, "per-step train": 1,
+             "trainer": 6}
     for name, rec in recs.items():
         by_path = {"eval step": counts.get(name, 0),
                    "raw step": raw_counts.get(name, 0),
-                   "train step": t_counts.get(name, 0)}
+                   "train step": t_counts.get(name, 0),
+                   "per-step train": s_counts.get(name, 0),
+                   "trainer": tr_counts.get(name, 0)}
         rec.d["launches"] = sum(by_path.values())
         rec.d["launches_by_path"] = by_path
         for path, q in rec.paths.items():
@@ -1290,7 +1757,8 @@ def main() -> int:
     log(f"card: {card}; eval step {fps:.1f} frames/s, MFU {mfu:.2f}%; "
         f"raw step {raw_fps:.1f} frames/s, MFU {raw_mfu:.2f}%; train step "
         f"{t_ms:.2f} ms, {t_fps:.1f} frames/s, MFU {t_mfu:.2f}%, peak "
-        f"{t_peak:.2f} GiB")
+        f"{t_peak:.2f} GiB; trainer {tr_ms:.2f} ms per step, "
+        f"{tr_fps:.1f} frames/s")
     print(json.dumps({"kernels": [r.d for r in recs.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -77,9 +77,11 @@ class BackboneConfig:
     # into an equivalent 2x2 conv (see ops/s2d.py). The host input
     # pipeline must emit blocked tensors when enabled.
     stem_s2d: bool = False
-    # Kept for config parity with the JAX package, where it selects the
-    # fused serving kernels. The port's serving step always runs its
-    # hand-written kernels (ops/fused_*.py) and requires bf16 compute.
+    # Run the backbone on the hand-written kernels (ops/fused_*.py). As in
+    # the JAX package, only configs with this set (and bf16 compute and the
+    # shipped block variants, models/detector.py:fused_path_supported) take
+    # the kernels; the others take the JAX package's XLA module path,
+    # which the port has not ported: its entry points raise on them.
     fused_kernels: bool = False
     partition_split_32: int = 2
     embed_dim: int = 64

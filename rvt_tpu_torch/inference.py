@@ -24,7 +24,9 @@ import torch.nn.functional as F
 
 from rvt_tpu_torch.config import ExperimentConfig
 from rvt_tpu_torch.models.backbone import LstmStates
-from rvt_tpu_torch.models.detector import RVTDetector, backbone_kernel_params
+from rvt_tpu_torch.models.detector import (RVTDetector,
+                                           backbone_kernel_params,
+                                           require_fused_path)
 from rvt_tpu_torch.ops.boxes import postprocess
 from rvt_tpu_torch.ops.voxelization import stacked_histogram_batched
 from rvt_tpu_torch.training.step import reset_states
@@ -95,6 +97,7 @@ def make_raw_inference_step(model: RVTDetector, cfg: ExperimentConfig, *,
     if cfg.model.backbone.stem_s2d:
         raise ValueError("the raw pipeline emits HWC frames; use "
                          "stem_s2d=False")
+    require_fused_path(model.cfg)
     pp = cfg.model.postprocess
     num_classes = cfg.model.head.num_classes
     params = backbone_kernel_params(model)

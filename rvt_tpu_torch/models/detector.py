@@ -10,7 +10,12 @@ module's ``__call__``): the same scan over a window of one frame, each
 stage then being ``ops/fused_scan.fused_stage``. ``fused_train_scan_backbone``
 is the differentiable scan of the train step: the same stage loop, each
 stage ``ops/fused_train.split_stage_scan_train`` on weights cast inside
-autograd.
+autograd (or, with ``per_step``, ``fused_stage_step_train`` once per time
+step).
+
+Every entry point runs only configs that the JAX package runs on its
+kernels (``fused_path_supported``); the others take its XLA module path,
+which the port has not ported, and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,7 +32,9 @@ from rvt_tpu_torch.models.backbone import LstmStates, RVTBackbone
 from rvt_tpu_torch.models.yolox import YoloPAFPN, YoloXHead
 from rvt_tpu_torch.ops.fused_attention import attention_block_params
 from rvt_tpu_torch.ops.fused_scan import fused_stage_scan
-from rvt_tpu_torch.ops.fused_train import (StageCfg, split_stage_scan_train,
+from rvt_tpu_torch.ops.fused_train import (StageCfg, fused_stage_step_train,
+                                           per_step_stage_ok,
+                                           split_stage_scan_train,
                                            train_block_params)
 from rvt_tpu_torch.ops.s2d import BLOCK, fold_stem_kernel, s2d_input_hw
 
@@ -35,6 +42,35 @@ from rvt_tpu_torch.ops.s2d import BLOCK, fold_stem_kernel, s2d_input_hw
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return {"float32": torch.float32,
             "bfloat16": torch.bfloat16}[cfg.compute_dtype]
+
+
+def fused_path_supported(cfg: ModelConfig) -> bool:
+    """Whether the JAX package runs this config on its kernels: the gate of
+    its whole-window scans (``rvt_tpu/models/detector.py:
+    _fused_scan_supported``) and of its single step (``RVTStage.
+    _whole_stage_fused``, whose TPU memory envelope is not carried over:
+    the Hopper kernels take every geometry). Every other config runs the
+    XLA module path (erf-gelu, LayerScale not folded), which the port has
+    not ported."""
+    bb = cfg.backbone
+    a, lstm = bb.attention, bb.lstm
+    return (bb.fused_kernels and cfg.compute_dtype == "bfloat16"
+            and all(n == 1 for n in bb.num_blocks)
+            and not a.mlp_gated and a.attention_bias and a.mlp_bias
+            and a.ls_init_value > 0 and a.drop_path == 0.0
+            and a.drop_mlp == 0.0 and a.mlp_activation == "gelu"
+            and not lstm.dws_conv and lstm.drop_cell_update == 0.0)
+
+
+def require_fused_path(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless ``fused_path_supported``."""
+    if not fused_path_supported(cfg):
+        raise NotImplementedError(
+            "this config runs the JAX package's XLA module path (it needs "
+            "fused_kernels=True, bf16 compute, one block per stage, the "
+            "plain gelu MLP with biases, LayerScale > 0, no drop-path or "
+            "drop-mlp and the 1x1 ConvLSTM without cell dropout); the port "
+            "has not ported that path yet (ROADMAP)")
 
 
 class RVTDetector(nn.Module):
@@ -61,6 +97,7 @@ class RVTDetector(nn.Module):
         the ConvLSTM cell, K4 at T = 1): ``fused_scan_backbone`` over a
         window of one frame. ``params`` from ``backbone_kernel_params``.
         Returns ({stage: h_t f32}, new states)."""
+        require_fused_path(self.cfg)
         _, states = fused_scan_backbone(self, x.unsqueeze(0), prev_states,
                                         params, plain=plain)
         return {i + 1: h for i, (h, _) in enumerate(states)}, states
@@ -187,11 +224,8 @@ def fused_scan_backbone(model: RVTDetector, ev_seq: torch.Tensor,
     runs the kernels' plain versions instead, on any device. Returns
     (features per ``cfg.fpn.in_stages``, each [T, B, h, w, c] bf16; final
     (h, c) f32 per stage)."""
+    require_fused_path(model.cfg)
     cfg = model.cfg.backbone
-    if model.cfg.compute_dtype != "bfloat16" or any(
-            n != 1 for n in cfg.num_blocks):
-        raise NotImplementedError(
-            "the serving scan runs bf16 compute with one block per stage")
     att = cfg.attention
     T, B = ev_seq.shape[:2]
     x = ev_seq.reshape((T * B,) + tuple(ev_seq.shape[2:]))
@@ -213,26 +247,64 @@ def fused_scan_backbone(model: RVTDetector, ev_seq: torch.Tensor,
     return tuple(feats[s] for s in in_stages), tuple(states_out)
 
 
+def _masked_ds_ln(x_seq: torch.Tensor, ds_s: torch.Tensor,
+                  ds_b: torch.Tensor, eps: float, mask_token: torch.Tensor,
+                  token_mask_seq: torch.Tensor) -> torch.Tensor:
+    """Stage 1's downsample LayerNorm and the mask-token replacement in
+    torch, differentiable in the LN affine and the mask token
+    (``rvt_tpu/models/detector.py:437-457``; the reference applies the
+    token to the normed downsample output, maxvit_rnn.py:174-176): f32
+    statistics, the fast variance clamped at 0, rsqrt, the bf16 affine in
+    f32, a bf16 result; then ``where(mask, bf16 token, x)``."""
+    xf = x_seq.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    xn = ((xf - mu) * torch.rsqrt(var + eps) * ds_s.float()
+          + ds_b.float()).to(torch.bfloat16)
+    mt = mask_token.to(torch.bfloat16).reshape(-1)
+    return torch.where(token_mask_seq[..., None], mt, xn)
+
+
 def fused_train_scan_backbone(model: RVTDetector, ev_seq: torch.Tensor,
                               init_states: LstmStates, *,
+                              per_step: bool = False,
+                              token_mask_seq: torch.Tensor | None = None,
                               plain: bool = False
                               ) -> Tuple[Tuple[torch.Tensor, ...],
                                          LstmStates]:
     """Differentiable backbone scan over a [T, B, H, W, C] window
-    (``rvt_tpu/models/detector.py:fused_train_scan_backbone``, whole-window
-    stages). Per stage: the downsample conv over all T*B frames (cuDNN,
-    with gradients), then ``split_stage_scan_train`` (the attention pair
-    over the T*B frames and the LSTM scan, forward and backward on the
-    kernels) with the stage's weights cast to the kernels' layout inside
-    autograd, as ``train_block_params`` does on every step. Returns
-    (features per ``cfg.fpn.in_stages``, each [T, B, h, w, c] bf16; final
-    (h, c) f32 per stage)."""
+    (``rvt_tpu/models/detector.py:fused_train_scan_backbone``). Per stage:
+    the downsample conv over all T*B frames (cuDNN, with gradients), then
+    ``split_stage_scan_train`` (the attention pair over the T*B frames and
+    the LSTM scan, forward and backward on the kernels), or with
+    ``per_step`` a loop over t of ``fused_stage_step_train`` on the B
+    frames of each step. The stage's weights are cast to the kernels'
+    layout inside autograd once per stage, as ``train_block_params`` does
+    on every step; per step the carry stays f32 and each step's feature is
+    ``h_t`` in bf16.
+
+    ``token_mask_seq`` [T, B, h, w] bool at the stage-1 token grid (with
+    ``enable_masking``): stage 1's downsample LN and the mask-token
+    replacement run in torch (``_masked_ds_ln``) and its kernels skip
+    their LN (``ds_ln=False``).
+
+    The JAX package trains a stage per step on its kernels only within
+    ``per_step_stage_ok`` (every gen1 stage); beyond it, it runs the XLA
+    modules, and ``per_step`` raises. Returns (features per
+    ``cfg.fpn.in_stages``, each [T, B, h, w, c] bf16; final (h, c) f32 per
+    stage)."""
+    require_fused_path(model.cfg)
     cfg = model.cfg.backbone
-    if (model.cfg.compute_dtype != "bfloat16"
-            or any(n != 1 for n in cfg.num_blocks)):
-        raise NotImplementedError(
-            "the train scan runs bf16 compute with one block per stage")
     att = cfg.attention
+    part = tuple(att.partition_size)
+    if per_step:
+        Hi, Wi = cfg.in_res_hw
+        for s, C in zip(cfg.strides, cfg.stage_dims):
+            if not per_step_stage_ok(Hi // s, Wi // s, C, part):
+                raise NotImplementedError(
+                    f"the JAX package trains a {Hi // s}x{Wi // s}x{C} "
+                    "stage per step on its XLA module path, which the "
+                    "port has not ported yet (ROADMAP)")
     T, B = ev_seq.shape[:2]
     bf16 = torch.bfloat16
     x = ev_seq.reshape((T * B,) + tuple(ev_seq.shape[2:]))
@@ -241,19 +313,33 @@ def fused_train_scan_backbone(model: RVTDetector, ev_seq: torch.Tensor,
     for idx, stage in enumerate(model.backbone.stages):
         x = downsample_conv_apply(x, stage, cfg, idx == 0, bf16)
         h_dim, w_dim, C = x.shape[1:]
+        x_seq = x.view(T, B, h_dim, w_dim, C)
+        ds_s, ds_b = downsample_ln_params(stage, cfg, C)
+        masked = (token_mask_seq is not None and idx == 0
+                  and cfg.enable_masking)
+        if masked:
+            x_seq = _masked_ds_ln(x_seq, ds_s, ds_b, cfg.downsample.norm_eps,
+                                  stage.mask_token, token_mask_seq)
         lstm = stage.lstm.conv1x1
         blk = stage.att_blocks[0]
-        ds_s, ds_b = downsample_ln_params(stage, cfg, C)
+        scfg = StageCfg(C // att.dim_head, att.dim_head, part, att.norm_eps,
+                        cfg.downsample.norm_eps, plain, not masked)
+        args = (ds_s, ds_b, train_block_params(blk.att_window, True),
+                train_block_params(blk.att_grid, False),
+                lstm.weight[:, :, 0, 0].to(bf16).t().contiguous(),
+                lstm.bias.to(bf16))
         h0, c0 = init_states[idx]
-        scfg = StageCfg(C // att.dim_head, att.dim_head,
-                        tuple(att.partition_size), att.norm_eps,
-                        cfg.downsample.norm_eps, plain)
-        h_seq, hT, cT = split_stage_scan_train(
-            scfg, x.view(T, B, h_dim, w_dim, C), ds_s, ds_b,
-            train_block_params(blk.att_window, True),
-            train_block_params(blk.att_grid, False),
-            lstm.weight[:, :, 0, 0].to(bf16).t().contiguous(),
-            lstm.bias.to(bf16), h0, c0)
+        if per_step:
+            hT, cT = h0, c0
+            hs = []
+            for t in range(T):
+                hT, cT = fused_stage_step_train(scfg, x_seq[t], *args, hT,
+                                                cT)
+                hs.append(hT.to(bf16))
+            h_seq = torch.stack(hs)
+        else:
+            h_seq, hT, cT = split_stage_scan_train(scfg, x_seq, *args, h0,
+                                                   c0)
         states_out.append((hT, cT))
         feats[idx + 1] = h_seq
         x = h_seq.view(T * B, h_dim, w_dim, C)

@@ -22,6 +22,8 @@ the ConvLSTM recurs in time.
                           K8's reverse scan with the (dh, dc) carry and K6
                           for dW.
   ``split_stage_scan_train`` = ``fused_stage_scan_train``: the two (row 8).
+  ``fused_stage_step_train``  one time step of a stage (row 7): the two at
+                          T = 1, on the B frames of the step.
 
 Numerics follow the JAX kernels (bf16 products with f32 sums, f32 LN
 statistics, softmax and cell state; bf16 probabilities, dS, dmix; the
@@ -51,6 +53,11 @@ from rvt_tpu_torch.ops.fused_attention import (_attn_heads_bwd,
                                                partition_attention_bwd)
 from rvt_tpu_torch.ops.fused_scan import (_lstm_cell, _lstm_cell_bwd,
                                           fused_lstm_scan, lstm_scan_bwd)
+from rvt_tpu_torch.ops.kernels import Counter
+
+# Calls of row 7 that ran on the kernels (its composed kernels count their
+# own launches as well).
+STAGE_STEP_TRAIN = Counter("fused_stage_step_train")
 
 # params per sub-block (train layout, LayerScale NOT folded):
 # [ln1_s, ln1_b] (absent when skip_first_norm), qkv_w, qkv_b, proj_w,
@@ -65,14 +72,19 @@ _lstm_recompute, _lstm_bwd_chunked = _lstm_cell, _lstm_cell_bwd
 
 
 class StageCfg(NamedTuple):
-    """The JAX cfg tuple (heads, dim_head, part, eps, ds_eps) and whether
-    to run the kernels' plain versions."""
+    """The JAX cfg tuple (heads, dim_head, part, eps, ds_eps[, ds_ln]) and
+    whether to run the kernels' plain versions. ``ds_ln=False``: the input
+    arrives already layer-normed in bf16 (the token-mask path runs stage
+    1's downsample LN and the mask-token replacement in torch), so the
+    pair skips its downsample LN and the LN affine gets no cotangent from
+    the Function (``_parse_cfg``)."""
     heads: int
     dim_head: int
     part: Tuple[int, int]
     eps: float
     ds_eps: float
     plain: bool = False
+    ds_ln: bool = True
 
 
 def train_block_params(block, skip_first_norm: bool) -> Tuple[torch.Tensor,
@@ -187,13 +199,23 @@ def _block_bwd(dR_out: torch.Tensor, sv: Dict, prm: Sequence[torch.Tensor],
     return dR_in, [dln1_s, dln1_b] + grads
 
 
+def _ds_ln(cfg: StageCfg, x, ds_s, ds_b):
+    """The window block's input as (bf16 rows, the f32 residual R0 [N, H,
+    W, C], a new buffer): the downsample LN of x, or with ``ds_ln=False``
+    x itself (``_recompute_R1``)."""
+    N, H, W, C = x.shape
+    rows = x.reshape(N * H * W, C)
+    if not cfg.ds_ln:
+        return rows, rows.float().view(N, H, W, C)
+    x_bf16, R = ln_rows(rows, ds_s, ds_b, cfg.ds_eps, with_f32=True,
+                        plain=cfg.plain)
+    return x_bf16, R.view(N, H, W, C)
+
+
 def _pair_fwd(cfg: StageCfg, x, ds_s, ds_b, win, grid):
     """Downsample LN + window block -> R1 (kept, as ``_pair_fwd_win_
     kernel`` stores it), then the grid block on a new buffer -> R2."""
-    N, H, W, C = x.shape
-    x_bf16, R = ln_rows(x.reshape(N * H * W, C), ds_s, ds_b, cfg.ds_eps,
-                        with_f32=True, plain=cfg.plain)
-    R = R.view(N, H, W, C)
+    x_bf16, R = _ds_ln(cfg, x, ds_s, ds_b)
     R1 = _block_fwd(R, win, x_bf16, cfg, window=True, out=R)
     R2 = _block_fwd(R1, grid, None, cfg, window=False)
     return R1, R2
@@ -233,17 +255,18 @@ class FusedPairTrain(torch.autograd.Function):
             cfg, window=False)
         del sv
         # window block, recomputed from x through the downsample LN
-        x_bf16, R0 = ln_rows(x.view(M, C), ds_s, ds_b, cfg.ds_eps,
-                             with_f32=True, plain=cfg.plain)
-        R0 = R0.view(N, H, W, C)
+        x_bf16, R0 = _ds_ln(cfg, x, ds_s, ds_b)
         sv = _block_fwd(R0, win, x_bf16, cfg, window=True, out=R0,
                         store=True)
         dxbf, dwin = _block_bwd(dR1, sv, win, None, cfg, window=True)
         del sv
-        dx, dds_s, dds_b = ln_rows_bwd(x.view(M, C), dxbf, ds_s, cfg.ds_eps,
-                                       plain=cfg.plain)
-        return (None, dx.view(x.shape).to(x.dtype), _cast(dds_s, ds_s),
-                _cast(dds_b, ds_b),
+        if cfg.ds_ln:
+            dx, dds_s, dds_b = ln_rows_bwd(x.view(M, C), dxbf, ds_s,
+                                           cfg.ds_eps, plain=cfg.plain)
+            dds_s, dds_b = _cast(dds_s, ds_s), _cast(dds_b, ds_b)
+        else:  # no LN here: None is autograd's zero cotangent
+            dx, dds_s, dds_b = dxbf, None, None
+        return (None, dx.view(x.shape).to(x.dtype), dds_s, dds_b,
                 *[_cast(g, p) for g, p in zip(dwin, win)],
                 *[_cast(g, p) for g, p in zip(dgrid, grid)])
 
@@ -292,3 +315,60 @@ def split_stage_scan_train(cfg: StageCfg, x_seq, ds_s, ds_b, win, grid,
 
 # On Hopper the whole-stage train scan is this composition.
 fused_stage_scan_train = split_stage_scan_train
+
+
+def fused_stage_step_train(cfg: StageCfg, x, ds_s, ds_b, win, grid, lstm_w,
+                           lstm_b, h, c):
+    """One backbone stage for one time step, differentiable in every input
+    (``rvt_tpu/ops/fused_train.py:fused_stage_step_train``): x [B, H, W, C]
+    bf16 (the raw downsample-conv output, or normed with ``ds_ln=False``),
+    h and c f32. Returns (h_t, c_t) f32.
+
+    On TPU it is one forward and three backward kernels, split only for
+    Mosaic's VMEM stack; here it is ``FusedPairTrain`` over the B frames
+    and ``FusedLstmScanTrain`` at T = 1, the same kernels as the
+    whole-window stage (K1-K3 and K4 forward; K8, K7, K6, K5, K2's data
+    gradients and ``train_reduce`` backward), so the forward equals
+    ``split_stage_scan_train``'s step for step. The caller feeds h_t back
+    as the next step's h and uses ``h_t.to(bf16)`` as the feature:
+    autograd then sums the two cotangents in f32, unrounded, and hands K8
+    that sum as dhT with a zero dh_seq, which K8 adds to it exactly (JAX
+    reads dh_t as f32, ``_bwd_lstm_kernel``). The weight gradients leave
+    each call in the weights' dtype, so over a window autograd sums them
+    in bf16, step T-1 first, as JAX's scan transpose does."""
+    if not cfg.plain and x.is_cuda:
+        STAGE_STEP_TRAIN.launches += 1
+    B, H, W, C = x.shape
+    y = FusedPairTrain.apply(cfg, x, ds_s, ds_b, *win, *grid)
+    _, h_t, c_t = FusedLstmScanTrain.apply(cfg.plain, y.view(1, B, H, W, C),
+                                           lstm_w, lstm_b, h, c)
+    return h_t, c_t
+
+
+def _partition_geometry_ok(H: int, W: int, C: int,
+                           part: Tuple[int, int]) -> bool:
+    """``rvt_tpu/ops/fused_attention.py:partition_geometry_ok``."""
+    ph, pw = part
+    if H % ph or W % pw:
+        return False
+    nw = W // pw
+
+    def split_ok(outer: int, minor: int) -> bool:
+        return outer == 1 or minor == 1 or (minor % 2 == 0
+                                             and minor * C >= 128)
+
+    return split_ok(nw, pw) and split_ok(pw, nw) and ph * pw >= 8
+
+
+def per_step_stage_ok(H: int, W: int, C: int, part: Tuple[int, int]) -> bool:
+    """Whether the JAX package trains this stage geometry per step on its
+    kernels (``train_stage_mode(..., scan=False)`` is not None). Where it
+    does not, it runs the XLA module path (erf-gelu, LayerScale folded
+    unfolded) under ``jax.checkpoint``: other numerics, which the port
+    has not ported, so its per-step path raises there. The Hopper kernels
+    themselves take every geometry."""
+    per_image = H * W * C
+    grad_bytes = 4 * (2 * (3 * C * C + C * C + 8 * C * C) + 8 * C * C)
+    if grad_bytes + 30 * per_image > 56 * 2 ** 20 or per_image > 512 * 1024:
+        return False
+    return _partition_geometry_ok(H, W, C, part) or H * W <= 1024

@@ -75,6 +75,22 @@ class OneCycleAdamW:
                    for p in self.params]
         self.count = 0
 
+    def state_dict(self) -> dict:
+        """The moments and the step count (what a checkpoint keeps)."""
+        return {"mu": list(self.mu), "nu": list(self.nu),
+                "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a ``state_dict`` into the moments in place."""
+        for dst, key in ((self.mu, "mu"), (self.nu, "nu")):
+            if len(state[key]) != len(dst):
+                raise ValueError(f"optimizer state has {len(state[key])} "
+                                 f"{key} tensors, expected {len(dst)}")
+            for d, s in zip(dst, state[key]):
+                d.copy_(s)
+        self.count = int(state["count"])
+
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None

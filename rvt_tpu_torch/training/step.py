@@ -5,13 +5,16 @@ Port of ``rvt_tpu/training/step.py``. The train step (upstream
 lanes, scan the backbone over the window with gradients on the
 hand-written forward and backward kernels, gather the labelled frames and
 their labels, run PAFPN + YOLOX head with batch-statistics BatchNorm, the
-SimOTA YOLOX loss, backpropagate, clip and AdamW. The eval step: the same
-scan without gradients, then sigmoid and the on-device confidence filter +
-NMS (``_val_test_step_impl``, modules/detection.py:208-280, stream mode).
+SimOTA YOLOX loss, backpropagate, clip and AdamW; optionally with a
+stage-1 token mask, the training batch's detections (``with_detections``)
+and per-parameter gradient and weight magnitudes (``with_param_metrics``).
+The eval step: the same scan without gradients, then sigmoid and the
+on-device confidence filter + NMS (``_val_test_step_impl``,
+modules/detection.py:208-280, stream mode).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +26,7 @@ from rvt_tpu_torch.models.detector import (RVTDetector,
                                            backbone_kernel_params,
                                            fused_scan_backbone,
                                            fused_train_scan_backbone,
-                                           init_detector)
+                                           init_detector, require_fused_path)
 from rvt_tpu_torch.models.yolox import make_grids_and_strides
 from rvt_tpu_torch.ops.boxes import postprocess
 from rvt_tpu_torch.ops.s2d import s2d_input_hw
@@ -97,6 +100,20 @@ def gather_labels(labels: torch.Tensor, label_mask: torch.Tensor,
                        dim=-1), mask
 
 
+def pad_token_mask(tm: torch.Tensor, in_res_hw: Tuple[int, int],
+                   patch_size: int) -> torch.Tensor:
+    """Corner-pad a [..., h, w] stage-1 token mask from the storage
+    resolution's token grid to the model resolution's; padding tokens are
+    never masked (``rvt_tpu/training/step.py:pad_token_mask``)."""
+    th, tw = in_res_hw[0] // patch_size, in_res_hw[1] // patch_size
+    ph, pw = th - tm.shape[-2], tw - tm.shape[-1]
+    if ph < 0 or pw < 0:
+        raise ValueError(f"token mask {tuple(tm.shape)} exceeds {(th, tw)}")
+    if ph or pw:
+        tm = F.pad(tm, (0, pw, 0, ph))
+    return tm
+
+
 def pad_ev_repr(ev: torch.Tensor, target_hw: Tuple[int, int], dtype,
                 stem_s2d: bool = False) -> torch.Tensor:
     """Zero-pad bottom/right to the model resolution and convert dtype
@@ -115,6 +132,22 @@ def pad_ev_repr(ev: torch.Tensor, target_hw: Tuple[int, int], dtype,
     return ev if dtype is None else ev.to(dtype)
 
 
+def _postprocess_window(preds: torch.Tensor, frame_idx: torch.Tensor,
+                        gval: torch.Tensor, cfg: ExperimentConfig):
+    """Sigmoid, confidence filter and NMS of the head's decoded predictions
+    [B*K, A, 5+C] of a window; returns (dets [B, K, max_detections, 7],
+    det_valid [B, K, max_detections], masked by the frames' validity)."""
+    pp = cfg.model.postprocess
+    infer = torch.cat([preds[..., :4], torch.sigmoid(preds[..., 4:])],
+                      dim=-1)
+    dets, det_valid = postprocess(
+        infer, cfg.model.head.num_classes, pp.confidence_threshold,
+        pp.nms_threshold, pp.pre_nms_topk, pp.max_detections)
+    B, K = frame_idx.shape
+    dets = dets.reshape(B, K, *dets.shape[1:])
+    return dets, det_valid.reshape(B, K, -1) & gval[..., None]
+
+
 def make_eval_step(model: RVTDetector, cfg: ExperimentConfig, *,
                    plain: bool = False):
     """Streaming evaluation step over one window, on the model's device.
@@ -127,10 +160,9 @@ def make_eval_step(model: RVTDetector, cfg: ExperimentConfig, *,
     ``plain=True`` runs the kernels' plain PyTorch versions (the
     reference the chip check holds the kernels against)."""
     K = cfg.dataset.max_labeled_frames
-    pp = cfg.model.postprocess
-    num_classes = cfg.model.head.num_classes
     in_res = cfg.model.backbone.in_res_hw
     stem_s2d = cfg.model.backbone.stem_s2d
+    require_fused_path(model.cfg)
     params = backbone_kernel_params(model)
 
     @torch.inference_mode()
@@ -146,14 +178,7 @@ def make_eval_step(model: RVTDetector, cfg: ExperimentConfig, *,
         gathered, frame_idx, gval = gather_labeled_frames(feats,
                                                           frame_valid, K)
         preds = model.forward_detect(gathered)
-        infer = torch.cat([preds[..., :4], torch.sigmoid(preds[..., 4:])],
-                          dim=-1)
-        dets, det_valid = postprocess(
-            infer, num_classes, pp.confidence_threshold, pp.nms_threshold,
-            pp.pre_nms_topk, pp.max_detections)
-        B, Kk = frame_idx.shape
-        dets = dets.reshape(B, Kk, *dets.shape[1:])
-        det_valid = det_valid.reshape(B, Kk, -1) & gval[..., None]
+        dets, det_valid = _postprocess_window(preds, frame_idx, gval, cfg)
         return EvalOutput(final_states, dets, det_valid, frame_idx, gval,
                           preds)
 
@@ -176,39 +201,56 @@ def init_train_state(cfg: ExperimentConfig, seed: int = 0,
 
 
 def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
-                    optimizer: OneCycleAdamW, *, plain: bool = False):
+                    optimizer: OneCycleAdamW, *, plain: bool = False,
+                    with_detections: bool = False,
+                    with_param_metrics: bool = False):
     """One TBPTT window on the model's device.
 
     ``train_step(lstm_states, ev_repr [B, T, H, W, C], labels [B, T, M, 7],
-    label_mask [B, T, M], frame_valid [B, T], is_first_sample [B])``
-    updates the model's parameters and BatchNorm buffers and the
-    optimizer in place and returns (the final LSTM states, detached: the
-    TBPTT cut; metrics ``loss``, ``iou_loss``, ``conf_loss``,
-    ``cls_loss``, ``num_fg`` and ``grad_norm``, the norm of the raw
-    gradients, which stay in each parameter's ``.grad``). ``plain=True``
-    runs the kernels' plain PyTorch versions."""
+    label_mask [B, T, M], frame_valid [B, T], is_first_sample [B],
+    token_mask=None)`` updates the model's parameters and BatchNorm
+    buffers and the optimizer in place and returns (the final LSTM
+    states, detached: the TBPTT cut; metrics ``loss``, ``iou_loss``,
+    ``conf_loss``, ``cls_loss``, ``num_fg`` and ``grad_norm``, the norm of
+    the raw gradients, which stay in each parameter's ``.grad``).
+    ``token_mask`` [B, T, h, w] bool at the storage resolution's stage-1
+    token grid replaces the masked tokens by the learned mask token (with
+    ``enable_masking``).
+
+    ``with_param_metrics`` adds ``gradflow/<name>``, the mean |grad| of
+    each parameter (zero where it has none), and ``weights/<name>``, its
+    mean |w| after the update, under the port's parameter names.
+    ``with_detections`` also returns (dets, det_valid, frame_idx, gval):
+    the eval step's postprocess of this forward's decoded predictions,
+    computed without gradients. ``plain=True`` runs the kernels' plain
+    PyTorch versions."""
+    require_fused_path(model.cfg)
     grid_np, stride_np = head_grid(cfg)
     dev = next(model.parameters()).device
     grid = torch.from_numpy(grid_np).to(dev)
     anchor_strides = torch.from_numpy(stride_np).to(dev)
     num_classes = cfg.model.head.num_classes
     K = cfg.dataset.max_labeled_frames
-    in_res = cfg.model.backbone.in_res_hw
-    stem_s2d = cfg.model.backbone.stem_s2d
+    bb = cfg.model.backbone
+    in_res = bb.in_res_hw
 
     def train_step(lstm_states: LstmStates, ev_repr: torch.Tensor,
                    labels: torch.Tensor, label_mask: torch.Tensor,
-                   frame_valid: torch.Tensor, is_first_sample: torch.Tensor
-                   ) -> Tuple[LstmStates, Dict[str, torch.Tensor]]:
+                   frame_valid: torch.Tensor, is_first_sample: torch.Tensor,
+                   token_mask: torch.Tensor | None = None):
         lstm_states = reset_states(
             tuple((h.detach().float(), c.detach().float())
                   for h, c in lstm_states), is_first_sample)
         ev_seq = pad_ev_repr(ev_repr, in_res, torch.float32,
-                             stem_s2d).transpose(0, 1)
+                             bb.stem_s2d).transpose(0, 1)
+        tm_seq = None
+        if token_mask is not None:
+            tm_seq = pad_token_mask(token_mask, in_res,
+                                    bb.stem_patch_size).transpose(0, 1)
         model.train()  # BatchNorm on batch statistics
         optimizer.zero_grad()
         feats, final_states = fused_train_scan_backbone(
-            model, ev_seq, lstm_states, plain=plain)
+            model, ev_seq, lstm_states, token_mask_seq=tm_seq, plain=plain)
         gathered, frame_idx, gval = gather_labeled_frames(feats, frame_valid,
                                                           K)
         targets, target_mask = gather_labels(labels.float(), label_mask,
@@ -218,8 +260,22 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
                             grid, anchor_strides, num_classes)
         losses["loss"].backward()
         metrics = {k: v.detach() for k, v in losses.items()}
+        if with_param_metrics:
+            for name, p in model.named_parameters():
+                metrics[f"gradflow/{name}"] = (
+                    p.grad.abs().mean() if p.grad is not None
+                    else torch.zeros((), device=p.device))
         metrics["grad_norm"] = optimizer.step()
-        return tuple((h.detach(), c.detach())
-                     for h, c in final_states), metrics
+        if with_param_metrics:
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    metrics[f"weights/{name}"] = p.abs().mean()
+        states = tuple((h.detach(), c.detach()) for h, c in final_states)
+        if not with_detections:
+            return states, metrics
+        with torch.no_grad():
+            dets, det_valid = _postprocess_window(preds, frame_idx, gval,
+                                                  cfg)
+        return states, metrics, (dets, det_valid, frame_idx, gval)
 
     return train_step

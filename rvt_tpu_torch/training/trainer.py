@@ -1,0 +1,334 @@
+"""Training orchestration: TBPTT steps over a stream of batches, metrics,
+checkpoint/resume, artifacts, periodic validation.
+
+Port of ``rvt_tpu/training/trainer.py`` (the reference's Lightning stack:
+``train.py`` + ``modules/detection.py`` + callbacks) as a plain loop
+around the port's train step on one GPU. Checkpoints are ``torch.save``
+files (``utils/checkpoint.py``), metrics a JSONL stream
+(``utils/logging.py``), published checkpoints a filesystem registry
+(``utils/artifacts.py``). Not ported yet (ROADMAP): data parallelism
+(``dp_size`` other than -1 or 1 raises) and the train-time panels
+(``train_viz_dir`` raises).
+"""
+from __future__ import annotations
+
+import shutil
+import time
+from dataclasses import dataclass, replace
+from pathlib import Path
+from typing import Callable, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from rvt_tpu_torch.config import ExperimentConfig
+from rvt_tpu_torch.convert.from_flax import from_flax
+from rvt_tpu_torch.data.prefetch import PrefetchIterator
+from rvt_tpu_torch.data.types import Batch
+from rvt_tpu_torch.evaluation.prophesee import PropheseeEvaluator
+from rvt_tpu_torch.models.backbone import zero_states
+from rvt_tpu_torch.models.detector import RVTDetector, init_detector
+from rvt_tpu_torch.ops.s2d import host_space_to_depth
+from rvt_tpu_torch.training.evaluator_loop import iter_batch_detections
+from rvt_tpu_torch.training.optimizer import make_optimizer
+from rvt_tpu_torch.training.step import make_train_step
+from rvt_tpu_torch.utils.artifacts import ArtifactRegistry, _file_manifest
+from rvt_tpu_torch.utils.checkpoint import CheckpointManager
+from rvt_tpu_torch.utils.logging import MetricsLogger
+
+
+@dataclass
+class TrainerConfig:
+    max_steps: int = 400_000
+    log_every_n_steps: int = 500
+    ckpt_every_n_steps: int = 10_000
+    val_every_n_steps: Optional[int] = None
+    ckpt_dir: str = "checkpoints"
+    # checkpoint selection metric, one to MAXIMISE (val/AP,
+    # callbacks/custom.py:8-31): the best checkpoint and the artifact
+    # registry's top-k keep the highest values
+    monitor: str = "AP"
+    # per-parameter mean-|grad| and mean-|w| logging cadence (reference
+    # GradFlowLogCallback, callbacks/gradflow.py:10-51); 0 disables
+    gradflow_every_n_steps: int = 5_000
+    # input-pipeline lookahead: a background thread produces batches
+    # (the host s2d stem transform included); 0 disables
+    prefetch_depth: int = 4
+    # train-time detection metrics (reference
+    # train_metrics_config.detection_metrics_every_n_steps,
+    # modules/detection.py:199-205): every N steps, score the Prophesee
+    # COCO metric on the training batches' detections of the last
+    # detection_metrics_n_batches steps and log train/AP; 0 disables
+    detection_metrics_every_n_steps: int = 0
+    detection_metrics_n_batches: int = 4
+    # pred-vs-GT panels of the training batch (reference
+    # DetectionVizCallback): not ported yet, must stay None
+    train_viz_dir: Optional[str] = None
+    # checkpoint-artifact registry (reference W&B log_model=True,
+    # wandb_logger.py:254-320); None disables
+    artifact_dir: Optional[str] = None
+    artifact_name: str = "checkpoint"
+    artifact_top_k: int = 1
+
+
+class Trainer:
+    """Trains ``model`` (by default a new detector with random weights from
+    ``seed``, its compute dtype from ``training.precision``) on
+    ``device``. The config must take the port's kernels
+    (``fused_path_supported``)."""
+
+    def __init__(self, cfg: ExperimentConfig, trainer_cfg: TrainerConfig,
+                 model: Optional[RVTDetector] = None, seed: int = 0,
+                 dp_size: int = -1, device="cuda"):
+        if dp_size not in (-1, 1):
+            raise NotImplementedError(
+                "the port's trainer runs on one GPU; data parallelism is "
+                "not ported yet (ROADMAP)")
+        if trainer_cfg.train_viz_dir is not None:
+            raise NotImplementedError(
+                "train_viz_dir: the train-time panels (utils/visualization)"
+                " are not ported yet (ROADMAP)")
+        self.cfg = cfg
+        self.tcfg = trainer_cfg
+        if model is None:
+            compute = ("bfloat16" if cfg.training.precision in
+                       ("bf16", "bfloat16") else "float32")
+            model = init_detector(replace(cfg.model, compute_dtype=compute),
+                                  seed=seed, device=device)
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.optimizer = make_optimizer(model.parameters(), cfg.training)
+        self.train_step = make_train_step(model, cfg, self.optimizer)
+        # the variants (with_detections / with_param_metrics) are made on
+        # their cadences, once each
+        self._steps = {(False, False): self.train_step}
+        self.ckpt = CheckpointManager(Path(trainer_cfg.ckpt_dir),
+                                      monitor=trainer_cfg.monitor)
+        self.artifacts = None
+        if trainer_cfg.artifact_dir is not None:
+            self.artifacts = ArtifactRegistry(trainer_cfg.artifact_dir)
+            # one code snapshot per run (reference save_code=True)
+            self.artifacts.publish_code(
+                Path(__file__).resolve().parents[2],
+                name=f"{trainer_cfg.artifact_name}-code")
+        self.logger = MetricsLogger(Path(trainer_cfg.ckpt_dir)
+                                    / "metrics.jsonl")
+        self._lstm_states = None
+        self._host_step = 0
+        self._train_evaluator = None
+
+    def _get_step(self, use_det: bool, use_pm: bool):
+        key = (use_det, use_pm)
+        if key not in self._steps:
+            self._steps[key] = make_train_step(
+                self.model, self.cfg, self.optimizer,
+                with_detections=use_det, with_param_metrics=use_pm)
+        return self._steps[key]
+
+    # -- checkpoint/resume ---------------------------------------------------
+
+    def state_dict(self) -> Dict:
+        """What a checkpoint holds: parameters and BatchNorm buffers, the
+        optimizer's moments and count, the host step."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "step": self._host_step}
+
+    def _load(self, state: Dict) -> None:
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self._host_step = int(state["step"])
+
+    def restore(self, step: Optional[int] = None) -> bool:
+        """Load the checkpoint of ``step`` (the latest when None); False
+        when there is none."""
+        state = self.ckpt.restore(step, map_location=self.device)
+        if state is None:
+            return False
+        self._load(state)
+        return True
+
+    def load_weights(self, variables: Dict) -> None:
+        """Weights-only init from flax-layout numpy variables (``params``
+        and ``batch_stats``; reference resume_only_weights,
+        train.py:79-89), through the weight bridge."""
+        self.model.load_state_dict(from_flax(variables), strict=True)
+
+    def _publish_checkpoint(self, step: int,
+                            metric: Optional[float]) -> None:
+        """Push the just-written step directory to the artifact registry:
+        alias ``last`` always, ``best`` when it is the best checkpoint,
+        then apply top-k retention (reference _scan_and_log_checkpoints)."""
+        src = self.ckpt.step_dir(step)
+        if not src.exists():
+            return
+        aliases = ["last"]
+        if self.ckpt.best_step() == step:
+            aliases.append("best")
+        name = self.tcfg.artifact_name
+        self.artifacts.publish(
+            src, name, score=metric, step=step, aliases=aliases,
+            metadata={"monitor": self.tcfg.monitor,
+                      "keep_top_k": self.tcfg.artifact_top_k})
+        self.artifacts.prune(name, self.tcfg.artifact_top_k)
+
+    def restore_from_artifact(self, uri: str) -> bool:
+        """Resume from a published artifact (reference get_checkpoint,
+        wandb_logger.py:77-87): resolve and md5-verify the payload, copy
+        it into this run's checkpoint tree, restore. A local step
+        directory that is already there is checked against the manifest's
+        md5s and copied again when it differs."""
+        if self.artifacts is None:
+            raise ValueError("TrainerConfig.artifact_dir is not set")
+        payload, manifest = self.artifacts.resolve(uri)
+        step = int(manifest["step"] if manifest["step"] is not None
+                   else payload.name)
+        dst = self.ckpt.step_dir(step)
+        if dst.exists() and _file_manifest(dst) != manifest["files"]:
+            shutil.rmtree(dst)
+        if not dst.exists():
+            dst.parent.mkdir(parents=True, exist_ok=True)
+            shutil.copytree(payload, dst)
+        return self.restore(step)
+
+    # -- train-time detection metrics ----------------------------------------
+
+    def _consume_train_detections(self, batch: Batch, det_out,
+                                  evaluate: bool, step: int) -> None:
+        """Feed one training batch's detections into a train-mode
+        Prophesee evaluator; on ``evaluate`` steps score the buffer and
+        log train/AP* (modules/detection.py:199-205)."""
+        cfg = self.cfg
+        if self._train_evaluator is None:
+            self._train_evaluator = PropheseeEvaluator(
+                cfg.dataset.name, cfg.dataset.downsample_by_factor_2)
+        outputs = [o.cpu().numpy() for o in det_out]
+        frames = list(iter_batch_detections(batch, *outputs))
+        if frames:
+            self._train_evaluator.add_labels([f[2] for f in frames])
+            self._train_evaluator.add_predictions([f[3] for f in frames])
+        if not evaluate:
+            return
+        if self._train_evaluator.has_data():
+            h, w = cfg.dataset.dataloading_hw
+            m = self._train_evaluator.evaluate_buffer(img_height=h,
+                                                      img_width=w)
+            if m:
+                self.logger.log(step, {f"train/{k}": v for k, v in m.items()})
+        self._train_evaluator.reset_buffer()
+
+    # -- training loop -------------------------------------------------------
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _token_mask(self, batch: Batch) -> Optional[torch.Tensor]:
+        bb = self.model.cfg.backbone
+        if batch.token_mask is not None:
+            if not bb.enable_masking:
+                raise ValueError("batch carries a token_mask but the model "
+                                 "has enable_masking=False")
+            return self._to_device(batch.token_mask)
+        if not bb.enable_masking:
+            return None
+        # an all-False mask: masked and unmasked batches then run the same
+        # path (stage 1's LN outside the kernels)
+        ps = bb.stem_patch_size
+        b_, t_, h_, w_ = batch.ev_repr.shape[:4]
+        return torch.zeros((b_, t_, h_ // ps, w_ // ps), dtype=torch.bool,
+                           device=self.device)
+
+    def fit(self, batches: Iterable[Batch],
+            eval_fn: Optional[Callable[[RVTDetector],
+                                       Optional[Dict[str, float]]]] = None
+            ) -> Dict[str, float]:
+        """Run up to max_steps TBPTT windows. ``eval_fn(model)`` is called
+        every val_every_n_steps and returns metrics (with the monitored
+        key) or None. Returns the metrics of the last logged step."""
+        bb = self.model.cfg.backbone
+        transform = None
+        if bb.stem_s2d:
+            def transform(b: Batch) -> Batch:
+                return replace(b, ev_repr=host_space_to_depth(
+                    b.ev_repr, bb.in_res_hw))
+        if self.tcfg.prefetch_depth > 0:
+            batches = PrefetchIterator(batches, self.tcfg.prefetch_depth,
+                                       transform=transform)
+        elif transform is not None:
+            batches = map(transform, batches)
+
+        self._clock = [time.perf_counter(), 0]  # start, frames done
+        last_metrics: Dict[str, float] = {}
+        try:
+            for batch in batches:
+                if self._host_step >= self.tcfg.max_steps:
+                    break
+                logged = self._fit_one(batch, eval_fn)
+                if logged is not None:
+                    last_metrics = logged
+        finally:
+            if hasattr(batches, "close"):  # the prefetch thread
+                batches.close()
+        return last_metrics
+
+    def _fit_one(self, batch: Batch, eval_fn) -> Optional[Dict[str, float]]:
+        """One step of ``fit`` with its logging, checkpoint and validation;
+        returns the metrics when this step logs them."""
+        tc = self.tcfg
+        K = self.cfg.dataset.max_labeled_frames
+        # gather_labeled_frames drops labelled frames beyond K; in training
+        # that silently reduces supervision
+        n_lab = int(batch.frame_valid.sum(axis=1).max())
+        if n_lab > K:
+            raise ValueError(
+                f"training window has {n_lab} labelled frames > "
+                f"max_labeled_frames={K}; raise "
+                "DatasetConfig.max_labeled_frames")
+        if self._lstm_states is None:
+            self._lstm_states = zero_states(self.model.cfg.backbone,
+                                            batch.batch_size,
+                                            device=self.device)
+        arrays = [self._to_device(a) for a in (
+            batch.ev_repr, batch.labels, batch.label_mask,
+            batch.frame_valid, batch.is_first_sample)]
+        step = self._host_step + 1
+        use_det = evaluate = False
+        if tc.detection_metrics_every_n_steps:
+            r = step % tc.detection_metrics_every_n_steps
+            n_acc = max(1, tc.detection_metrics_n_batches)
+            evaluate = r == 0
+            use_det = evaluate or r > (tc.detection_metrics_every_n_steps
+                                       - n_acc)
+        use_pm = bool(tc.gradflow_every_n_steps) and (
+            step % tc.gradflow_every_n_steps == 0)
+        out = self._get_step(use_det, use_pm)(
+            self._lstm_states, *arrays, self._token_mask(batch))
+        self._lstm_states, metrics = out[:2]
+        if use_det:
+            self._consume_train_detections(batch, out[2], evaluate, step)
+        self._clock[1] += batch.batch_size * batch.seq_len
+        self._host_step = step
+
+        logged = None
+        if step % tc.log_every_n_steps == 0:
+            logged = {k: float(v) for k, v in metrics.items()}
+            dt = time.perf_counter() - self._clock[0]
+            logged["train/frames_per_s"] = self._clock[1] / max(dt, 1e-9)
+            self.logger.log(step, {k if k.startswith("train/")
+                                   else f"train/{k}": v
+                                   for k, v in logged.items()})
+        if step % tc.ckpt_every_n_steps == 0:
+            self.ckpt.save(self.state_dict(), step)
+            if self.artifacts is not None:
+                self._publish_checkpoint(step, None)
+        if (eval_fn is not None and tc.val_every_n_steps
+                and step % tc.val_every_n_steps == 0):
+            val_metrics = eval_fn(self.model)
+            if val_metrics:
+                self.logger.log(step, {f"val/{k}": v
+                                       for k, v in val_metrics.items()})
+                metric = val_metrics.get(tc.monitor)
+                self.ckpt.save(self.state_dict(), step, metric=metric)
+                if self.artifacts is not None:
+                    self._publish_checkpoint(step, metric)
+        return logged

@@ -306,3 +306,64 @@ def test_pair_train_kernels_vs_plain(dev):
         outs.append([y.detach()] + [t.grad.clone() for t in [x] + prm])
     for got, ref in zip(*outs):
         _rel_close(got, ref, 2e-2)
+
+
+@pytest.mark.parametrize("ds_ln", [True, False], ids=["ds_ln", "normed"])
+def test_stage_step_train_kernels_vs_plain(dev, ds_ln):
+    """Row 7, ``fused_stage_step_train``, over T = 3 carried steps on the
+    kernels against the same loop on the plain versions: outputs and every
+    gradient; it launches the kernels (and counts itself) only on the
+    kernel side. With ``ds_ln=False`` (the token-mask path) the input is
+    already normed and the LN affine gets no gradient from the stage."""
+    from rvt_tpu_torch.ops import fused_scan as fs
+    from rvt_tpu_torch.ops import fused_train as ft
+
+    H, W, C, dh, part, B, T = 16, 10, 64, 32, (8, 10), 2, 3
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def leaf(*shape, scale=1.0, offset=0.0, dtype=torch.bfloat16):
+        t = torch.randn(shape, generator=g, device=dev) * scale + offset
+        return t.to(dtype).requires_grad_(True)
+
+    def block(sfn):
+        out = [] if sfn else [leaf(C, scale=0.2, offset=1), leaf(C, scale=0.2)]
+        return out + [leaf(C, 3 * C, scale=C ** -0.5), leaf(3 * C, scale=0.1),
+                      leaf(C, C, scale=C ** -0.5), leaf(C, scale=0.1),
+                      leaf(C, scale=0.1, offset=0.3, dtype=torch.float32),
+                      leaf(C, scale=0.2, offset=1), leaf(C, scale=0.2),
+                      leaf(C, 4 * C, scale=C ** -0.5), leaf(4 * C, scale=0.1),
+                      leaf(4 * C, C, scale=(4 * C) ** -0.5), leaf(C, scale=0.1),
+                      leaf(C, scale=0.1, offset=0.3, dtype=torch.float32)]
+
+    x = leaf(T, B, H, W, C, scale=2.0)
+    ds = [leaf(C, scale=0.2, offset=1), leaf(C, scale=0.2)]
+    win, grid = block(True), block(False)
+    lw = leaf(2 * C, 4 * C, scale=(2 * C) ** -0.5)
+    lb = leaf(4 * C, scale=0.1)
+    h0 = leaf(B, H, W, C, scale=0.3, dtype=torch.float32)
+    c0 = leaf(B, H, W, C, scale=0.3, dtype=torch.float32)
+    leaves = [x] + ds + win + grid + [lw, lb, h0, c0]
+    wh = torch.randn((T, B, H, W, C), generator=g, device=dev)
+    outs = []
+    for plain in (False, True):
+        for t in leaves:
+            t.grad = None
+        cfg = ft.StageCfg(C // dh, dh, part, 1e-5, 1e-5, plain, ds_ln)
+        n_stage, n_k8 = ft.STAGE_STEP_TRAIN.launches, \
+            fs.LSTM_SCAN_BWD.launches
+        h, c, hs = h0, c0, []
+        for t in range(T):
+            h, c = ft.fused_stage_step_train(cfg, x[t], *ds, win, grid, lw,
+                                             lb, h, c)
+            hs.append(h.to(torch.bfloat16))
+        loss = (torch.stack(hs).float() * wh).sum() + (c * wh[0]).sum()
+        loss.backward()
+        assert ft.STAGE_STEP_TRAIN.launches - n_stage == (0 if plain else T)
+        assert fs.LSTM_SCAN_BWD.launches - n_k8 == (0 if plain else T)
+        outs.append([torch.stack(hs).detach(), h.detach(), c.detach()]
+                    + [t.grad for t in leaves])
+    for i, (got, ref) in enumerate(zip(*outs)):
+        if ref is None:  # the LN affine of a normed input
+            assert not ds_ln and got is None and i in (4, 5)
+            continue
+        _rel_close(got, ref, 2e-2)

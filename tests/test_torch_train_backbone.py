@@ -57,9 +57,14 @@ def _rel(got, ref):
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
 
 
-@pytest.fixture(scope="module")
-def case():
+def backbone_case(per_step=False, masked=False):
+    """Both sides' features, final states and backbone gradients under the
+    linear loss, per step or over the whole window, with a seeded stage-1
+    token mask (about 25 % of the tokens) when ``masked``."""
     cfg, tcfg = _cfg(preset), _cfg(t_preset)
+    if masked:
+        cfg, tcfg = (replace(c, model=replace(c.model, backbone=replace(
+            c.model.backbone, enable_masking=True))) for c in (cfg, tcfg))
     tmodel = init_detector(tcfg.model, seed=0, device="cpu")
     rng = np.random.RandomState(5)
     with torch.no_grad():  # LayerScale and biases off their init values
@@ -78,6 +83,10 @@ def case():
     w_feat = [rng.randn(T, *states[i - 1][0].shape).astype(np.float32)
               for i in cfg.model.fpn.in_stages]
     w_state = [rng.randn(*h.shape).astype(np.float32) for h, _ in states]
+    tm = None
+    if masked:
+        ps = cfg.model.backbone.stem_patch_size
+        tm = np.random.RandomState(6).rand(T, B, H // ps, W // ps) < 0.25
 
     def j_loss(feats, final):
         total = sum(jnp.sum(f.astype(jnp.float32) * w)
@@ -101,7 +110,8 @@ def case():
         feats, final = j_train_backbone(
             model, {"params": params,
                     "batch_stats": variables["batch_stats"]},
-            jnp.asarray(ev), jstates)
+            jnp.asarray(ev), jstates, per_step=per_step,
+            token_mask_seq=None if tm is None else jnp.asarray(tm))
         return j_loss(feats, final), (feats, final)
 
     params = jax.tree.map(jnp.asarray, variables["params"])
@@ -111,7 +121,9 @@ def case():
 
     tstates = tuple((torch.from_numpy(h), torch.from_numpy(c))
                     for h, c in states)
-    feats, final = t_train_backbone(tmodel, torch.from_numpy(ev), tstates)
+    feats, final = t_train_backbone(
+        tmodel, torch.from_numpy(ev), tstates, per_step=per_step,
+        token_mask_seq=None if tm is None else torch.from_numpy(tm))
     t_loss(feats, final).backward()
     tgrads = {n: p.grad for n, p in tmodel.named_parameters()
               if n.startswith("backbone.")}
@@ -119,7 +131,7 @@ def case():
             jgrads, tgrads)
 
 
-def test_train_backbone_forward_matches_jax(case):
+def check_forward(case):
     (jfeats, jfinal), (feats, final), _, _ = case
     assert len(feats) == len(jfeats) == 3
     for i, (t, j) in enumerate(zip(feats, jfeats)):
@@ -130,7 +142,9 @@ def test_train_backbone_forward_matches_jax(case):
         assert _rel(c.detach().numpy(), jc) < FWD_TOL, i
 
 
-def test_train_backbone_grads_match_jax(case):
+def check_grads(case):
+    """Every backbone leaf within GRAD_TOL, the median within
+    GRAD_MEDIAN_TOL; returns {leaf: error}."""
     _, _, jgrads, tgrads = case
     names = sorted(n for n in jgrads if n.startswith("backbone."))
     assert set(names) == set(tgrads)
@@ -139,12 +153,27 @@ def test_train_backbone_grads_match_jax(case):
         for leaf in ("conv.weight", "norm.weight", "norm.bias"):
             name = f"backbone.stages.{s}.downsample_cf2cl.{leaf}"
             assert np.abs(jgrads[name].numpy()).max() > 0, name
-    errs = []
+    errs = {}
     for name in names:
         ref, got = jgrads[name].numpy(), tgrads[name]
         if not np.any(ref):  # e.g. the mask token: no path to the loss
             assert got is None or not bool(got.any()), name
             continue
-        errs.append(_rel(got.numpy(), ref))
-        assert errs[-1] < GRAD_TOL, (name, errs[-1])
-    assert len(errs) > 100 and np.median(errs) < GRAD_MEDIAN_TOL
+        errs[name] = _rel(got.numpy(), ref)
+        assert errs[name] < GRAD_TOL, (name, errs[name])
+    assert len(errs) > 100 and np.median(list(errs.values())) < \
+        GRAD_MEDIAN_TOL
+    return errs
+
+
+@pytest.fixture(scope="module")
+def case():
+    return backbone_case()
+
+
+def test_train_backbone_forward_matches_jax(case):
+    check_forward(case)
+
+
+def test_train_backbone_grads_match_jax(case):
+    check_grads(case)

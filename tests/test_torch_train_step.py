@@ -63,13 +63,19 @@ H_ATOL, C_ATOL = 4e-2, 8e-2   # final (h, c) (0.016 / 0.031 seen)
 BN_TOL = 2e-2           # running mean / var, of max |ref| (0.010 seen)
 
 
-def _cfg(preset_fn):
+def _cfg(preset_fn, masked=False, conf=None):
+    """gen1 tiny with the train kernels; with ``masked`` the stage-1 mask
+    token, with ``conf`` that confidence threshold for the detections."""
     cfg = preset_fn("gen1", "tiny", resolution_hw=(64, 80),
                     sequence_length=T, max_labels_per_frame=M,
                     max_labeled_frames=K)
+    pp = cfg.model.postprocess
     return replace(cfg, model=replace(
         cfg.model, compute_dtype="bfloat16",
-        backbone=replace(cfg.model.backbone, fused_kernels=True)))
+        backbone=replace(cfg.model.backbone, fused_kernels=True,
+                         enable_masking=masked),
+        postprocess=replace(pp, confidence_threshold=(
+            pp.confidence_threshold if conf is None else conf))))
 
 
 def _batch(rng):
@@ -118,19 +124,29 @@ def _t_geometric(pred_boxes, obj_logit, cls_logit, gt_boxes, gt_classes,
                    (matching * ious).sum(1), fg.float().sum(-1))
 
 
-@pytest.fixture(scope="module")
-def runs():
+def train_runs(masked=False, conf=None):
+    """Two carried windows on both sides (``_run``) with the geometric
+    assignment. ``masked``: a seeded stage-1 token mask (about 20 % of the
+    tokens, at the storage resolution's token grid) on every window.
+    ``conf``: both steps also return their detections and parameter
+    metrics, at that confidence threshold."""
     mp = pytest.MonkeyPatch()
     mp.setattr(jlosses, "simota_assign", _j_geometric)
     mp.setattr(tlosses, "simota_assign", _t_geometric)
     try:
-        return _run()
+        return _run(masked, conf)
     finally:
         mp.undo()
 
 
-def _run():
-    cfg, tcfg = _cfg(preset), _cfg(t_preset)
+@pytest.fixture(scope="module")
+def runs():
+    return train_runs()
+
+
+def _run(masked, conf):
+    variants = conf is not None
+    cfg, tcfg = _cfg(preset, masked, conf), _cfg(t_preset, masked, conf)
     tmodel = t_init_detector(tcfg.model, seed=0, device="cpu")
     # off the identity-ish init (LayerScale 1e-5, unit BatchNorm) so the
     # attention blocks shape the features and their gradients
@@ -160,25 +176,39 @@ def _run():
         w.mul_(1 + 1e-3 * torch.from_numpy(
             np.random.RandomState(9).randn(*w.shape)).float())
     topt = make_optimizer(tmodel.parameters(), tcfg.training)
+    kw = dict(with_detections=variants, with_param_metrics=variants)
     jtrain = jstep.make_train_step(model, cfg, opt, donate=False,
-                                   mesh=make_mesh(1))
-    ttrain = tstep.make_train_step(tmodel, tcfg, topt)
+                                   mesh=make_mesh(1), **kw)
+    ttrain = tstep.make_train_step(tmodel, tcfg, topt, **kw)
+    # the port's head outputs, for its detections
+    tpreds, forward_detect = [], tmodel.forward_detect
+    tmodel.forward_detect = lambda f: (tpreds.append(forward_detect(f))
+                                       or tpreds[-1])
 
     rng = np.random.RandomState(0)
     batches = [_batch(rng) for _ in range(2)]
     firsts = [np.array([True, False]), np.array([False, False])]
+    ps = cfg.model.backbone.stem_patch_size
+    tms = [np.random.RandomState(11 + i).rand(B, T, 64 // ps, 80 // ps) < 0.2
+           if masked else None for i in range(2)]
     jst = zero_states(cfg.model.backbone, B)
     tst = tuple((torch.zeros(h.shape), torch.zeros(c.shape)) for h, c in jst)
-    jout, tout, grads = [], [], None
-    for (ev, labels, mask, fv), first in zip(batches, firsts):
-        state, jst, jm = jtrain(state, jst, jnp.asarray(ev),
-                                jnp.asarray(labels), jnp.asarray(mask),
-                                jnp.asarray(fv), jnp.asarray(first))
+    jout, tout, grads, dets = [], [], None, []
+    for (ev, labels, mask, fv), first, tmask in zip(batches, firsts, tms):
+        jres = jtrain(state, jst, jnp.asarray(ev), jnp.asarray(labels),
+                      jnp.asarray(mask), jnp.asarray(fv), jnp.asarray(first),
+                      None if tmask is None else jnp.asarray(tmask))
+        state, jst, jm = jres[:3]
         jout.append(jax.tree.map(np.asarray, (jst, jm)))
-        tst, tm = ttrain(tst, torch.from_numpy(ev), torch.from_numpy(labels),
-                         torch.from_numpy(mask), torch.from_numpy(fv),
-                         torch.from_numpy(first))
+        tres = ttrain(tst, torch.from_numpy(ev), torch.from_numpy(labels),
+                      torch.from_numpy(mask), torch.from_numpy(fv),
+                      torch.from_numpy(first),
+                      None if tmask is None else torch.from_numpy(tmask))
+        tst, tm = tres[:2]
         tout.append((tst, {k: float(v) for k, v in tm.items()}))
+        if variants:
+            dets.append((jax.tree.map(np.asarray, jres[3]), tres[2],
+                         tpreds[-1].detach()))
         if grads is None:
             # JAX's first-window gradient, read from its Adam moment: after
             # one step mu = (1 - b1) * clip(g), and clip scales by
@@ -196,17 +226,24 @@ def _run():
         moved.parameters(), tcfg.training))(
         tuple((torch.zeros(h.shape), torch.zeros(c.shape)) for h, c in jst),
         *(torch.from_numpy(a) for a in batches[0]),
-        torch.from_numpy(firsts[0]))
+        torch.from_numpy(firsts[0]),
+        None if tms[0] is None else torch.from_numpy(tms[0]))
     moved_grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                    for n, p in moved.named_parameters()}
     return dict(jout=jout, tout=tout, state=state, tmodel=tmodel,
-                grads=grads + (moved_grads,),
+                grads=grads + (moved_grads,), dets=dets, cfg=cfg,
                 lrs=[topt.schedule(0), topt.schedule(1)])
 
 
-def test_train_step_losses_match_jax(runs):
+def check_losses(runs, cls_of_loss=False):
+    """Each loss part within LOSS_RTOL of itself; with ``cls_of_loss`` the
+    class loss within LOSS_RTOL of the whole loss instead."""
     for (_, jm), (_, tm) in zip(runs["jout"], runs["tout"]):
         for k in ("loss", "iou_loss", "conf_loss", "cls_loss", "num_fg"):
+            if cls_of_loss and k == "cls_loss":
+                assert abs(tm[k] - float(jm[k])) <= LOSS_RTOL * abs(
+                    float(jm["loss"])), k
+                continue
             np.testing.assert_allclose(tm[k], float(jm[k]), rtol=LOSS_RTOL,
                                        err_msg=k)
         np.testing.assert_allclose(tm["grad_norm"], float(jm["grad_norm"]),
@@ -214,7 +251,7 @@ def test_train_step_losses_match_jax(runs):
         assert tm["num_fg"] > 0 and tm["loss"] > 0
 
 
-def test_train_step_final_states_match_jax(runs):
+def check_final_states(runs):
     for (jst, _), (tst, _) in zip(runs["jout"], runs["tout"]):
         for (hr, cr), (hg, cg) in zip(jst, tst):
             assert hg.dtype == torch.float32 and not hg.requires_grad
@@ -227,7 +264,7 @@ def _l2(a, b):
                  / max(float(torch.linalg.vector_norm(b.double())), 1e-30))
 
 
-def test_train_step_grads_match_jax(runs):
+def check_grads(runs):
     jg, tg, moved = runs["grads"]
     assert set(jg) == set(tg)
     for name, ref in jg.items():
@@ -239,7 +276,7 @@ def test_train_step_grads_match_jax(runs):
     assert _l2(flat["port"], flat["jax"]) <= 2 * sensitivity
 
 
-def test_train_step_bn_buffers_and_params_match_jax(runs):
+def check_bn_buffers_and_params(runs):
     ref = from_flax(jax.tree.map(np.asarray, {
         "params": runs["state"].params,
         "batch_stats": runs["state"].batch_stats}))
@@ -261,3 +298,19 @@ def test_train_step_bn_buffers_and_params_match_jax(runs):
     assert n_bn > 0
     assert d.max() <= 2 * (lr0 + lr1) * 1.001
     assert (d <= 2.5 * max(lr0, lr1)).mean() >= 0.99
+
+
+def test_train_step_losses_match_jax(runs):
+    check_losses(runs)
+
+
+def test_train_step_final_states_match_jax(runs):
+    check_final_states(runs)
+
+
+def test_train_step_grads_match_jax(runs):
+    check_grads(runs)
+
+
+def test_train_step_bn_buffers_and_params_match_jax(runs):
+    check_bn_buffers_and_params(runs)

@@ -17,8 +17,11 @@ Phases, each of which raises (exit code != 0) when it fails:
      360x640 half grid, on a lane whose events all hit one pixel and on a
      lane with out-of-range and past-counts events. Prints the error
      beside its tolerance and the kernel's, plain version's and one
-     library call's times (CUDA events), with the least time the card
-     could take (bound);
+     library call's times (CUDA events; K4's yardstick cuDNN's
+     ``nn.LSTM``, ``nn.LSTMCell`` at T = 1), with the least time the card
+     could take (bound), the kernel's TFLOP/s and its share of the bound;
+     then K2 (every epilogue) and K6 at ragged shapes (M in 1, 127, 129,
+     1000, 17000; K, N in 8, 40, 48), correctness only;
   4. run the port's RVT-B gen1 streaming eval step (bf16, s2d stem,
      B = 8, T = 21, labels on every 5th frame, pre_nms_topk 512) over
      several windows with the LSTM states carried, random weights from a
@@ -38,8 +41,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      train epilogues, K4 with c_seq, K5 ln_rows_bwd, K6 gemm_bf16_wgrad,
      K7 partition_attention_bwd, K8 lstm_scan_bwd and train_reduce (its
      in-order sums timed at every shape of partials the step gives it);
-     time each (kernel, plain, library yardstick) beside its bound and
-     its calls per train step; K1 and K3 count again for the train step;
+     K6 and K2's gelu-backward column sums bit for bit across two runs;
+     time each (kernel, plain, library yardstick: K8's the cuDNN LSTM's
+     backward) beside its bound and its calls per train step; K1 and K3
+     count again for the train step;
   7. run the port's RVT-B gen1 TBPTT train step (bf16, no s2d stem, B = 8,
      T = 21, K = 6, M = 48, labels on every 5th frame, random weights from
      seed 0) for 1 + 5 steps with the states carried; check that every
@@ -144,7 +149,9 @@ class Record:
             path.items() if isinstance(path, dict) else ((path, 1),))}
         log(f"    per call: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {lib} ms, bound {max(b_ms, o_ms):.4f} ms "
-            f"({'bytes' if b_ms >= o_ms else 'operations'}); "
+            f"({'bytes' if b_ms >= o_ms else 'operations'}); kernel "
+            f"{ops / ms * 1e-9:.1f} TFLOP/s, {max(b_ms, o_ms) / ms:.1%} of "
+            "the bound; "
             + ", ".join(f"{n} per {p}" for p, n in counts.items()))
         for path, count in counts.items():
             if count:
@@ -197,6 +204,54 @@ def compare(name, got, ref, atol, rtol, mean_tol=1e-3):
         fail(f"{name}: kernel disagrees with its plain version "
              f"({int(bad.sum())} elements out of tolerance)")
     return max_err
+
+
+LSTM_LIB = {}  # the dtype the cuDNN LSTM yardstick ran in, by call
+
+
+def lstm_library_ms(T, P, C, g, *, grad=False, backward=False):
+    """The library yardstick of K4 and K8: the 1x1 ConvLSTM cell over P
+    pixels and T steps is an LSTM over P independent sequences with input
+    and hidden width C (only the gate order and the bf16 rounding points
+    differ). Times ``nn.LSTM`` (cuDNN) forward, under no_grad unless
+    ``grad`` (the train forward, which keeps what its backward needs);
+    ``nn.LSTMCell`` for the T = 1 serving step; with ``backward`` the
+    LSTM's backward to the inputs, initial state and weights, as K8 + K6
+    give them. bf16 where cuDNN takes it, else fp16 (``LSTM_LIB``). Timed
+    only: nothing in the port calls these."""
+    import torch
+
+    dev = torch.device("cuda")
+    x16 = torch.empty(1, device=dev, dtype=torch.bfloat16)
+    dt = (torch.bfloat16 if torch.backends.cudnn.is_acceptable(x16)
+          else torch.float16)
+    cell = T == 1 and not (grad or backward)
+    what = ("nn.LSTMCell" if cell else "cuDNN nn.LSTM"
+            + (" backward" if backward else " forward"))
+    LSTM_LIB[what] = str(dt)[6:]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+
+    mod = (torch.nn.LSTMCell(C, C) if cell else torch.nn.LSTM(C, C)).to(
+        dev, dt)
+    x = randn(T, P, C)
+    h0, c0 = (randn(P, C), randn(P, C)) if cell else (randn(1, P, C),
+                                                      randn(1, P, C))
+    if cell:
+        with torch.no_grad():
+            return time_ms(lambda: mod(x[0], (h0, c0)))
+    if not (grad or backward):
+        with torch.no_grad():
+            return time_ms(lambda: mod(x, (h0, c0)))
+    leaves = [t.requires_grad_(True) for t in (x, h0, c0)]
+    if grad:
+        return time_ms(lambda: mod(x, (h0, c0)))
+    y, (hT, cT) = mod(x, (h0, c0))
+    cot = (randn(*y.shape), randn(*hT.shape), randn(*cT.shape))
+    leaves += list(mod.parameters())
+    return time_ms(lambda: torch.autograd.grad((y, hT, cT), leaves, cot,
+                                               retain_graph=True))
 
 
 def check_kernels():
@@ -322,14 +377,86 @@ def check_kernels():
             ms = time_ms(lambda: fs.fused_lstm_scan(x, w, bias, h0, c0))
             pms = time_ms(lambda: fs.lstm_scan_plain(x, w, bias, h0, c0), 2)
             P = B * H * W
+            lms = lstm_library_ms(steps, P, C, g)
             nbytes = (steps * P * C * (x.element_size() + 2)
                       + 2 * (8 * C * C + 4 * C) + 4 * P * C * 4)
             recs["lstm_scan"].add("eval step", 1 if steps == T else 0, err,
                                   ms, pms, nbytes,
                                   2 * steps * P * 2 * C * 4 * C,
-                                  PEAK_BF16_FLOPS, None)
+                                  PEAK_BF16_FLOPS, lms)
         torch.cuda.empty_cache()
     return recs
+
+
+def check_gemm_edges():
+    """Phase 3, correctness only: K2 (every epilogue) and K6 at ragged
+    shapes, M in (1, 127, 129, 1000, 17000: each of K2's three row tilings)
+    against K and N in (8, 40, 48) (TMA's zero fill past the arrays, the
+    masked stores), held against their
+    plain versions at phase 3's and phase 6's tolerances; K6 and the gelu
+    backward's column sums bit for bit across two runs."""
+    import torch
+
+    from rvt_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    f32 = torch.float32
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    n = 0
+    for M in (1, 127, 129, 1000, 17000):
+        for K, N in ((8, 40), (40, 48), (48, 8), (40, 40)):
+            for epi in fa.EPILOGUES:
+                rt = epi.startswith("rt_")
+                a = randn(M, K)
+                w = randn(*((N, K) if rt else (K, N)), scale=K ** -0.5)
+                kw = {} if rt else {"bias": randn(N, scale=0.1)}
+                if epi == "residual_ls":
+                    kw.update(gamma=randn(N, scale=0.3, dtype=f32),
+                              res_in=randn(M, N, dtype=f32))
+                if epi == "rt_gelu_bwd":
+                    kw["aux"] = randn(M, N)
+                R = (randn(M, N, dtype=f32) if epi in ("residual", "rt_acc")
+                     else None)
+                want = epi in ("gelu", "residual_ls")
+
+                def run(plain):
+                    return fa.gemm_bf16(a, w, epi, want_aux=want, plain=plain,
+                                        out=None if R is None else R.clone(),
+                                        **kw)
+
+                got, ref = run(False), run(True)
+                g0 = got[0] if isinstance(got, tuple) else got
+                r0 = ref[0] if isinstance(ref, tuple) else ref
+                bad = ((g0.float() - r0.float()).abs()
+                       > 3.2e-2 + 1e-2 * r0.float().abs())
+                if not bool(torch.isfinite(g0.float()).all()) or bool(
+                        bad.any()):
+                    fail(f"gemm_bf16[{epi}] at M={M}, K={K}, N={N} disagrees "
+                         "with its plain version")
+                if epi == "rt_gelu_bwd":
+                    if compare_rel_quiet(got[1], ref[1]) > 1e-3:
+                        fail(f"gemm_bf16[rt_gelu_bwd] column sums at M={M}, "
+                             f"K={K}, N={N} disagree")
+                    again = run(False)
+                    if not (torch.equal(got[0], again[0])
+                            and torch.equal(got[1], again[1])):
+                        fail("gemm_bf16 rt_gelu_bwd: two runs differ")
+                n += 1
+            a, b = randn(M, K), randn(M, N)
+            got = fa.gemm_bf16_wgrad(a, b)
+            if compare_rel_quiet(got, fa.gemm_bf16_wgrad_plain(a, b)) > 1e-3:
+                fail(f"gemm_bf16_wgrad at M={M}, Ka={K}, Nb={N} disagrees")
+            if not torch.equal(got, fa.gemm_bf16_wgrad(a, b)):
+                fail("gemm_bf16_wgrad: two runs differ")
+            n += 1
+    log(f"ragged shapes: {n} products of K2 (every epilogue) and K6 agree "
+        "with their plain versions (tolerance 0.032 + 0.01*|ref|; sums "
+        "1e-3 of max|ref|); K6 and the gelu backward's sums bit for bit "
+        "across two runs")
 
 
 def run_main_path():
@@ -887,6 +1014,11 @@ def check_train_kernels(recs, frames=SEQ_LEN * BATCH, steps=SEQ_LEN,
                           first(ref), 3.2e-2, 1e-2)
             if epi == "rt_gelu_bwd":
                 compare_rel("  its column sums", got[1], ref[1], 1e-3)
+                again = run(False)
+                if not (torch.equal(got[0], again[0])
+                        and torch.equal(got[1], again[1])):
+                    fail("gemm_bf16 rt_gelu_bwd: two runs differ")
+                del again
             elif want:
                 compare("  its bf16 branch output", got[1], ref[1], 3.2e-2,
                         1e-2)
@@ -902,7 +1034,7 @@ def check_train_kernels(recs, frames=SEQ_LEN * BATCH, steps=SEQ_LEN,
                 TS, count, err, ms, pms, 2 * (M * K + K * N) + M * N * per_elem,
                 2 * M * N * K, PEAK_BF16_FLOPS, lms)
             del a, w, kw, R
-        sum_parts("gelu-bwd column sums", randn(-(-M // fa._GEMM_BM), 4 * C,
+        sum_parts("gelu-bwd column sums", randn(fa.gemm_part_rows(M), 4 * C,
                                                 dtype=f32), 2)
         # K5: LN2 and LN1 (f32 residual in, added into dR), ds-LN (bf16)
         s = randn(C, scale=0.2) + 1.0
@@ -1012,10 +1144,11 @@ def check_train_kernels(recs, frames=SEQ_LEN * BATCH, steps=SEQ_LEN,
                                                  with_c_seq=True, plain=True),
                       1)
         P = B * H * W
+        lms = lstm_library_ms(T, P, C, g, grad=True)
         recs["lstm_scan"].add(
             TS, 1, err, ms, pms,
             T * P * C * (4 + 2 + 4) + 2 * (8 * C * C + 4 * C) + 4 * P * C * 4,
-            2 * T * P * 2 * C * 4 * C, PEAK_BF16_FLOPS, None)
+            2 * T * P * 2 * C * 4 * C, PEAK_BF16_FLOPS, lms)
         h_seq, c_seq = ref4[0], ref4[1]
         del fwd, ref4
         dh_seq = randn(T, B, H, W, C, scale=0.5)
@@ -1030,9 +1163,10 @@ def check_train_kernels(recs, frames=SEQ_LEN * BATCH, steps=SEQ_LEN,
         del got, ref
         ms = time_ms(lambda: fs.lstm_scan_bwd_launch(*args))
         pms = time_ms(lambda: fs.lstm_scan_bwd(*args, plain=True), 1)
+        lms = lstm_library_ms(T, P, C, g, backward=True)
         recs["lstm_scan_bwd"].add(
             TS, 1, err, ms, pms, T * P * C * 28 + 2 * (8 * C * C + 4 * C),
-            32 * T * P * C * C, PEAK_BF16_FLOPS, None)
+            32 * T * P * C * C, PEAK_BF16_FLOPS, lms)
         del x, h_seq, c_seq, dh_seq, args
         sum_parts("lstm db", randn(B * -(-H * W // fs._PT), 4 * C, dtype=f32),
                   1)
@@ -1726,8 +1860,10 @@ def main() -> int:
 
     stage_bounds()
     recs = check_kernels()
+    check_gemm_edges()
     recs["stacked_histogram"] = check_voxelizer()
     check_train_kernels(recs)
+    log(f"LSTM yardstick dtypes: {LSTM_LIB}")
     fps, mfu, counts = run_main_path()
     raw_fps, raw_mfu, raw_counts = run_raw_path()
     torch.cuda.empty_cache()

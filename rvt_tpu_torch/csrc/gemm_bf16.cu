@@ -21,34 +21,37 @@
 //                    attention backward reads as bf16 only)
 //   EPI_RT_ACC  (6): out[M,N] f32 += the sum
 //   EPI_RT_GELU_BWD (7): d = sum * gelu'(aux = bf16 h1) (_gelu_bwd :145),
-//                    store bf16(d) and the f32 column sums of d over the
-//                    block's rows into part[blockIdx.y, N] (the fc1 bias
-//                    gradient, summed over blocks by train_reduce.cu)
+//                    store bf16(d) and the f32 column sums of d over each
+//                    64-row block into part[row / 64, N] (the fc1 bias
+//                    gradient, summed over blocks by train_reduce.cu; a
+//                    fixed order within the block, so two runs agree)
 //
 // Bound on the H100: at the gen1 RVT-B shapes the products are short
-// (K = C or 4C, 64..2048) and M is large, so stages 1-2 are bound by the
-// bytes of A and the output, stages 3-4 come closer to the tensor-core
-// rate. Design (simple first): 64x64 output tile per 4-warp block, K
-// stepped by 32 through shared memory, bf16 WMMA (mma.sync) tiles with
-// f32 accumulators; the next k-tile's loads go to registers while the
-// current one is multiplied; the epilogue reads a shared-memory f32 tile
-// and writes eight columns per thread with 16-byte stores. No TMA/wgmma
-// and no multi-stage shared-memory pipeline yet.
-#include <mma.h>
-
-#include <type_traits>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+// (K = C or 4C, 64..2048) and M is large (up to 860,160 rows), so stage 1
+// is bound by the bytes of A and of the epilogue's outputs, stages 3-4 by
+// the tensor cores (28 GFLOP per 4C-wide product at every stage).
+//
+// Design (hopper_gemm.cuh): wgmma on 128-byte-swizzled k-tiles of 64
+// that TMA loads through an mbarrier ring, in a persistent grid whose
+// producer loads the next tile during the current tile's epilogue. Tiles
+// of 128 x BN rows x columns (two consumer warpgroups), BN = 128 where N
+// is a multiple of 128, else 64; 64 x BN (one consumer warpgroup) when
+// 128-row tiles would leave SMs idle (the per-step path's B = 8 frames);
+// 192 x BN (three) for the products whose output outweighs their input. A is read
+// K-major; W [K, N] is an MN-major B operand and W [N, K] (the rt_
+// epilogues) a K-major one, both straight from memory (wgmma's transpose
+// immediate). K is not split: the in-place epilogues need one block per
+// output tile. The epilogue stages each warpgroup's 64 x 64 f32 slices in
+// shared memory and writes eight neighbouring columns per thread with
+// 16-byte accesses.
+#include "hopper_gemm.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int LDA = BK + 8, LDB = BN + 8, LDBT = BK + 8, LDC = BN + 4;
 constexpr int EPI_BIAS = 0, EPI_GELU = 1, EPI_RESID = 2, EPI_RESID_LS = 3,
               EPI_RT_F32 = 4, EPI_RT_BF16 = 5, EPI_RT_ACC = 6,
               EPI_RT_GELU_BWD = 7;
+constexpr int PART_ROWS = 64;  // rows per column-sum partial of epilogue 7
 constexpr float GELU_C0 = 0.7978845608028654f, GELU_C1 = 0.044715f;
 
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -78,186 +81,196 @@ __device__ __forceinline__ void load_bf16x8(const bf16* src, float* v) {
   for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(b[e]);
 }
 
-// TRANS: W is [N, K] and the product is A . W^T (the _dot_rt of the
-// backward); otherwise W is [K, N].
-template <int EPI, bool TRANS>
-__global__ void __launch_bounds__(128)
-gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Wt,
-            const bf16* __restrict__ bias, const float* __restrict__ gamma,
-            const float* __restrict__ res_in, bf16* __restrict__ aux,
-            void* __restrict__ out, float* __restrict__ part, int M, int N,
-            int K) {
-  __shared__ __align__(128) bf16 As[BM][LDA];
-  __shared__ __align__(128) bf16 Bs[BN * LDBT > BK * LDB ? BN * LDBT
-                                                          : BK * LDB];
-  __shared__ __align__(128) float Cs[BM][LDC];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;  // 2x2 warps of 32x32 each
-  const long m0 = (long)blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // Each thread moves two 16-byte chunks of A and two of W per k-tile.
-  // The next tile's loads are issued into registers before the current
-  // tile's products, so global latency overlaps the tensor-core work.
-  uint4 ra[2], rb[2];
-  auto load_tile = [&](int k0) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int i = tid + u * 128;
-      const int ar = i / (BK / 8), ac = (i % (BK / 8)) * 8;
-      const long gm = m0 + ar;
-      ra[u] = make_uint4(0, 0, 0, 0);
-      if (gm < M && k0 + ac < K)
-        ra[u] = *reinterpret_cast<const uint4*>(A + gm * K + k0 + ac);
-      rb[u] = make_uint4(0, 0, 0, 0);
-      if (TRANS) {  // W rows n0.., columns k0..: stored [n][k]
-        const int br = i / (BK / 8), bc = (i % (BK / 8)) * 8;
-        if (n0 + br < N && k0 + bc < K)
-          rb[u] = *reinterpret_cast<const uint4*>(Wt + (long)(n0 + br) * K +
-                                                  k0 + bc);
-      } else {
-        const int br = i / (BN / 8), bc = (i % (BN / 8)) * 8;
-        if (k0 + br < K && n0 + bc < N)
-          rb[u] = *reinterpret_cast<const uint4*>(Wt + (long)(k0 + br) * N +
-                                                  n0 + bc);
-      }
-    }
-  };
-  using BLayout =
-      typename std::conditional<TRANS, wmma::col_major, wmma::row_major>::type;
-  load_tile(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int i = tid + u * 128;
-      *reinterpret_cast<uint4*>(&As[i / (BK / 8)][(i % (BK / 8)) * 8]) =
-          ra[u];
-      if (TRANS)
-        *reinterpret_cast<uint4*>(
-            &Bs[(i / (BK / 8)) * LDBT + (i % (BK / 8)) * 8]) = rb[u];
-      else
-        *reinterpret_cast<uint4*>(
-            &Bs[(i / (BN / 8)) * LDB + (i % (BN / 8)) * 8]) = rb[u];
-    }
-    __syncthreads();
-    if (k0 + BK < K) load_tile(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[wm * 32 + i * 16][kk], LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (TRANS)  // element (k, n) at Bs[n * LDBT + k]
-          wmma::load_matrix_sync(b[j], &Bs[(wn * 32 + j * 16) * LDBT + kk],
-                                 LDBT);
-        else
-          wmma::load_matrix_sync(b[j], &Bs[kk * LDB + wn * 32 + j * 16], LDB);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm * 32 + i * 16][wn * 32 + j * 16],
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  // epilogue: eight neighbouring columns per thread, 16-byte accesses
-  for (int i = tid; i < BM * BN / 8; i += 128) {
-    const int r = i / (BN / 8), c8 = (i % (BN / 8)) * 8;
-    const long gm = m0 + r;
-    const int gn = n0 + c8;
-    if (gm >= M || gn >= N) continue;  // N % 8 == 0: all eight in range
-    const long o = gm * N + gn;
-    float v[8];
-    if (EPI <= EPI_RESID_LS) {  // the bias variants
-      float bb[8];
-      load_bf16x8(bias + gn, bb);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        v[e] = round_bf16(round_bf16(Cs[r][c8 + e]) + bb[e]);
-      if ((EPI == EPI_GELU || EPI == EPI_RESID_LS) && aux != nullptr)
-        store_bf16x8(aux + o, v);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = Cs[r][c8 + e];
-    }
-    if (EPI == EPI_BIAS || EPI == EPI_RT_BF16) {
-      store_bf16x8(reinterpret_cast<bf16*>(out) + o, v);
-    } else if (EPI == EPI_GELU) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = gelu_tanh(v[e]);
-      store_bf16x8(reinterpret_cast<bf16*>(out) + o, v);
-    } else if (EPI == EPI_RT_GELU_BWD) {
-      float h[8];
-      load_bf16x8(aux + o, h);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        v[e] *= gelu_grad(h[e]);
-        Cs[r][c8 + e] = v[e];  // the f32 d for the column sums below
-      }
-      store_bf16x8(reinterpret_cast<bf16*>(out) + o, v);
-    } else {  // f32 outputs
-      float4* R = reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + o);
-      float4 r0, r1;
-      if (EPI == EPI_RESID || EPI == EPI_RT_ACC) {
-        r0 = R[0];
-        r1 = R[1];
-      } else if (EPI == EPI_RESID_LS) {
-        const float4* Ri = reinterpret_cast<const float4*>(res_in + o);
-        const float4* g = reinterpret_cast<const float4*>(gamma + gn);
-        const float4 g0 = g[0], g1 = g[1];
-        r0 = Ri[0];
-        r1 = Ri[1];
-        v[0] *= g0.x; v[1] *= g0.y; v[2] *= g0.z; v[3] *= g0.w;
-        v[4] *= g1.x; v[5] *= g1.y; v[6] *= g1.z; v[7] *= g1.w;
-      } else {  // EPI_RT_F32
-        r0 = make_float4(0.f, 0.f, 0.f, 0.f);
-        r1 = r0;
-      }
-      r0.x += v[0]; r0.y += v[1]; r0.z += v[2]; r0.w += v[3];
-      r1.x += v[4]; r1.y += v[5]; r1.z += v[6]; r1.w += v[7];
-      R[0] = r0;
-      R[1] = r1;
-    }
-  }
-  if (EPI == EPI_RT_GELU_BWD) {
-    __syncthreads();
-    // column sums of the tile's valid rows, in row order: deterministic
-    if (tid < BN && n0 + tid < N) {
-      const int rows = (int)min((long)BM, (long)M - m0);
-      float s = 0.f;
-      for (int r = 0; r < rows; ++r) s += Cs[r][tid];
-      part[(long)blockIdx.y * N + n0 + tid] = s;
-    }
-  }
+__device__ __forceinline__ void load_f32x8(const float* src, float* v) {
+  *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(src);
+  *reinterpret_cast<float4*>(v + 4) =
+      *reinterpret_cast<const float4*>(src + 4);
 }
 
-template <int EPI, bool TRANS>
-int launch(const void* a, const void* w, const void* bias, const void* gamma,
-           const void* res_in, void* aux, void* out, void* part, int M, int N,
+struct EpiArgs {
+  const bf16* bias;
+  const float* gamma;
+  const float* res_in;
+  bf16* aux;
+  void* out;
+  float* part;
+};
+
+// EPI >= EPI_RT_F32 (TRANS): W is [N, K] and the product is A . W^T (the
+// _dot_rt of the backward); otherwise W is [K, N].
+template <int WG, int BN, int EPI>
+struct Gemm {
+  static constexpr bool TRANS = EPI >= EPI_RT_F32;
+  static constexpr int BM = 64 * WG, WN = hg::Plan<WG, BN>::WN;
+  static constexpr int TA = 0, TB = TRANS ? 0 : 1;
+  struct Tile {
+    int m0, n0, ktiles;
+  };
+  const CUtensorMap* ta;
+  const CUtensorMap* tb;
+  EpiArgs e;
+  int M, N, K;
+
+  __device__ int n_tiles() const { return (N + BN - 1) / BN; }
+  __device__ int tiles() const { return (M + BM - 1) / BM * n_tiles(); }
+  __device__ Tile tile(int t) const {
+    // n fastest: the blocks running at once share their rows of A in L2
+    return {t / n_tiles() * BM, t % n_tiles() * BN, (K + hg::BK - 1) / hg::BK};
+  }
+  __device__ void load(const Tile& t, int kt, uint32_t a, uint32_t b,
+                       uint32_t bar) const {
+    const int k0 = kt * hg::BK;
+    hg::tma_load(a, ta, bar, k0, t.m0);  // box: BM rows x 64 k
+    if (TRANS) {
+      hg::tma_load(b, tb, bar, k0, t.n0);  // box: BN rows (n) x 64 k
+    } else {
+#pragma unroll
+      for (int j = 0; j < BN / 64; ++j)  // boxes: 64 k rows x 64 n
+        hg::tma_load(b + j * 64 * hg::BK * 2, tb, bar, t.n0 + 64 * j, k0);
+    }
+  }
+  __device__ uint64_t desc_a(uint32_t a, int wg, int k16) const {
+    return hg::desc_sw128(a + wg * 64 * 128 + 32 * k16, 16, 1024);
+  }
+  __device__ uint64_t desc_b(uint32_t b, int i, int k16) const {
+    if (TRANS) return hg::desc_sw128(b + i * WN * 128 + 32 * k16, 16, 1024);
+    return hg::desc_sw128(b + i * WN * 128 + 2048 * k16, 64 * 128, 1024);
+  }
+
+  // One 64 x 64 slice of consumer warpgroup wg: rows m0 + 64 wg.., columns
+  // n0 + 64 c..; Cs is its f32 staging tile. Each thread owns eight
+  // neighbouring columns of four rows (tid / 8 + 16 k): the bias and gamma
+  // are read once, and the four rows' other inputs are all requested
+  // before any is used.
+  __device__ void epilogue(const Tile& t, int wg, int c, float* Cs) const {
+    constexpr int ITEMS = 64 * 8 / 128;
+    const int tid = threadIdx.x % 128;
+    const int row0 = t.m0 + 64 * wg, col0 = t.n0 + 64 * c;
+    constexpr int epi = EPI;
+    const int c8 = (tid % 8) * 8, gn = col0 + c8;
+    const bool col_ok = gn < N;  // N % 8 == 0: all eight in range
+    __align__(16) float v[ITEMS][8];
+    __align__(16) float x[ITEMS][8];  // aux (7), out (2, 6), res_in (3)
+    __align__(16) float bb[8];
+    __align__(16) float g8[8];
+    float colsum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (col_ok && epi <= EPI_RESID_LS) load_bf16x8(e.bias + gn, bb);
+    if (col_ok && epi == EPI_RESID_LS) load_f32x8(e.gamma + gn, g8);
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      const int r = tid / 8 + 16 * k;
+      const long gm = (long)row0 + r, o = gm * N + gn;
+      load_f32x8(Cs + r * hg::EPI_LD + c8, v[k]);
+      if (!col_ok || gm >= M) continue;
+      if (epi == EPI_RT_GELU_BWD)
+        load_bf16x8(e.aux + o, x[k]);
+      else if (epi == EPI_RESID || epi == EPI_RT_ACC)
+        load_f32x8(reinterpret_cast<const float*>(e.out) + o, x[k]);
+      else if (epi == EPI_RESID_LS)
+        load_f32x8(e.res_in + o, x[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      const int r = tid / 8 + 16 * k;
+      const long gm = (long)row0 + r, o = gm * N + gn;
+      if (!col_ok || gm >= M) continue;
+      float* w = v[k];
+      if (epi <= EPI_RESID_LS) {  // the bias variants
+#pragma unroll
+        for (int q = 0; q < 8; ++q) w[q] = round_bf16(round_bf16(w[q]) + bb[q]);
+        if ((epi == EPI_GELU || epi == EPI_RESID_LS) && e.aux != nullptr)
+          store_bf16x8(e.aux + o, w);
+      }
+      if (epi == EPI_BIAS || epi == EPI_RT_BF16) {
+        store_bf16x8(reinterpret_cast<bf16*>(e.out) + o, w);
+      } else if (epi == EPI_GELU) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) w[q] = gelu_tanh(w[q]);
+        store_bf16x8(reinterpret_cast<bf16*>(e.out) + o, w);
+      } else if (epi == EPI_RT_GELU_BWD) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          w[q] *= gelu_grad(x[k][q]);
+          colsum[q] += w[q];  // the f32 d, rows in k order
+        }
+        store_bf16x8(reinterpret_cast<bf16*>(e.out) + o, w);
+      } else {  // f32 outputs: += (2, 6), res_in + v * gamma (3), = (4)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          if (epi == EPI_RESID_LS)
+            w[q] = x[k][q] + w[q] * g8[q];
+          else if (epi != EPI_RT_F32)
+            w[q] = x[k][q] + w[q];
+        }
+        float4* R =
+            reinterpret_cast<float4*>(reinterpret_cast<float*>(e.out) + o);
+        R[0] = *reinterpret_cast<const float4*>(w);
+        R[1] = *reinterpret_cast<const float4*>(w + 4);
+      }
+    }
+    if (epi == EPI_RT_GELU_BWD) {
+      // column sums of the block's valid rows: each thread's four rows,
+      // then the 16 row groups in order over the staging tile (every read
+      // of it is done): a fixed order, so two runs agree
+      hg::named_sync(1 + wg, 128);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        Cs[(tid / 8) * hg::EPI_LD + c8 + q] = colsum[q];
+      hg::named_sync(1 + wg, 128);
+      if (tid < 64 && col0 + tid < N && row0 < M) {
+        float s = 0.f;
+#pragma unroll
+        for (int g = 0; g < 16; ++g) s += Cs[g * hg::EPI_LD + tid];
+        e.part[(long)(row0 / PART_ROWS) * N + col0 + tid] = s;
+      }
+    }
+  }
+};
+
+template <int WG, int BN, int EPI>
+__global__ void __launch_bounds__(128 * (WG + 1), 1)
+gemm_kernel(const __grid_constant__ CUtensorMap ta,
+            const __grid_constant__ CUtensorMap tb, EpiArgs e, int M, int N,
+            int K) {
+  const Gemm<WG, BN, EPI> p{&ta, &tb, e, M, N, K};
+  hg::run<WG, BN>(p);
+}
+
+template <int WG, int BN, int EPI>
+int launch(const void* a, const void* w, const EpiArgs& e, int M, int N,
            int K, cudaStream_t st) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<EPI, TRANS><<<grid, 128, 0, st>>>(
-      (const bf16*)a, (const bf16*)w, (const bf16*)bias, (const float*)gamma,
-      (const float*)res_in, (bf16*)aux, out, (float*)part, M, N, K);
-  return (int)cudaGetLastError();
+  constexpr bool TRANS = EPI >= EPI_RT_F32;
+  using PL = hg::Plan<WG, BN>;
+  static unsigned long long ready = 0;
+  CUtensorMap ta, tb;
+  if (!hg::make_map(&ta, a, M, K, PL::BM, hg::BK) ||
+      !(TRANS ? hg::make_map(&tb, w, N, K, BN, hg::BK)
+              : hg::make_map(&tb, w, K, N, hg::BK, 64)))
+    return (int)cudaErrorInvalidValue;
+  const long tiles = (long)((M + PL::BM - 1) / PL::BM) * ((N + BN - 1) / BN);
+  return hg::launch_persistent(gemm_kernel<WG, BN, EPI>, ready, PL::SMEM,
+                               PL::THREADS, tiles, st, ta, tb, e, M, N, K);
+}
+
+// The tile: BN = 128 where N is a multiple of 128, else 64 (no column
+// wasted at N = 192, the stage-1 qkv); rows: 64 (one consumer warpgroup)
+// where 128-row tiles would leave SMs idle, 192 (three) where the output
+// outweighs the input (N >= 2K: qkv, fc1, the gelu backward), whose
+// epilogue then has more warps, else 128. (On the H100, 128 x 256 tiles
+// and two blocks per SM lost at every gen1 RVT-B shape.)
+template <int EPI>
+int dispatch(const void* a, const void* w, const EpiArgs& e, int M, int N,
+             int K, cudaStream_t st) {
+  const long sms = hg::sm_count();
+  const int bn = N > 64 && N % 128 == 0 ? 128 : 64;
+  if ((long)((M + 127) / 128) * ((N + bn - 1) / bn) < sms)
+    return bn == 64 ? launch<1, 64, EPI>(a, w, e, M, N, K, st)
+                    : launch<1, 128, EPI>(a, w, e, M, N, K, st);
+  if (N >= 2 * K)
+    return bn == 64 ? launch<3, 64, EPI>(a, w, e, M, N, K, st)
+                    : launch<3, 128, EPI>(a, w, e, M, N, K, st);
+  return bn == 64 ? launch<2, 64, EPI>(a, w, e, M, N, K, st)
+                  : launch<2, 128, EPI>(a, w, e, M, N, K, st);
 }
 
 }  // namespace
@@ -265,39 +278,39 @@ int launch(const void* a, const void* w, const void* bias, const void* gamma,
 // Every epilogue through one entry: 0-3 take W [K, N] and a bias (2 adds
 // into ``out`` in place); 4-7 take W [N, K] and no bias. ``aux`` is an
 // optional bf16 [M, N] output (1, 3) or the bf16 h1 input (7); ``part``
-// [ceil(M/64), N] f32 receives the column sums of epilogue 7. Pointers an
-// epilogue does not read may be null.
+// [part_rows, N] f32 receives the column sums of epilogue 7, one row per
+// 64 rows of A: part_rows must be ceil(M / 64). Pointers an epilogue does
+// not read may be null. K and N multiples of 8, the operands 16-byte
+// aligned (TMA's row strides and addresses).
 extern "C" int rvt_gemm_bf16(const void* a, const void* w, const void* bias,
                              const void* gamma, const void* res_in, void* aux,
-                             void* out, void* part, int M, int N, int K,
-                             int epilogue, void* stream) {
+                             void* out, void* part, int part_rows, int M,
+                             int N, int K, int epilogue, void* stream) {
+  if (epilogue < EPI_BIAS || epilogue > EPI_RT_GELU_BWD || M < 0 ||
+      K % 8 != 0 || N % 8 != 0 ||
+      (epilogue == EPI_RT_GELU_BWD &&
+       part_rows != (M + PART_ROWS - 1) / PART_ROWS))
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return (int)cudaSuccess;
+  const EpiArgs e{(const bf16*)bias, (const float*)gamma,
+                  (const float*)res_in, (bf16*)aux, out, (float*)part};
   cudaStream_t st = (cudaStream_t)stream;
   switch (epilogue) {
     case EPI_BIAS:
-      return launch<EPI_BIAS, false>(a, w, bias, gamma, res_in, aux, out,
-                                     part, M, N, K, st);
+      return dispatch<EPI_BIAS>(a, w, e, M, N, K, st);
     case EPI_GELU:
-      return launch<EPI_GELU, false>(a, w, bias, gamma, res_in, aux, out,
-                                     part, M, N, K, st);
+      return dispatch<EPI_GELU>(a, w, e, M, N, K, st);
     case EPI_RESID:
-      return launch<EPI_RESID, false>(a, w, bias, gamma, res_in, aux, out,
-                                      part, M, N, K, st);
+      return dispatch<EPI_RESID>(a, w, e, M, N, K, st);
     case EPI_RESID_LS:
-      return launch<EPI_RESID_LS, false>(a, w, bias, gamma, res_in, aux, out,
-                                         part, M, N, K, st);
+      return dispatch<EPI_RESID_LS>(a, w, e, M, N, K, st);
     case EPI_RT_F32:
-      return launch<EPI_RT_F32, true>(a, w, bias, gamma, res_in, aux, out,
-                                      part, M, N, K, st);
+      return dispatch<EPI_RT_F32>(a, w, e, M, N, K, st);
     case EPI_RT_BF16:
-      return launch<EPI_RT_BF16, true>(a, w, bias, gamma, res_in, aux, out,
-                                       part, M, N, K, st);
+      return dispatch<EPI_RT_BF16>(a, w, e, M, N, K, st);
     case EPI_RT_ACC:
-      return launch<EPI_RT_ACC, true>(a, w, bias, gamma, res_in, aux, out,
-                                      part, M, N, K, st);
-    case EPI_RT_GELU_BWD:
-      return launch<EPI_RT_GELU_BWD, true>(a, w, bias, gamma, res_in, aux,
-                                           out, part, M, N, K, st);
+      return dispatch<EPI_RT_ACC>(a, w, e, M, N, K, st);
     default:
-      return (int)cudaErrorInvalidValue;
+      return dispatch<EPI_RT_GELU_BWD>(a, w, e, M, N, K, st);
   }
 }

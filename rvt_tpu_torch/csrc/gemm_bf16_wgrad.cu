@@ -7,123 +7,133 @@
 // dfc2_w) and _lstm_bwd_chunked (dlstm_w), whose sums the TPU carried
 // across its sequential grid in a VMEM accumulator (_acc :495). Hopper
 // blocks run in no order, so the rows (up to 860,160 tokens at gen1
-// stage 1) are split into ``splits`` contiguous ranges, one per
-// blockIdx.z; each block writes the f32 [64, 64] tile of its range into
-// part[z, Ka, Nb], and train_reduce.cu sums the splits in a fixed order:
-// two runs give the same bits.
+// stage 1) are split into ``splits`` contiguous ranges; each range's
+// [Ka, Nb] product goes to part[z], and train_reduce.cu sums the splits in
+// a fixed order: two runs give the same bits.
 //
 // Bound on the H100: bytes at stages 1-2 (each row of A and B is read
-// once: K = 64..256 columns against 2*Ka*Nb flops per row), operations at
-// stages 3-4. Design (simple first, as K2): 4-warp blocks, 64x64 output
-// tile, 32 rows per k-step through shared memory, bf16 WMMA with f32
-// accumulators, the next k-step's loads in registers during the current
-// products. A^T is read from the row-major tile as a col_major fragment,
-// so nothing is transposed in memory.
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+// once: Ka + Nb = 128..512 columns against 2*Ka*Nb flops per row),
+// operations at stages 3-4.
+//
+// Design (hopper_gemm.cuh): the work units are (split, Ka tile, Nb tile)
+// with output tiles of up to 128 x 256, so most stage 1-2 gradients
+// (64x64 .. 128x256) are one tile and each token row of A and B is read
+// once; the splits are sized in ops/fused_attention.py:wgrad_splits so
+// the units fill the SMs about once. Both operands are read MN-major
+// straight from their row-major token arrays (wgmma's transpose
+// immediates): A^T's m is A's column, B's n its column, k the token. TMA
+// copies 64-token k-tiles through an mbarrier ring into wgmma, in a
+// persistent grid; a split is a whole number of k-tiles, and TMA's zero
+// fill past M ends the last one.
+#include "hopper_gemm.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int LDA = BM + 8, LDB = BN + 8, LDC = BN + 4;
-
-__global__ void __launch_bounds__(128)
-wgrad_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-             float* __restrict__ part, long M, int Ka, int Nb,
-             long rows_per_split) {
-  __shared__ __align__(128) bf16 As[BK][LDA];  // [row][ka]
-  __shared__ __align__(128) bf16 Bs[BK][LDB];  // [row][nb]
-  __shared__ __align__(128) float Cs[BM][LDC];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const long r_begin = (long)blockIdx.z * rows_per_split;
-  const long r_end = min(M, r_begin + rows_per_split);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  uint4 ra[2], rb[2];
-  auto load_tile = [&](long r0) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int i = tid + u * 128;
-      const int kr = i / (BM / 8), c8 = (i % (BM / 8)) * 8;
-      const long gr = r0 + kr;
-      ra[u] = make_uint4(0, 0, 0, 0);
-      rb[u] = make_uint4(0, 0, 0, 0);
-      if (gr < r_end) {
-        if (m0 + c8 < Ka)
-          ra[u] = *reinterpret_cast<const uint4*>(A + gr * Ka + m0 + c8);
-        if (n0 + c8 < Nb)
-          rb[u] = *reinterpret_cast<const uint4*>(B + gr * Nb + n0 + c8);
-      }
-    }
+template <int WG, int BN>
+struct Wgrad {
+  static constexpr int BM = 64 * WG, WN = hg::Plan<WG, BN>::WN;
+  static constexpr int TA = 1, TB = 1;
+  struct Tile {
+    int z, m0, n0, ktiles;
+    long r0;
   };
-  if (r_begin < r_end) load_tile(r_begin);
-  for (long r0 = r_begin; r0 < r_end; r0 += BK) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int i = tid + u * 128;
-      const int kr = i / (BM / 8), c8 = (i % (BM / 8)) * 8;
-      *reinterpret_cast<uint4*>(&As[kr][c8]) = ra[u];
-      *reinterpret_cast<uint4*>(&Bs[kr][c8]) = rb[u];
-    }
-    __syncthreads();
-    if (r0 + BK < r_end) load_tile(r0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      // element (m, k) of A^T is As[k][m]: a col_major fragment
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[kk][wm * 32 + i * 16], LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[kk][wn * 32 + j * 16], LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  const CUtensorMap* ta;
+  const CUtensorMap* tb;
+  float* part;
+  long M, rps;
+  int Ka, Nb, splits;
+
+  __device__ int mt() const { return (Ka + BM - 1) / BM; }
+  __device__ int nt() const { return (Nb + BN - 1) / BN; }
+  __device__ int tiles() const { return splits * mt() * nt(); }
+  __device__ Tile tile(int t) const {
+    const int per = mt() * nt(), z = t / per, rem = t % per;
+    const long r0 = (long)z * rps;
+    const long rows = min(M, r0 + rps) - r0;
+    return {z, rem / nt() * BM, rem % nt() * BN,
+            (int)((rows + hg::BK - 1) / hg::BK), r0};
   }
+  __device__ void load(const Tile& t, int kt, uint32_t a, uint32_t b,
+                       uint32_t bar) const {
+    const int k0 = (int)(t.r0 + (long)kt * hg::BK);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int w = 0; w < WG; ++w)  // boxes: 64 tokens x 64 columns of A
+      hg::tma_load(a + w * 64 * hg::BK * 2, ta, bar, t.m0 + 64 * w, k0);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm * 32 + i * 16][wn * 32 + j * 16],
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  float* dst = part + (long)blockIdx.z * Ka * Nb;
-  for (int i = tid; i < BM * BN / 4; i += 128) {
-    const int r = i / (BN / 4), c4 = (i % (BN / 4)) * 4;
-    if (m0 + r >= Ka || n0 + c4 >= Nb) continue;  // Nb % 8 == 0
-    *reinterpret_cast<float4*>(dst + (long)(m0 + r) * Nb + n0 + c4) =
-        *reinterpret_cast<const float4*>(&Cs[r][c4]);
+    for (int j = 0; j < BN / 64; ++j)  // boxes: 64 tokens x 64 columns of B
+      hg::tma_load(b + j * 64 * hg::BK * 2, tb, bar, t.n0 + 64 * j, k0);
   }
+  __device__ uint64_t desc_a(uint32_t a, int wg, int k16) const {
+    return hg::desc_sw128(a + wg * 64 * 128 + 2048 * k16, 64 * 128, 1024);
+  }
+  __device__ uint64_t desc_b(uint32_t b, int i, int k16) const {
+    return hg::desc_sw128(b + i * WN * 128 + 2048 * k16, 64 * 128, 1024);
+  }
+  // One 64 x 64 slice (rows m0 + 64 wg.., columns n0 + 64 c..) into
+  // part[z], four columns per thread with 16-byte stores.
+  __device__ void epilogue(const Tile& t, int wg, int c, float* Cs) const {
+    const int tid = threadIdx.x % 128;
+    const int row0 = t.m0 + 64 * wg, col0 = t.n0 + 64 * c;
+    float* dst = part + (long)t.z * Ka * Nb;
+    for (int i = tid; i < 64 * 16; i += 128) {
+      const int r = i / 16, c4 = (i % 16) * 4;
+      if (row0 + r >= Ka || col0 + c4 >= Nb) continue;  // Nb % 8 == 0
+      *reinterpret_cast<float4*>(dst + (long)(row0 + r) * Nb + col0 + c4) =
+          *reinterpret_cast<const float4*>(Cs + r * hg::EPI_LD + c4);
+    }
+  }
+};
+
+template <int WG, int BN>
+__global__ void __launch_bounds__(128 * (WG + 1), 1)
+wgrad_kernel(const __grid_constant__ CUtensorMap ta,
+             const __grid_constant__ CUtensorMap tb, float* part, long M,
+             long rps, int Ka, int Nb, int splits) {
+  const Wgrad<WG, BN> p{&ta, &tb, part, M, rps, Ka, Nb, splits};
+  hg::run<WG, BN>(p);
+}
+
+template <int WG, int BN>
+int launch(const void* a, const void* b, void* part, long M, int Ka, int Nb,
+           int splits, long rps, cudaStream_t st) {
+  using PL = hg::Plan<WG, BN>;
+  static unsigned long long ready = 0;
+  CUtensorMap ta, tb;
+  if (!hg::make_map(&ta, a, M, Ka, hg::BK, 64) ||
+      !hg::make_map(&tb, b, M, Nb, hg::BK, 64))
+    return (int)cudaErrorInvalidValue;
+  const long tiles =
+      (long)splits * ((Ka + PL::BM - 1) / PL::BM) * ((Nb + BN - 1) / BN);
+  return hg::launch_persistent(wgrad_kernel<WG, BN>, ready, PL::SMEM,
+                               PL::THREADS, tiles, st, ta, tb, (float*)part,
+                               M, rps, Ka, Nb, splits);
 }
 
 }  // namespace
 
-// part: [splits, Ka, Nb] f32, splits = ceil(M / rows_per_split);
-// rows_per_split a multiple of 32.
+// part: [splits, Ka, Nb] f32, splits = ceil(M / rows_per_split),
+// rows_per_split a multiple of 64 (whole k-tiles). The tile: Ka <= 64 ->
+// 64 rows (one consumer warpgroup), else 128; Nb <= 64 -> 64 columns,
+// <= 128 -> 128, else 256 (ops/fused_attention.py:wgrad_tile mirrors it).
 extern "C" int rvt_gemm_bf16_wgrad(const void* a, const void* b, void* part,
                                    long M, int Ka, int Nb, int splits,
                                    long rows_per_split, void* stream) {
-  if (rows_per_split % BK != 0 || splits < 1)
+  if (rows_per_split % hg::BK != 0 || rows_per_split <= 0 || splits < 1 ||
+      M < 1 || (long)(splits - 1) * rows_per_split >= M ||
+      (long)splits * rows_per_split < M || Ka % 8 != 0 || Nb % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((Nb + BN - 1) / BN, (Ka + BM - 1) / BM, splits);
-  wgrad_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      (const bf16*)a, (const bf16*)b, (float*)part, M, Ka, Nb,
-      rows_per_split);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const int bn = Nb <= 64 ? 64 : Nb <= 128 ? 128 : 256;
+  if (Ka <= 64) {
+    if (bn == 64) return launch<1, 64>(a, b, part, M, Ka, Nb, splits,
+                                       rows_per_split, st);
+    if (bn == 128) return launch<1, 128>(a, b, part, M, Ka, Nb, splits,
+                                         rows_per_split, st);
+    return launch<1, 256>(a, b, part, M, Ka, Nb, splits, rows_per_split, st);
+  }
+  if (bn == 64) return launch<2, 64>(a, b, part, M, Ka, Nb, splits,
+                                     rows_per_split, st);
+  if (bn == 128) return launch<2, 128>(a, b, part, M, Ka, Nb, splits,
+                                       rows_per_split, st);
+  return launch<2, 256>(a, b, part, M, Ka, Nb, splits, rows_per_split, st);
 }

@@ -58,7 +58,7 @@ TRAIN_REDUCE = Counter("train_reduce")
 # no bias.
 EPILOGUES = {"bias": 0, "gelu": 1, "residual": 2, "residual_ls": 3,
              "rt_f32": 4, "rt_bf16": 5, "rt_acc": 6, "rt_gelu_bwd": 7}
-_GEMM_BM = 64  # rows per K2 block (its column-sum partials)
+_GEMM_PART_ROWS = 64  # rows of A per column-sum partial of "rt_gelu_bwd"
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +177,12 @@ def gemm_bf16_plain(a: torch.Tensor, w: torch.Tensor, epilogue: str,
     return out, v
 
 
+def gemm_part_rows(M: int) -> int:
+    """Rows of the f32 column-sum partials "rt_gelu_bwd" writes: one per
+    64 rows of a (the launcher refuses any other count)."""
+    return -(-M // _GEMM_PART_ROWS)
+
+
 def gemm_bf16(a: torch.Tensor, w: torch.Tensor, epilogue: str, *,
               bias=None, gamma=None, res_in=None, out=None, aux=None,
               want_aux: bool = False, plain: bool = False):
@@ -246,7 +252,7 @@ def gemm_bf16(a: torch.Tensor, w: torch.Tensor, epilogue: str, *,
         check_operands("gemm_bf16", aux)
         need(aux.dtype == torch.bfloat16 and tuple(aux.shape) == (M, N),
              "gemm_bf16: rt_gelu_bwd reads h1 bf16 [M, N]")
-        part = torch.empty((-(-M // _GEMM_BM), N), dtype=torch.float32,
+        part = torch.empty((gemm_part_rows(M), N), dtype=torch.float32,
                            device=dev)
     elif want_aux:
         aux = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
@@ -257,7 +263,8 @@ def gemm_bf16(a: torch.Tensor, w: torch.Tensor, epilogue: str, *,
         ptr(g) if g is not None else None,
         ptr(res_in) if res_in is not None else None,
         ptr(aux) if aux is not None else None, ptr(out),
-        ptr(part) if part is not None else None, M, N, K,
+        ptr(part) if part is not None else None,
+        part.shape[0] if part is not None else 0, M, N, K,
         EPILOGUES[epilogue], stream_ptr(a))
     check(err, "gemm_bf16")
     GEMM_BF16.launches += 1
@@ -587,13 +594,20 @@ def ln_rows_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     return (dres if dres is not None else dxb), sums[0], sums[1]
 
 
+def wgrad_tile(Ka: int, Nb: int) -> Tuple[int, int]:
+    """K6's output tile (rows of Ka, columns of Nb), as
+    ``csrc/gemm_bf16_wgrad.cu`` picks it."""
+    return (64 if Ka <= 64 else 128), (64 if Nb <= 64 else
+                                       128 if Nb <= 128 else 256)
+
+
 def wgrad_splits(M: int, Ka: int, Nb: int, sms: int) -> Tuple[int, int]:
-    """(splits, rows per split) of K6: about four blocks per SM over the
-    [Ka, Nb] tiles, each split a multiple of 32 rows."""
-    tiles = -(-Ka // 64) * -(-Nb // 64)
-    splits = max(1, min(-(-4 * sms // tiles), -(-M // 32)))
-    per_split = -(-M // splits)
-    rps = -(-per_split // 32) * 32
+    """(splits, rows per split) of K6: at most one (split, tile) unit per
+    SM, as many as fill them, each split whole 64-row k-tiles."""
+    bm, bn = wgrad_tile(Ka, Nb)
+    tiles = -(-Ka // bm) * -(-Nb // bn)
+    splits = max(1, min(sms // tiles, -(-M // 64)))
+    rps = -(-(-(-M // splits)) // 64) * 64
     return -(-M // rps), rps
 
 

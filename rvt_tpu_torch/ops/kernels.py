@@ -39,7 +39,7 @@ _F = ctypes.c_float
 # (argtypes); each returns an int, cudaGetLastError() after the launch.
 SIGNATURES = {
     "ln_rows": {"rvt_ln_rows": (_P, _I, _P, _P, _P, _P, _I, _I, _F, _P)},
-    "gemm_bf16": {"rvt_gemm_bf16": (_P,) * 8 + (_I, _I, _I, _I, _P)},
+    "gemm_bf16": {"rvt_gemm_bf16": (_P,) * 8 + (_I,) * 5 + (_P,)},
     "partition_attention": {
         "rvt_partition_attention": (_P, _P) + (_I,) * 8 + (_F, _P)},
     "lstm_scan": {"rvt_lstm_scan": (_P, _I) + (_P,) * 8 + (_I,) * 4

@@ -37,8 +37,22 @@ def test_ln_rows_kernel(dev, dtype):
     assert torch.equal(yf, y.float())
 
 
+# gen1 RVT-B's four stages (H, W, C) with M cut to two frames, at the
+# C -> 4C and 4C -> C products; the per-step path's small M (8 frames of
+# stage 4: the one-warpgroup tiles); ragged M, K and N (TMA's zero fill,
+# the masked stores), the last on the three-warpgroup tiles. Each (M, K,
+# N).
+_STAGES = ((64, 80, 64), (32, 40, 128), (16, 20, 256), (8, 10, 512))
+_GEMM_SHAPES = ([(1000, 96, 40), (130, 256, 192)]
+                + [(2 * H * W, K, N) for H, W, C in _STAGES
+                   for K, N in ((C, 4 * C), (4 * C, C))]
+                + [(640, 512, 1536), (640, 2048, 512)]
+                + [(1, 8, 40), (127, 40, 48), (129, 48, 8), (1000, 48, 40),
+                   (17000, 64, 128)])
+
+
 @pytest.mark.parametrize("epi", ["bias", "gelu", "residual"])
-@pytest.mark.parametrize("mkn", [(1000, 96, 40), (130, 256, 192)])
+@pytest.mark.parametrize("mkn", _GEMM_SHAPES)
 def test_gemm_kernel(dev, epi, mkn):
     from rvt_tpu_torch.ops import fused_attention as fa
 
@@ -50,7 +64,10 @@ def test_gemm_kernel(dev, epi, mkn):
     n = fa.GEMM_BF16.launches
     got = fa.gemm_bf16(a, w, epi, bias=bias, out=res())
     assert fa.GEMM_BF16.launches == n + 1
-    _close(got, fa.gemm_bf16(a, w, epi, bias=bias, out=res(), plain=True))
+    ref = fa.gemm_bf16(a, w, epi, bias=bias, out=res(), plain=True)
+    if epi == "residual":  # the bf16 increment: its ulp is |v|'s, not |R+v|'s
+        got, ref = got - R, ref - R
+    _close(got, ref)
 
 
 @pytest.mark.parametrize("window", [True, False])
@@ -130,9 +147,11 @@ def _rel_close(got, ref, tol):
 
 @pytest.mark.parametrize("epi", ["bias", "gelu", "residual_ls", "rt_f32",
                                  "rt_bf16", "rt_acc", "rt_gelu_bwd"])
-@pytest.mark.parametrize("mkn", [(1000, 96, 40), (130, 256, 192)])
+@pytest.mark.parametrize("mkn", _GEMM_SHAPES)
 def test_gemm_train_kernel(dev, epi, mkn):
-    """K2's training epilogues, ragged in M and N (40 = one partial tile)."""
+    """K2's training epilogues at the stage shapes, the small-M tiles and
+    ragged M, K, N (40 = one partial tile); the gelu backward's column
+    sums bit for bit across two runs."""
     from rvt_tpu_torch.ops import fused_attention as fa
 
     M, K, N = mkn
@@ -158,10 +177,16 @@ def test_gemm_train_kernel(dev, epi, mkn):
 
     got, ref = run(False), run(True)
     assert fa.GEMM_BF16.launches == n + 1
+    if epi == "residual_ls":  # the increment, as in test_gemm_kernel
+        got = (got[0] - kw["res_in"], got[1])
+        ref = (ref[0] - kw["res_in"], ref[1])
     if isinstance(ref, tuple):
         _close(got[0], ref[0])
         if epi == "rt_gelu_bwd":
             _rel_close(got[1], ref[1], 1e-3)
+            again = run(False)
+            assert torch.equal(got[0], again[0])
+            assert torch.equal(got[1], again[1])
         else:  # the bf16 value before the epilogue
             _close(got[1], ref[1])
     else:
@@ -169,13 +194,20 @@ def test_gemm_train_kernel(dev, epi, mkn):
     if epi == "residual_ls":  # in place: out is res_in
         R2 = kw["res_in"].clone()
         out = fa.gemm_bf16(a, w, epi, out=R2, **dict(kw, res_in=R2))
-        _close(out, ref[0])
+        _close(out - kw["res_in"], ref[0])
 
 
 @pytest.mark.parametrize("mkn", [(1000, 96, 40), (70000, 64, 192),
-                                 (3000, 512, 256)])
+                                 (3000, 512, 256)]
+                         + [(2 * H * W, Ka, Nb) for H, W, C in _STAGES
+                            for Ka, Nb in ((C, 3 * C), (4 * C, C),
+                                           (2 * C, 4 * C))]
+                         + [(640, 1024, 2048), (1, 8, 40), (127, 40, 48),
+                            (129, 48, 8)])
 def test_wgrad_kernel(dev, mkn):
-    """K6 with one and many row splits (ragged rows, a partial tile)."""
+    """K6 with one and many row splits (ragged rows, a partial tile), at
+    the stage shapes and the per-step path's small M; two runs bit for
+    bit."""
     from rvt_tpu_torch.ops import fused_attention as fa
 
     M, Ka, Nb = mkn

@@ -16,9 +16,11 @@ from rvt_tpu_torch.ops import voxelization as vx
 
 class _FakeLib:
     """Stands in for ``kernels.lib(name)``: checks the launcher's name and
-    each argument against ``kernels.SIGNATURES``, returns success."""
+    each argument against ``kernels.SIGNATURES``, keeps the arguments
+    (``launches``), returns success."""
 
     calls = []
+    launches = []
 
     def __init__(self, name):
         self.name = name
@@ -36,6 +38,7 @@ class _FakeLib:
                 else:
                     assert type(a) is float, (fn, a)
             _FakeLib.calls.append(fn)
+            _FakeLib.launches.append((fn, args))
             return 0
 
         return launch
@@ -49,6 +52,7 @@ def fake_cuda(monkeypatch):
         monkeypatch.setattr(mod, "stream_ptr", lambda t: 0)
     monkeypatch.setattr(fa, "sm_count", lambda t: 132)
     _FakeLib.calls = []
+    _FakeLib.launches = []
     return _FakeLib.calls
 
 
@@ -177,3 +181,91 @@ def test_train_wrappers_reject_what_the_kernels_do_not_take(fake_cuda):
     with pytest.raises(ValueError):  # f32 operands
         fa.gemm_bf16_wgrad(torch.randn(64, 8), torch.randn(64, 8))
     assert fake_cuda == []
+
+
+# gen1 RVT-B's stages (H, W, C) and the frames one launch covers on each
+# path: the eval window and the train step (T * B = 168), the raw and the
+# per-step train paths (B = 8), and the per-step path's tiny case.
+_STAGES = ((64, 80, 64), (32, 40, 128), (16, 20, 256), (8, 10, 512))
+_PATH_FRAMES = {"eval/train": 168, "raw/per-step": 8, "one frame": 1}
+
+
+def _k6_shapes(C):
+    """(Ka, Nb) of every weight gradient of a stage: qkv, proj, fc1, fc2,
+    the LSTM."""
+    return ((C, 3 * C), (C, C), (C, 4 * C), (4 * C, C), (2 * C, 4 * C))
+
+
+@pytest.mark.parametrize("path", list(_PATH_FRAMES))
+@pytest.mark.parametrize("stage", range(4))
+def test_wgrad_split_plan(path, stage):
+    """K6's row splits at every path's shapes: whole 64-row k-tiles, every
+    row in exactly one split (the launcher refuses anything else), at most
+    one (split, tile) unit per SM, and as many splits as fill them."""
+    H, W, C = _STAGES[stage]
+    M = _PATH_FRAMES[path] * H * W
+    sms = 132
+    for Ka, Nb in _k6_shapes(C):
+        splits, rps = fa.wgrad_splits(M, Ka, Nb, sms)
+        bm, bn = fa.wgrad_tile(Ka, Nb)
+        tiles = -(-Ka // bm) * -(-Nb // bn)
+        assert rps % 64 == 0 and rps > 0
+        assert (splits - 1) * rps < M <= splits * rps
+        assert splits == 1 or splits * tiles <= sms
+        # as many splits as fill the SMs, fewer only where the rows (whole
+        # 64-row k-tiles) run out
+        wanted = max(1, min(sms // tiles, -(-M // 64)))
+        assert splits <= wanted and rps <= 64 * -(-M // (64 * wanted)) + 64
+
+
+@pytest.mark.parametrize("ka_nb, tile", [((64, 192), (64, 256)),
+                                         ((256, 64), (128, 64)),
+                                         ((128, 256), (128, 256)),
+                                         ((64, 64), (64, 64)),
+                                         ((1024, 2048), (128, 256)),
+                                         ((8, 40), (64, 64)),
+                                         ((512, 128), (128, 128))])
+def test_wgrad_tile(ka_nb, tile):
+    """The tile csrc/gemm_bf16_wgrad.cu picks: 64 rows up to Ka = 64, else
+    128; 64, 128 or 256 columns."""
+    assert fa.wgrad_tile(*ka_nb) == tile
+
+
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 130, 640, 10240])
+def test_gelu_bwd_partials_reach_the_launcher(fake_cuda, M):
+    """rt_gelu_bwd's column-sum partials: one row per 64 rows of a, the
+    count passed to the launcher (which refuses any other), then summed in
+    order by one rvt_sum_parts."""
+    N = 48
+    assert fa.gemm_part_rows(M) == -(-M // 64)
+    d, db = fa.gemm_bf16(_bf(M, 40), _bf(N, 40), "rt_gelu_bwd",
+                         aux=_bf(M, N))
+    assert d.shape == (M, N) and db.shape == (N,)
+    (fn, args), (fn2, args2) = _FakeLib.launches
+    assert fn == "rvt_gemm_bf16" and fn2 == "rvt_sum_parts"
+    part_rows, m, n, k, epi = args[8:13]
+    assert (part_rows, m, n, k, epi) == (-(-M // 64), M, N, 40, 7)
+    assert args2[2] == part_rows and args2[3] == N
+
+
+def test_gemm_launch_arguments(fake_cuda):
+    """The launcher's arguments: M, N, K, the epilogue's number, 0 partial
+    rows where no column sums are made; W [N, K] for the rt_ modes."""
+    fa.gemm_bf16(_bf(130, 64), _bf(64, 96), "bias", bias=_bf(96))
+    fa.gemm_bf16(_bf(130, 96), _bf(64, 96), "rt_f32")
+    (_, a1), (_, a2) = _FakeLib.launches
+    assert a1[8:13] == (0, 130, 96, 64, 0)
+    assert a2[8:13] == (0, 130, 64, 96, 4)
+
+
+@pytest.mark.parametrize("M", [1, 127, 129, 5000])
+def test_wgrad_launch_arguments(fake_cuda, M):
+    """K6's launcher gets the planned splits and rows per split; one
+    split's partial is returned as it is, more are summed in order."""
+    a, b = _bf(M, 40), _bf(M, 48)
+    assert fa.gemm_bf16_wgrad(a, b).shape == (40, 48)
+    splits, rps = fa.wgrad_splits(M, 40, 48, 132)
+    fn, args = _FakeLib.launches[0]
+    assert fn == "rvt_gemm_bf16_wgrad" and args[3:8] == (M, 40, 48, splits,
+                                                          rps)
+    assert fake_cuda[1:] == ([] if splits == 1 else ["rvt_sum_parts"])

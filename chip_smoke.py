@@ -20,8 +20,12 @@ Phases, each of which raises (exit code != 0) when it fails:
      library call's times (CUDA events; K4's yardstick cuDNN's
      ``nn.LSTM``, ``nn.LSTMCell`` at T = 1), with the least time the card
      could take (bound), the kernel's TFLOP/s and its share of the bound;
+     K4 timed as whole ``fused_lstm_scan`` calls (the input product, the
+     bf16 cast and the recurrent kernel, all counted as K4's launches);
      then K2 (every epilogue) and K6 at ragged shapes (M in 1, 127, 129,
-     1000, 17000; K, N in 8, 40, 48), correctness only;
+     1000, 17000; K, N in 8, 40, 48), and K3 and K4 at the other presets'
+     geometries (partitions (8, 10), (6, 10), (2, 3), dh 24, 32, 64;
+     C 48, 96, 512 at T = 21 and 1, ragged rows), correctness only;
   4. run the port's RVT-B gen1 streaming eval step (bf16, s2d stem,
      B = 8, T = 21, labels on every 5th frame, pre_nms_topk 512) over
      several windows with the LSTM states carried, random weights from a
@@ -73,8 +77,9 @@ Phases, each of which raises (exit code != 0) when it fails:
  10. check that the calls each kernel was timed at per step are the
      launches its paths made per step; print the kernels line (per
      kernel: launches by path, and ms, plain, bound and library summed
-     over one step of each path it serves, and by path), then the device
-     line last.
+     over one step of each path it serves, and by path), after one line
+     per K4 call shape (path, stage, launches, ms beside cuDNN's LSTM and
+     the recurrent kernel's launch plan), then the device line last.
 
 It imports nothing of JAX. It exits 2 without a CUDA device or without
 the rvt_tpu_torch package beside it.
@@ -207,6 +212,19 @@ def compare(name, got, ref, atol, rtol, mean_tol=1e-3):
 
 
 LSTM_LIB = {}  # the dtype the cuDNN LSTM yardstick ran in, by call
+K4_STAGES = []  # (path, stage, T, rows, launches, K4 ms, library ms)
+
+
+def log_k4_stages():
+    """K4 per call at each stage beside its library yardstick (cuDNN's
+    fp16 ``nn.LSTM``; ``nn.LSTMCell`` at T = 1 serving), same run."""
+    from rvt_tpu_torch.ops.fused_scan import lstm_scan_plan
+
+    for path, stage, T, rows, n, ms, lms in K4_STAGES:
+        C = int(stage.split("x")[-1])
+        log(f"K4 {path} {stage} T={T}: {n} launches, kernel {ms:.4f} ms, "
+            f"library {lms:.4f} ms, factor {ms / lms:.2f}; plan "
+            f"{lstm_scan_plan(T, rows, C)}")
 
 
 def lstm_library_ms(T, P, C, g, *, grad=False, backward=False):
@@ -356,13 +374,20 @@ def check_kernels():
                 4 * n_frames * parts * heads * n_tok * n_tok * DIM_HEAD,
                 PEAK_BF16_FLOPS, lms)
         # K4: the window scan on the f32 residual (main path) and T = 1
+        # (the raw step), with the weights as the serving step keeps them
+        # and, wider than 64 channels, the residual's bf16 copy that the
+        # pair's last product writes; timed as whole calls (the input
+        # product and the scan)
         w = randn(2 * C, 4 * C, scale=(2 * C) ** -0.5)
+        wt = fs.lstm_weights_t(w)
         bias = randn(4 * C, scale=0.1)
         h0 = randn(B, H, W, C, scale=0.5, dtype=torch.float32)
         c0 = randn(B, H, W, C, scale=0.5, dtype=torch.float32)
-        for steps, dtype in ((T, torch.float32), (1, torch.bfloat16)):
-            x = randn(steps, B, H, W, C, dtype=dtype)
-            got = fs.fused_lstm_scan(x, w, bias, h0, c0)
+        for steps, path in ((T, "eval step"), (1, "raw step")):
+            x = randn(steps, B, H, W, C, dtype=torch.float32)
+            xb = x.to(torch.bfloat16) if C > 64 else None
+            got = fs.fused_lstm_scan(x, w, bias, h0, c0, lstm_wt=wt,
+                                     x_bf16=xb)
             ref = fs.lstm_scan_plain(x, w, bias, h0, c0)
             err = 0.0
             for nm, gt, rf, tol in (("h_seq", got[0], ref[0], 2e-2),
@@ -374,16 +399,21 @@ def check_kernels():
                 hT, cT = fs.fused_conv_lstm(x[0], h0, c0, w, bias)
                 err = max(err, compare("fused_conv_lstm h", hT, ref[1],
                                        2e-2, 2e-2))
-            ms = time_ms(lambda: fs.fused_lstm_scan(x, w, bias, h0, c0))
+            ms = time_ms(lambda: fs.fused_lstm_scan(x, w, bias, h0, c0,
+                                                    lstm_wt=wt, x_bf16=xb))
             pms = time_ms(lambda: fs.lstm_scan_plain(x, w, bias, h0, c0), 2)
             P = B * H * W
             lms = lstm_library_ms(steps, P, C, g)
-            nbytes = (steps * P * C * (x.element_size() + 2)
+            x_bytes = 4 if xb is None else 2  # what K4 reads of x
+            nbytes = (steps * P * C * (x_bytes + 2)
                       + 2 * (8 * C * C + 4 * C) + 4 * P * C * 4)
-            recs["lstm_scan"].add("eval step", 1 if steps == T else 0, err,
-                                  ms, pms, nbytes,
+            launches = fs.lstm_scan_launches(steps, P, C)
+            recs["lstm_scan"].add(path, 1, err, ms, pms, nbytes,
                                   2 * steps * P * 2 * C * 4 * C,
-                                  PEAK_BF16_FLOPS, lms)
+                                  PEAK_BF16_FLOPS, lms,
+                                  launches_per_call=launches)
+            K4_STAGES.append((path, f"{H}x{W}x{C}", steps, P, launches,
+                              ms, lms))
         torch.cuda.empty_cache()
     return recs
 
@@ -457,6 +487,69 @@ def check_gemm_edges():
         "with their plain versions (tolerance 0.032 + 0.01*|ref|; sums "
         "1e-3 of max|ref|); K6 and the gelu backward's sums bit for bit "
         "across two runs")
+
+
+def check_attention_lstm_edges():
+    """Phase 3, correctness only: K3 and K4 at the geometries of the other
+    presets, against their plain versions at phase 3's tolerances. K3 at
+    partitions (8, 10), gen4's (6, 10) (60 tokens) and (2, 3), dh 24, 32
+    and 64, window and grid; K4 at C = 48, 96 and 512, T = 21 and 1, x f32
+    and bf16, 391 pixels a lane (rows not a multiple of the 16-row tile
+    nor of the cluster's row tile)."""
+    import torch
+
+    from rvt_tpu_torch.ops import fused_attention as fa
+    from rvt_tpu_torch.ops import fused_scan as fs
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    n = 0
+    for part, (H, W) in (((8, 10), (16, 20)), ((6, 10), (12, 20)),
+                         ((2, 3), (12, 12))):
+        for dh in (24, 32, 64):
+            for heads in (2, 16):
+                C = heads * dh
+                qkv = randn(6, H, W, 3 * C)
+                for window in (True, False):
+                    got = fa.partition_attention(qkv, heads=heads,
+                                                 dim_head=dh, part=part,
+                                                 window=window)
+                    ref = fa.partition_attention_plain(qkv, heads, dh, part,
+                                                       window)
+                    bad = ((got.float() - ref.float()).abs()
+                           > 3.2e-2 + 1e-2 * ref.float().abs())
+                    if bool(bad.any()) or not bool(
+                            torch.isfinite(got.float()).all()):
+                        fail(f"partition_attention at part {part}, dh {dh}, "
+                             f"C {C}, window {window} disagrees with its "
+                             "plain version")
+                    n += 1
+    log(f"partition geometries: {n} cases of K3 agree with its plain "
+        "version (tolerance 0.032 + 0.01*|ref|)")
+    n = 0
+    for C in (48, 96, 512):
+        w = randn(2 * C, 4 * C, scale=(2 * C) ** -0.5)
+        bias = randn(4 * C, scale=0.1)
+        B, H, W = 2, 17, 23
+        h0 = randn(B, H, W, C, scale=0.5, dtype=torch.float32)
+        c0 = randn(B, H, W, C, scale=0.5, dtype=torch.float32)
+        for T in (SEQ_LEN, 1):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = randn(T, B, H, W, C, dtype=dtype)
+                got = fs.fused_lstm_scan(x, w, bias, h0, c0,
+                                         with_c_seq=True)
+                ref = fs.lstm_scan_plain(x, w, bias, h0, c0, True)
+                for nm, gt, rf, tol in zip(("h_seq", "c_seq", "h_T", "c_T"),
+                                           got, ref,
+                                           (2e-2, 5e-2, 2e-2, 5e-2)):
+                    compare(f"lstm_scan C={C} T={T} {str(dtype)[6:]} {nm}",
+                            gt, rf, tol, 2e-2, 2e-3)
+                n += 1
+    log(f"LSTM widths: {n} cases of K4 agree with its plain version")
 
 
 def run_main_path():
@@ -1130,7 +1223,10 @@ def check_train_kernels(recs, frames=SEQ_LEN * BATCH, steps=SEQ_LEN,
         bias = randn(4 * C, scale=0.1)
         h0 = randn(B, H, W, C, scale=0.5, dtype=f32)
         c0 = randn(B, H, W, C, scale=0.5, dtype=f32)
-        fwd = fs.fused_lstm_scan(x, w, bias, h0, c0, with_c_seq=True)
+        # the per-step path (T = 1) keeps K4's weight layout for a window
+        wt = fs.lstm_weights_t(w) if T == 1 else None
+        fwd = fs.fused_lstm_scan(x, w, bias, h0, c0, with_c_seq=True,
+                                 lstm_wt=wt)
         ref4 = fs.fused_lstm_scan(x, w, bias, h0, c0, with_c_seq=True,
                                   plain=True)
         err = 0.0
@@ -1139,16 +1235,19 @@ def check_train_kernels(recs, frames=SEQ_LEN * BATCH, steps=SEQ_LEN,
             err = max(err, compare(f"lstm_scan[c_seq] {nm}", gt, rf, tol,
                                    2e-2, 2e-3))
         ms = time_ms(lambda: fs.fused_lstm_scan(x, w, bias, h0, c0,
-                                                with_c_seq=True))
+                                                with_c_seq=True, lstm_wt=wt))
         pms = time_ms(lambda: fs.fused_lstm_scan(x, w, bias, h0, c0,
                                                  with_c_seq=True, plain=True),
                       1)
         P = B * H * W
         lms = lstm_library_ms(T, P, C, g, grad=True)
+        launches = fs.lstm_scan_launches(T, P, C)
         recs["lstm_scan"].add(
             TS, 1, err, ms, pms,
             T * P * C * (4 + 2 + 4) + 2 * (8 * C * C + 4 * C) + 4 * P * C * 4,
-            2 * T * P * 2 * C * 4 * C, PEAK_BF16_FLOPS, lms)
+            2 * T * P * 2 * C * 4 * C, PEAK_BF16_FLOPS, lms,
+            launches_per_call=launches)
+        K4_STAGES.append((per, f"{H}x{W}x{C}", T, P, launches, ms, lms))
         h_seq, c_seq = ref4[0], ref4[1]
         del fwd, ref4
         dh_seq = randn(T, B, H, W, C, scale=0.5)
@@ -1861,6 +1960,7 @@ def main() -> int:
     stage_bounds()
     recs = check_kernels()
     check_gemm_edges()
+    check_attention_lstm_edges()
     recs["stacked_histogram"] = check_voxelizer()
     check_train_kernels(recs)
     log(f"LSTM yardstick dtypes: {LSTM_LIB}")
@@ -1890,6 +1990,7 @@ def main() -> int:
             if q["launches"] * steps[path] != by_path[path]:
                 fail(f"{name}: {q['launches']} launches per {path} timed, "
                      f"{by_path[path] / steps[path]:g} made")
+    log_k4_stages()
     log(f"card: {card}; eval step {fps:.1f} frames/s, MFU {mfu:.2f}%; "
         f"raw step {raw_fps:.1f} frames/s, MFU {raw_mfu:.2f}%; train step "
         f"{t_ms:.2f} ms, {t_fps:.1f} frames/s, MFU {t_mfu:.2f}%, peak "

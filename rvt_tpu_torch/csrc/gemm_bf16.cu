@@ -11,7 +11,9 @@
 //   EPI_GELU    (1): tanh-gelu in f32, store rounded to bf16   (fc1);
 //                    with ``aux`` also the bf16 pre-activation h1
 //   EPI_RESID   (2): R[M,N] f32 += the result    (serving proj, fc2; the
-//                    LayerScale is folded into their weights)
+//                    LayerScale is folded into their weights); with
+//                    ``aux`` also bf16(R), the input of K4's hoisted
+//                    product (lstm_scan.cu)
 //   EPI_RESID_LS(3): out = res_in + f32(result) * gamma[col]   (training
 //                    proj, fc2: LayerScale unfolded, _block_fwd :311-316,
 //                    :329-332); with ``aux`` also the bf16 result
@@ -206,6 +208,7 @@ struct Gemm {
             reinterpret_cast<float4*>(reinterpret_cast<float*>(e.out) + o);
         R[0] = *reinterpret_cast<const float4*>(w);
         R[1] = *reinterpret_cast<const float4*>(w + 4);
+        if (epi == EPI_RESID && e.aux != nullptr) store_bf16x8(e.aux + o, w);
       }
     }
     if (epi == EPI_RT_GELU_BWD) {
@@ -277,7 +280,7 @@ int dispatch(const void* a, const void* w, const EpiArgs& e, int M, int N,
 
 // Every epilogue through one entry: 0-3 take W [K, N] and a bias (2 adds
 // into ``out`` in place); 4-7 take W [N, K] and no bias. ``aux`` is an
-// optional bf16 [M, N] output (1, 3) or the bf16 h1 input (7); ``part``
+// optional bf16 [M, N] output (1, 2, 3) or the bf16 h1 input (7); ``part``
 // [part_rows, N] f32 receives the column sums of epilogue 7, one row per
 // 64 rows of A: part_rows must be ceil(M / 64). Pointers an epilogue does
 // not read may be null. K and N multiples of 8, the operands 16-byte

@@ -1,4 +1,5 @@
-// K3 partition_attention: MaxViT window or grid self-attention, per head.
+// K3 partition_attention: MaxViT window or grid self-attention over all
+// heads of a partition.
 //
 // Replaces the attention core of the TPU kernel
 // rvt_tpu/ops/fused_attention.py:_one_block (partition gather, per-head
@@ -7,72 +8,66 @@
 // the per-head interleaved layout of the qkv projection: head h owns
 // channels [h*3*dh, (h+1)*3*dh) as q | k | v (layers.py SelfAttentionCl).
 // Output is [N, H, W, C] bf16 in image order, head h in channels
-// [h*dh, (h+1)*dh).
-//
-// One block per (frame, partition, head). The partition gather is in the
-// load addressing (no reshaped copy in memory): token t = (a, b),
-// a < ph, b < pw, of partition (i, j) sits at pixel
+// [h*dh, (h+1)*dh). The partition gather is in the addressing: token
+// t = (a, b), a < ph, b < pw, of partition (i, j) sits at pixel
 //   window: (i*ph + a, j*pw + b)      grid: (a*nh + i, b*nw + j)
 // with nh = H/ph, nw = W/pw. Rounding points follow the JAX kernel:
-// scores and softmax in f32, probabilities rounded to bf16, o = p v with
-// f32 accumulation, rounded to bf16.
+// scores and softmax in f32, the probabilities normalised and then
+// rounded to bf16, o = p v with f32 sums, rounded to bf16.
 //
-// Bound on the H100: bytes at these shapes (80 tokens x dh 32: each
-// block moves 80*32*4*2 bytes for 2*2*80*80*32 flops, ~50 flops/byte,
-// below the ~295 of the bf16 tensor-core roofline). Design: q, k, v of
-// the partition go to shared memory once; both products run as bf16
-// WMMA (mma.sync) tiles on the token count padded to 16; the scores and
-// probabilities never leave shared memory, and reuse the space of what
-// they replace (46 KB at 80 tokens, so four 8-warp blocks share an SM).
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+// Bound on the H100: bytes (80 tokens x dh 32: ~50 flops per byte, far
+// below the ~295 of the bf16 tensor-core roofline), so mma.sync is
+// enough and wgmma's 64-row tiles would only pad the 60-80 tokens. One
+// block per (frame, partition, group of up to four heads): each token's
+// q | k | v of the group is one contiguous run of HG*3*dh bf16 (384 bytes
+// at gen1 stage 1, where the group is every head), copied with cp.async.
+// A warp owns 16 queries of one head: S = q k^T stays in its registers
+// (the keys padded to 16, pad keys at -inf), the row max and sum use quad
+// shuffles, the probabilities are divided, rounded to bf16 and repacked
+// from the accumulator layout straight into the A operand of p v; the
+// whole row is in registers, so the softmax is two-pass, not online. dh
+// 24 is padded to 32 with zeros for q k^T. o goes through shared memory
+// so that each token's HG*dh outputs are written as one contiguous run.
+#include "warp_mma.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+// Two units per warp, so that several blocks share an SM (their
+// registers: S and o stay in them) and one block's loads overlap
+// another's products: five warps at gen1 stage 1, ten at stage 4.
+constexpr int MAX_WARPS = 10;
 
-// Shared memory: q, k, v rows (bf16), then the f32 scores, which the f32
-// o tile reuses. The bf16 probabilities reuse q and k once the scores
-// exist, when they fit there (80 tokens at dh 32 fit exactly).
 template <int DH>
-struct Layout {
-  static constexpr int LDQ = DH + 8;  // q, k, v rows (bf16)
-  static constexpr int LDO = DH + 4;  // o rows (f32)
-  int NP, LDS, LDP, LDSO;
-  bool p_on_qk;
-  __host__ __device__ explicit Layout(int np)
-      : NP(np), LDS(np + 4), LDP(np),
-        LDSO((np + 4) > (DH + 4) ? (np + 4) : (DH + 4)),
-        p_on_qk(np <= 2 * LDQ) {}
-  __host__ __device__ size_t bytes() const {
-    return (size_t)3 * NP * LDQ * 2 + (size_t)NP * LDSO * 4 +
-           (p_on_qk ? 0 : (size_t)NP * LDP * 2);
-  }
+struct Dims {
+  static constexpr int DHP = (DH + 15) / 16 * 16;  // dh padded for q k^T
+  static constexpr int LDQ = DHP + 8;               // q, k, v rows (bf16)
 };
 
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
+__host__ __device__ inline size_t attn_smem(int dh, int np, int hg) {
+  const int dhp = (dh + 15) / 16 * 16;
+  return (size_t)3 * hg * np * (dhp + 8) * 2 + (size_t)np * (hg * dh + 8) * 2;
+}
+
+template <int DH, int NT>
+__global__ void __launch_bounds__(32 * MAX_WARPS,
+                                  NT * Dims<DH>::DHP <= 320 ? 2 : 1)
 attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int H,
-            int W, int C, int ph, int pw, int window, int n, int NP,
+            int W, int C, int ph, int pw, int window, int n, int NP, int HG,
             float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout<DH> L(NP);
-  constexpr int LDQ = Layout<DH>::LDQ, LDO = Layout<DH>::LDO;
+  constexpr int DHP = Dims<DH>::DHP, LDQ = Dims<DH>::LDQ;
   constexpr int CH = DH / 8;  // 16-byte chunks per q/k/v row
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + NP * LDQ;
-  bf16* Vs = Ks + NP * LDQ;
-  float* Ss = reinterpret_cast<float*>(Vs + NP * LDQ);  // scores, then o
-  bf16* Ps = L.p_on_qk ? Qs : reinterpret_cast<bf16*>(Ss + NP * L.LDSO);
+  bf16* QKV = reinterpret_cast<bf16*>(smem);  // [3][HG][NP][LDQ]
+  const int LDO = HG * DH + 8;
+  bf16* Os = QKV + 3 * HG * NP * LDQ;  // [NP][LDO]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int heads = C / DH;
+  const int nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int groups = C / (DH * HG);
   const int nh = H / ph, nw = W / pw;
-  const int head = blockIdx.x % heads;
-  const int rest = blockIdx.x / heads;
+  const int group = blockIdx.x % groups;
+  const int rest = blockIdx.x / groups;
   const int part = rest % (nh * nw);
   const long frame = rest / (nh * nw);
   const int pi = part / nw, pj = part % nw;
@@ -84,101 +79,174 @@ attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int H,
     return (frame * H + r) * W + c;
   };
 
-  for (int i = tid; i < NP * 3 * CH; i += THREADS) {
-    const int t = i / (3 * CH), w = i % (3 * CH);
-    const int which = w / CH, c8 = (w % CH) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
+  const int cpt = HG * 3 * CH;  // chunks per token
+  for (int i = tid; i < NP * cpt; i += blockDim.x) {
+    const int t = i / cpt, w = i % cpt;
+    const int hl = w / (3 * CH), within = w % (3 * CH);
+    const int which = within / CH, d8 = (within % CH) * 8;
+    bf16* dst = QKV + ((which * HG + hl) * NP + t) * LDQ + d8;
     if (t < n)
-      v = *reinterpret_cast<const uint4*>(
-          qkv + pixel(t) * 3 * C + head * 3 * DH + which * DH + c8);
-    bf16* dst = (which == 0 ? Qs : which == 1 ? Ks : Vs) + t * LDQ + c8;
-    *reinterpret_cast<uint4*>(dst) = v;
+      cp_async16(smem_addr(dst), qkv + pixel(t) * 3 * C +
+                                     (long)group * HG * 3 * DH + w * 8);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
   }
+  if (DHP != DH)  // zero the padded columns of q, k and v
+    for (int i = tid; i < 3 * HG * NP; i += blockDim.x)
+      for (int d = DH; d < DHP; d += 8)
+        *reinterpret_cast<uint4*>(QKV + i * LDQ + d) = make_uint4(0, 0, 0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
   __syncthreads();
 
-  const int nt = NP / 16;
-  for (int tile = warp; tile < nt * nt; tile += THREADS / 32) {
-    const int ti = tile / nt, tj = tile % nt;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
+  const int MT = NP / 16, nt = NP / 8;
+  const uint32_t base = smem_addr(QKV);
+  for (int unit = warp; unit < HG * MT; unit += nwarps) {
+    const int hl = unit / MT, mt = unit % MT;
+    const uint32_t qb = base + (uint32_t)((0 * HG + hl) * NP * LDQ * 2);
+    const uint32_t kb = base + (uint32_t)((1 * HG + hl) * NP * LDQ * 2);
+    const uint32_t vb = base + (uint32_t)((2 * HG + hl) * NP * LDQ * 2);
+
+    float s[NT][4];
 #pragma unroll
-    for (int k = 0; k < DH; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, Qs + ti * 16 * LDQ + k, LDQ);
-      wmma::load_matrix_sync(b, Ks + tj * 16 * LDQ + k, LDQ);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(Ss + ti * 16 * L.LDS + tj * 16, acc, L.LDS,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // softmax over the keys of each query row, one warp per row
-  for (int r = warp; r < NP; r += THREADS / 32) {
-    bf16* prow = Ps + r * L.LDP;
-    if (r >= n) {
-      for (int c = lane; c < NP; c += 32) prow[c] = __float2bfloat16_rn(0.f);
-      continue;
-    }
-    float* srow = Ss + r * L.LDS;
-    float mx = -INFINITY;
-    for (int c = lane; c < n; c += 32) mx = fmaxf(mx, srow[c] * scale);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int c = lane; c < n; c += 32) {
-      const float e = expf(srow[c] * scale - mx);
-      srow[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int c = lane; c < NP; c += 32)
-      prow[c] = __float2bfloat16_rn(c < n ? srow[c] / sum : 0.f);
-  }
-  __syncthreads();
-
-  float* Os = Ss;  // the scores are consumed
-  for (int tile = warp; tile < nt * (DH / 16); tile += THREADS / 32) {
-    const int ti = tile / (DH / 16), tj = tile % (DH / 16);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int k = 0; k < NP; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, Ps + ti * 16 * L.LDP + k, L.LDP);
-      wmma::load_matrix_sync(b, Vs + k * LDQ + tj * 16, LDQ);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(Os + ti * 16 * LDO + tj * 16, acc, LDO,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  for (int i = tid; i < n * CH; i += THREADS) {
-    const int t = i / CH, c8 = (i % CH) * 8;
-    const float* o = Os + t * LDO + c8;
-    __align__(16) bf16 packed[8];
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) packed[e] = __float2bfloat16_rn(o[e]);
-    *reinterpret_cast<uint4*>(out + pixel(t) * C + head * DH + c8) =
-        *reinterpret_cast<const uint4*>(packed);
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DHP / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, qb + ((mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                               LDQ + kk * 16 + (lane >> 4) * 8) * 2);
+#pragma unroll
+      for (int j2 = 0; j2 < NT / 2; ++j2) {
+        if (2 * j2 >= nt) break;
+        uint32_t b[4];
+        ldmatrix_x4(b, kb + ((j2 * 16 + (lane >> 4) * 8 + (lane & 7)) * LDQ +
+                             kk * 16 + ((lane >> 3) & 1) * 8) * 2);
+        mma_bf16(s[2 * j2], a, b);
+        mma_bf16(s[2 * j2 + 1], a, b + 2);
+      }
+    }
+
+    // softmax over the keys of rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= nt) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = j * 8 + 2 * qd + (e & 1) < n;
+        s[j][e] = ok ? s[j][e] * scale : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 1));
+      mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 2));
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= nt) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = __expf(s[j][e] - mx[e >> 1]);  // pad keys: 0
+        s[j][e] = v;
+        sum[e >> 1] += v;
+      }
+    }
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      sum[h2] += __shfl_xor_sync(0xffffffffu, sum[h2], 1);
+      sum[h2] += __shfl_xor_sync(0xffffffffu, sum[h2], 2);
+    }
+
+    float o[DHP / 8][4];
+#pragma unroll
+    for (int d = 0; d < DHP / 8; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      if (2 * kk >= nt) break;
+      const float* s0 = s[2 * kk];
+      const float* s1 = s[2 * kk + 1];
+      uint32_t a[4];
+      const float r0 = sum[0], r1 = sum[1];
+      a[0] = pack_bf16x2(__fdividef(s0[0], r0), __fdividef(s0[1], r0));
+      a[1] = pack_bf16x2(__fdividef(s0[2], r1), __fdividef(s0[3], r1));
+      a[2] = pack_bf16x2(__fdividef(s1[0], r0), __fdividef(s1[1], r0));
+      a[3] = pack_bf16x2(__fdividef(s1[2], r1), __fdividef(s1[3], r1));
+#pragma unroll
+      for (int dp = 0; dp < DHP / 16; ++dp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(
+            b, vb + ((kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LDQ +
+                     dp * 16 + (lane >> 4) * 8) * 2);
+        mma_bf16(o[2 * dp], a, b);
+        mma_bf16(o[2 * dp + 1], a, b + 2);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)
+        *reinterpret_cast<uint32_t*>(
+            Os + (mt * 16 + g + 8 * h2) * LDO + hl * DH + d * 8 + 2 * qd) =
+            pack_bf16x2(o[d][2 * h2], o[d][2 * h2 + 1]);
+  }
+  __syncthreads();
+
+  const int opt = HG * CH;  // output chunks per token
+  for (int i = tid; i < n * opt; i += blockDim.x) {
+    const int t = i / opt, c8 = (i % opt) * 8;
+    *reinterpret_cast<uint4*>(out + pixel(t) * C + (long)group * HG * DH +
+                              c8) =
+        *reinterpret_cast<const uint4*>(Os + t * LDO + c8);
   }
 }
 
-template <int DH>
+template <int DH, int NT>
 int launch(const bf16* qkv, bf16* out, int N, int H, int W, int C, int ph,
-           int pw, int window, float scale, cudaStream_t st) {
-  const int n = ph * pw;
-  const int NP = (n + 15) / 16 * 16;
-  const size_t smem = Layout<DH>(NP).bytes();
+           int pw, int window, int NP, int HG, float scale, cudaStream_t st) {
+  const size_t smem = attn_smem(DH, NP, HG);
   cudaError_t e = cudaFuncSetAttribute(
-      attn_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_kernel<DH, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const long blocks = (long)N * (H / ph) * (W / pw) * (C / DH);
-  attn_kernel<DH><<<(unsigned)blocks, THREADS, smem, st>>>(
-      qkv, out, H, W, C, ph, pw, window, n, NP, scale);
+  const int units = HG * (NP / 16);
+  const int spread = (units + MAX_WARPS - 1) / MAX_WARPS;
+  const int per_warp = spread > 2 ? spread : 2;
+  const int warps = (units + per_warp - 1) / per_warp;
+  const long blocks = (long)N * (H / ph) * (W / pw) * (C / (DH * HG));
+  attn_kernel<DH, NT><<<(unsigned)blocks, 32 * warps, smem, st>>>(
+      qkv, out, H, W, C, ph, pw, window, ph * pw, NP, HG, scale);
   return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_np(const bf16* qkv, bf16* out, int N, int H, int W, int C, int ph,
+              int pw, int window, int NP, int HG, float scale,
+              cudaStream_t st) {
+  if (NP <= 32)
+    return launch<DH, 4>(qkv, out, N, H, W, C, ph, pw, window, NP, HG, scale,
+                         st);
+  if (NP <= 64)
+    return launch<DH, 8>(qkv, out, N, H, W, C, ph, pw, window, NP, HG, scale,
+                         st);
+  if (NP <= 80)
+    return launch<DH, 10>(qkv, out, N, H, W, C, ph, pw, window, NP, HG,
+                          scale, st);
+  return launch<DH, 16>(qkv, out, N, H, W, C, ph, pw, window, NP, HG, scale,
+                        st);
+}
+
+// Heads per block: two (every head at gen1 stage 1), or a quarter of
+// them where there are more than eight; one where two do not divide.
+int heads_per_block(int heads) {
+  if (heads % 2 != 0) return 1;
+  return heads > 8 && heads % 4 == 0 ? heads / 4 : 2;
 }
 
 }  // namespace
@@ -190,8 +258,17 @@ extern "C" int rvt_partition_attention(const void* qkv, void* out, int N,
   cudaStream_t st = (cudaStream_t)stream;
   const bf16* q = (const bf16*)qkv;
   bf16* o = (bf16*)out;
-  if (dh == 16) return launch<16>(q, o, N, H, W, C, ph, pw, window, scale, st);
-  if (dh == 32) return launch<32>(q, o, N, H, W, C, ph, pw, window, scale, st);
-  if (dh == 64) return launch<64>(q, o, N, H, W, C, ph, pw, window, scale, st);
+  const int n = ph * pw, NP = (n + 15) / 16 * 16;
+  if (n < 1 || NP > 128 || C % dh != 0 || H % ph != 0 || W % pw != 0)
+    return (int)cudaErrorInvalidValue;
+  const int HG = heads_per_block(C / dh);
+  if (dh == 16)
+    return launch_np<16>(q, o, N, H, W, C, ph, pw, window, NP, HG, scale, st);
+  if (dh == 24)
+    return launch_np<24>(q, o, N, H, W, C, ph, pw, window, NP, HG, scale, st);
+  if (dh == 32)
+    return launch_np<32>(q, o, N, H, W, C, ph, pw, window, NP, HG, scale, st);
+  if (dh == 64)
+    return launch_np<64>(q, o, N, H, W, C, ph, pw, window, NP, HG, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,7 +13,7 @@
 //   dS = bf16(scale * P o (dP - rowsum(dP o P)))
 //   dQ = dS K         dK = dS^T Q              (f32 sums, bf16 out)
 //
-// One block per (frame, partition, head), as K3, with K3's window/grid
+// One block per (frame, partition, head), with K3's window/grid
 // addressing: token t = (a, b) of partition (i, j) sits at pixel
 //   window: (i*ph + a, j*pw + b)      grid: (a*nh + i, b*nw + j).
 // Bound on the H100: bytes at these shapes (80 tokens x dh 32: 4 reads

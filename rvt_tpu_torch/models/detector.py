@@ -13,9 +13,10 @@ stage ``ops/fused_train.split_stage_scan_train`` on weights cast inside
 autograd (or, with ``per_step``, ``fused_stage_step_train`` once per time
 step).
 
-Every entry point runs only configs that the JAX package runs on its
-kernels (``fused_path_supported``); the others take its XLA module path,
-which the port has not ported, and raise ``NotImplementedError``.
+Every entry point runs only configs and stage geometries that the JAX
+package runs on its kernels (``require_fused_path``); the others take its
+XLA module path, which the port has not ported, and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,12 +31,12 @@ from rvt_tpu_torch import resolve_device
 from rvt_tpu_torch.config import ModelConfig
 from rvt_tpu_torch.models.backbone import LstmStates, RVTBackbone
 from rvt_tpu_torch.models.yolox import YoloPAFPN, YoloXHead
-from rvt_tpu_torch.ops.fused_attention import attention_block_params
-from rvt_tpu_torch.ops.fused_scan import fused_stage_scan
+from rvt_tpu_torch.ops.fused_attention import (attention_block_params,
+                                               pair_fusion_ok)
+from rvt_tpu_torch.ops.fused_scan import fused_stage_scan, lstm_weights_t
 from rvt_tpu_torch.ops.fused_train import (StageCfg, fused_stage_step_train,
-                                           per_step_stage_ok,
                                            split_stage_scan_train,
-                                           train_block_params)
+                                           train_block_params, train_stage_ok)
 from rvt_tpu_torch.ops.s2d import BLOCK, fold_stem_kernel, s2d_input_hw
 
 
@@ -45,13 +46,13 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def fused_path_supported(cfg: ModelConfig) -> bool:
-    """Whether the JAX package runs this config on its kernels: the gate of
-    its whole-window scans (``rvt_tpu/models/detector.py:
-    _fused_scan_supported``) and of its single step (``RVTStage.
-    _whole_stage_fused``, whose TPU memory envelope is not carried over:
-    the Hopper kernels take every geometry). Every other config runs the
+    """Whether the JAX package runs this config's blocks on its kernels:
+    the structural gate of its whole-window scans (``rvt_tpu/models/
+    detector.py:_fused_scan_supported``) and of its single step
+    (``PartitionAttentionCl._fused_mode``). Every other config runs the
     XLA module path (erf-gelu, LayerScale not folded), which the port has
-    not ported."""
+    not ported. The JAX package also leaves its kernels per stage, by
+    geometry: ``stage_path_supported``."""
     bb = cfg.backbone
     a, lstm = bb.attention, bb.lstm
     return (bb.fused_kernels and cfg.compute_dtype == "bfloat16"
@@ -62,8 +63,37 @@ def fused_path_supported(cfg: ModelConfig) -> bool:
             and not lstm.dws_conv and lstm.drop_cell_update == 0.0)
 
 
-def require_fused_path(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``fused_path_supported``."""
+def stage_geometries(cfg: ModelConfig) -> List[Tuple[int, int, int]]:
+    """(H, W, C) of each backbone stage at the config's input size."""
+    bb = cfg.backbone
+    Hi, Wi = bb.in_res_hw
+    return [(Hi // s, Wi // s, C) for s, C in zip(bb.strides,
+                                                   bb.stage_dims)]
+
+
+# Where the JAX package runs a stage on its kernels, by path: serving
+# (window scan, single step, raw events) where ``pair_fusion_mode`` is
+# not None; training over the whole window or per step where
+# ``train_stage_mode(scan=...)`` is not None.
+_STAGE_ENVELOPES = {
+    "serve": pair_fusion_ok,
+    "train": lambda H, W, C, part: train_stage_ok(H, W, C, part, scan=True),
+    "train_per_step": lambda H, W, C, part: train_stage_ok(H, W, C, part,
+                                                           scan=False),
+}
+
+
+def stage_path_supported(cfg: ModelConfig, path: str) -> List[bool]:
+    """Per stage, whether the JAX package runs it on its kernels on
+    ``path`` ("serve", "train" or "train_per_step")."""
+    part = tuple(cfg.backbone.attention.partition_size)
+    ok = _STAGE_ENVELOPES[path]
+    return [ok(H, W, C, part) for H, W, C in stage_geometries(cfg)]
+
+
+def require_fused_path(cfg: ModelConfig, path: str = "serve") -> None:
+    """Raise ``NotImplementedError`` unless ``fused_path_supported`` and
+    every stage is within the JAX package's envelope for ``path``."""
     if not fused_path_supported(cfg):
         raise NotImplementedError(
             "this config runs the JAX package's XLA module path (it needs "
@@ -71,6 +101,14 @@ def require_fused_path(cfg: ModelConfig) -> None:
             "plain gelu MLP with biases, LayerScale > 0, no drop-path or "
             "drop-mlp and the 1x1 ConvLSTM without cell dropout); the port "
             "has not ported that path yet (ROADMAP)")
+    for (H, W, C), ok in zip(stage_geometries(cfg),
+                             stage_path_supported(cfg, path)):
+        if not ok:
+            raise NotImplementedError(
+                f"the JAX package runs a {H}x{W}x{C} stage with partition "
+                f"{tuple(cfg.backbone.attention.partition_size)} on its XLA "
+                f"module path ({path}: its kernels' geometry envelope); the "
+                "port has not ported that path yet (ROADMAP)")
 
 
 class RVTDetector(nn.Module):
@@ -194,8 +232,9 @@ def downsample_ln_params(stage, cfg, C: int, dtype=torch.bfloat16):
 
 def backbone_kernel_params(model: RVTDetector) -> List[Dict]:
     """Each stage's weights as its kernels take them (bf16, LayerScale
-    folded, [in, out] layouts). The serving step makes them once, when it
-    is made, instead of once per window."""
+    folded, [in, out] layouts; the LSTM's also as K4's transposed halves,
+    ``lstm_wt``). The serving step makes them once, when it is made,
+    instead of once per window."""
     cfg = model.cfg.backbone
     bf16 = torch.bfloat16
     out = []
@@ -203,10 +242,12 @@ def backbone_kernel_params(model: RVTDetector) -> List[Dict]:
         for stage, C in zip(model.backbone.stages, cfg.stage_dims):
             lstm = stage.lstm.conv1x1
             blk = stage.att_blocks[0]
+            lstm_w = lstm.weight[:, :, 0, 0].t().to(bf16).contiguous()
             out.append(dict(
                 params_window=attention_block_params(blk.att_window, True),
                 params_grid=attention_block_params(blk.att_grid, False),
-                lstm_w=lstm.weight[:, :, 0, 0].t().to(bf16).contiguous(),
+                lstm_w=lstm_w,
+                lstm_wt=lstm_weights_t(lstm_w),
                 lstm_b=lstm.bias.to(bf16),
                 ds_ln_params=downsample_ln_params(stage, cfg, C)))
     return out
@@ -288,23 +329,16 @@ def fused_train_scan_backbone(model: RVTDetector, ev_seq: torch.Tensor,
     replacement run in torch (``_masked_ds_ln``) and its kernels skip
     their LN (``ds_ln=False``).
 
-    The JAX package trains a stage per step on its kernels only within
-    ``per_step_stage_ok`` (every gen1 stage); beyond it, it runs the XLA
-    modules, and ``per_step`` raises. Returns (features per
+    The JAX package trains a stage on its kernels only within
+    ``train_stage_mode`` (per step: every gen1 stage, not gen4's first);
+    beyond it, it runs the XLA modules, and this raises. Returns
+    (features per
     ``cfg.fpn.in_stages``, each [T, B, h, w, c] bf16; final (h, c) f32 per
     stage)."""
-    require_fused_path(model.cfg)
+    require_fused_path(model.cfg, "train_per_step" if per_step else "train")
     cfg = model.cfg.backbone
     att = cfg.attention
     part = tuple(att.partition_size)
-    if per_step:
-        Hi, Wi = cfg.in_res_hw
-        for s, C in zip(cfg.strides, cfg.stage_dims):
-            if not per_step_stage_ok(Hi // s, Wi // s, C, part):
-                raise NotImplementedError(
-                    f"the JAX package trains a {Hi // s}x{Wi // s}x{C} "
-                    "stage per step on its XLA module path, which the "
-                    "port has not ported yet (ROADMAP)")
     T, B = ev_seq.shape[:2]
     bf16 = torch.bfloat16
     x = ev_seq.reshape((T * B,) + tuple(ev_seq.shape[2:]))
@@ -332,9 +366,11 @@ def fused_train_scan_backbone(model: RVTDetector, ev_seq: torch.Tensor,
         if per_step:
             hT, cT = h0, c0
             hs = []
+            # K4's layout of the LSTM weight, once for the window's steps
+            wt = lstm_weights_t(args[4].detach())
             for t in range(T):
                 hT, cT = fused_stage_step_train(scfg, x_seq[t], *args, hT,
-                                                cT)
+                                                cT, lstm_wt=wt)
                 hs.append(hT.to(bf16))
             h_seq = torch.stack(hs)
         else:

@@ -8,7 +8,8 @@ a chain of three kernels (``csrc/``):
 
   K1 ``ln_rows``             LayerNorm rows (ds-LN, LN1, LN2)
   K2 ``gemm_bf16``           qkv / proj / fc1 / fc2 with fused epilogues
-  K3 ``partition_attention`` per-(frame, partition, head) softmax attention
+  K3 ``partition_attention`` per-(frame, partition) softmax attention over
+                             a group of heads, softmax in registers
 
 Tokens stay in image order: qkv, proj and the MLP act on each token
 alone, so only K3 needs the window/grid partition, and it applies it in
@@ -59,6 +60,44 @@ TRAIN_REDUCE = Counter("train_reduce")
 EPILOGUES = {"bias": 0, "gelu": 1, "residual": 2, "residual_ls": 3,
              "rt_f32": 4, "rt_bf16": 5, "rt_acc": 6, "rt_gelu_bwd": 7}
 _GEMM_PART_ROWS = 64  # rows of A per column-sum partial of "rt_gelu_bwd"
+
+
+# ---------------------------------------------------------------------------
+# Where the JAX package runs the pair on its kernels
+# ---------------------------------------------------------------------------
+
+
+def partition_geometry_ok(H: int, W: int, C: int,
+                          part: Tuple[int, int]) -> bool:
+    """``rvt_tpu/ops/fused_attention.py:partition_geometry_ok``: whether
+    Mosaic can split the W axis into the window and grid partitions."""
+    ph, pw = part
+    if H % ph or W % pw:
+        return False
+    nw = W // pw
+
+    def split_ok(outer: int, minor: int) -> bool:
+        return outer == 1 or minor == 1 or (minor % 2 == 0
+                                             and minor * C >= 128)
+
+    return split_ok(nw, pw) and split_ok(pw, nw) and ph * pw >= 8
+
+
+def dense_attention_ok(H: int, W: int) -> bool:
+    """``rvt_tpu/ops/fused_attention.py:dense_attention_ok``."""
+    return H * W <= 1024
+
+
+def pair_fusion_ok(H: int, W: int, C: int, part: Tuple[int, int]) -> bool:
+    """Whether ``rvt_tpu/ops/fused_attention.py:pair_fusion_mode`` is not
+    None: the JAX package serves an H x W x C stage on its kernels (its
+    partitioned or masked-dense path), and on its XLA modules (erf-gelu,
+    LayerScale not folded) beyond 1M elements an image or where neither
+    geometry fits. Only that outcome is copied: the Hopper kernels take
+    both geometries alike."""
+    if H * W * C > 1024 * 1024:
+        return False
+    return partition_geometry_ok(H, W, C, part) or dense_attention_ok(H, W)
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +188,8 @@ def gemm_bf16_plain(a: torch.Tensor, w: torch.Tensor, epilogue: str,
                     bias=None, gamma=None, res_in=None, out=None, aux=None):
     """The rounding points of each ``gemm_bf16`` epilogue. Returns what the
     wrapper returns, with the bf16 value before the epilogue beside the
-    result of "gelu" and "residual_ls"."""
+    result of "gelu" and "residual_ls", and bf16(out) beside that of
+    "residual"."""
     if epilogue.startswith("rt_"):
         acc = a.float() @ w.float().t()
         if epilogue == "rt_f32":
@@ -169,7 +209,7 @@ def gemm_bf16_plain(a: torch.Tensor, w: torch.Tensor, epilogue: str,
         return _gelu_tanh(v.float()).to(torch.bfloat16), v
     if epilogue == "residual":
         out += v.float()
-        return out
+        return out, out.to(torch.bfloat16)
     r = res_in + v.float() * gamma.reshape(-1)
     if out is None:
         return r, v
@@ -185,7 +225,8 @@ def gemm_part_rows(M: int) -> int:
 
 def gemm_bf16(a: torch.Tensor, w: torch.Tensor, epilogue: str, *,
               bias=None, gamma=None, res_in=None, out=None, aux=None,
-              want_aux: bool = False, plain: bool = False):
+              want_aux: bool = False, plain: bool = False,
+              counter: Counter = GEMM_BF16):
     """``a [M, K] bf16`` times a bf16 weight with f32 sums, then
     ``epilogue``. With w [K, N] and the bf16 ``bias [N]``, the product is
     rounded to bf16 and the bias added in bf16 (``v``):
@@ -193,7 +234,8 @@ def gemm_bf16(a: torch.Tensor, w: torch.Tensor, epilogue: str, *,
       "bias"         v                                           -> bf16
       "gelu"         tanh-gelu of v                              -> bf16
       "residual"     ``out [M, N] f32 += v`` in place; returns out (the
-                     serving proj / fc2, LayerScale folded into w, bias)
+                     serving proj / fc2, LayerScale folded into w, bias);
+                     with ``want_aux`` (out, bf16(out))
       "residual_ls"  ``out = res_in + f32(v) * gamma`` (``out`` may be
                      ``res_in``; new when None); returns out (training:
                      LayerScale unfolded)
@@ -206,15 +248,17 @@ def gemm_bf16(a: torch.Tensor, w: torch.Tensor, epilogue: str, *,
       "rt_gelu_bwd"  d = (a . w^T) * gelu'(aux = bf16 h1); returns
                      (bf16(d), f32 column sums of d)
 
-    With ``want_aux`` "gelu" and "residual_ls" return (result, v)."""
+    With ``want_aux`` "gelu" and "residual_ls" return (result, v).
+    ``counter`` counts the launch: K4 (``fused_scan.fused_lstm_scan``)
+    owns the input product it runs through this kernel."""
     need(epilogue in EPILOGUES, f"gemm_bf16: unknown epilogue {epilogue}")
-    need(not want_aux or epilogue in ("gelu", "residual_ls"),
-         "gemm_bf16: want_aux is for the gelu and residual_ls epilogues")
+    need(not want_aux or epilogue in ("gelu", "residual", "residual_ls"),
+         "gemm_bf16: want_aux is for the gelu and residual epilogues")
     need((out is not None) or epilogue not in ("residual", "rt_acc"),
          "gemm_bf16: the residual and rt_acc epilogues add into out")
     if plain or not a.is_cuda:
         r = gemm_bf16_plain(a, w, epilogue, bias, gamma, res_in, out, aux)
-        if epilogue in ("gelu", "residual_ls") and not want_aux:
+        if epilogue in ("gelu", "residual", "residual_ls") and not want_aux:
             return r[0]
         return r
     M, K = a.shape
@@ -267,7 +311,7 @@ def gemm_bf16(a: torch.Tensor, w: torch.Tensor, epilogue: str, *,
         part.shape[0] if part is not None else 0, M, N, K,
         EPILOGUES[epilogue], stream_ptr(a))
     check(err, "gemm_bf16")
-    GEMM_BF16.launches += 1
+    counter.launches += 1
     if epilogue == "rt_gelu_bwd":
         return out, sum_parts(part)
     return (out, aux) if want_aux else out
@@ -350,7 +394,8 @@ def partition_attention(qkv: torch.Tensor, *, heads: int, dim_head: int,
                         part: Tuple[int, int], window: bool,
                         plain: bool = False) -> torch.Tensor:
     """See ``partition_attention_plain``; one CUDA block per (frame,
-    partition, head) with the partition gather in its load addressing."""
+    partition, group of up to four heads) with the partition gather in
+    its load addressing."""
     if plain or not qkv.is_cuda:
         return partition_attention_plain(qkv, heads, dim_head, part, window)
     N, H, W, C3 = qkv.shape
@@ -358,10 +403,10 @@ def partition_attention(qkv: torch.Tensor, *, heads: int, dim_head: int,
     C = C3 // 3
     check_operands("partition_attention", qkv)
     need(qkv.dtype == torch.bfloat16 and C == heads * dim_head
-         and dim_head in (16, 32, 64) and H % ph == 0 and W % pw == 0
+         and dim_head in (16, 24, 32, 64) and H % ph == 0 and W % pw == 0
          and ph * pw <= 128,
          "partition_attention: bf16 qkv [N, H, W, 3*heads*dh], dh in "
-         "(16, 32, 64), H, W divisible by the partition, <= 128 tokens")
+         "(16, 24, 32, 64), H, W divisible by the partition, <= 128 tokens")
     out = torch.empty((N, H, W, C), dtype=torch.bfloat16, device=qkv.device)
     err = kernels.lib("partition_attention").rvt_partition_attention(
         ptr(qkv), ptr(out), N, H, W, C, dim_head, ph, pw, int(window),
@@ -379,10 +424,11 @@ def partition_attention(qkv: torch.Tensor, *, heads: int, dim_head: int,
 def _one_block(R: torch.Tensor, prm: Dict[str, torch.Tensor],
                x_in_bf16: torch.Tensor | None, *, window: bool, heads: int,
                dim_head: int, part: Tuple[int, int], eps: float,
-               plain: bool) -> torch.Tensor:
+               plain: bool, with_bf16: bool = False):
     """One PartitionAttention sub-block on the f32 residual R [N, H, W, C],
     updated in place. ``x_in_bf16`` set = skip_first_norm: it enters the
-    attention unnormalised."""
+    attention unnormalised. With ``with_bf16`` returns (R, bf16(R)), the
+    copy written by the last product's epilogue."""
     N, H, W, C = R.shape
     M = N * H * W
     R2 = R.view(M, C)
@@ -397,9 +443,9 @@ def _one_block(R: torch.Tensor, prm: Dict[str, torch.Tensor],
               out=R2, plain=plain)
     y = ln_rows(R2, prm["ln2_s"], prm["ln2_b"], eps, plain=plain)
     y = gemm_bf16(y, prm["fc1_w"], "gelu", bias=prm["fc1_b"], plain=plain)
-    gemm_bf16(y, prm["fc2_w"], "residual", bias=prm["fc2_b"], out=R2,
-              plain=plain)
-    return R
+    r = gemm_bf16(y, prm["fc2_w"], "residual", bias=prm["fc2_b"], out=R2,
+                  want_aux=with_bf16, plain=plain)
+    return (R, r[1].view(R.shape)) if with_bf16 else R
 
 
 def fused_attention_pair(x: torch.Tensor, params_window: Dict[str, torch.Tensor],
@@ -407,12 +453,13 @@ def fused_attention_pair(x: torch.Tensor, params_window: Dict[str, torch.Tensor]
                          dim_head: int, part: Tuple[int, int],
                          skip_first_norm: bool, eps: float,
                          ds_ln_params: Sequence[torch.Tensor] = (),
-                         ds_eps: float = 1e-5,
-                         plain: bool = False) -> torch.Tensor:
+                         ds_eps: float = 1e-5, plain: bool = False,
+                         with_bf16: bool = False):
     """Window attention followed by grid attention (one MaxViT block) over
-    x [N, H, W, C] (bf16 or f32). Returns the f32 residual stream.
-    ``ds_ln_params`` = (scale, bias): x is the raw downsample-conv output
-    and its LayerNorm runs first (requires skip_first_norm)."""
+    x [N, H, W, C] (bf16 or f32). Returns the f32 residual stream, with
+    ``with_bf16`` also its bf16 copy (R, bf16(R)). ``ds_ln_params`` =
+    (scale, bias): x is the raw downsample-conv output and its LayerNorm
+    runs first (requires skip_first_norm)."""
     x = x.contiguous()
     if ds_ln_params:
         need(skip_first_norm, "ds_ln_params requires skip_first_norm")
@@ -424,7 +471,8 @@ def fused_attention_pair(x: torch.Tensor, params_window: Dict[str, torch.Tensor]
               plain=plain)
     R = _one_block(R, params_window, x_bf16 if skip_first_norm else None,
                    window=True, **kw)
-    return _one_block(R, params_grid, None, window=False, **kw)
+    return _one_block(R, params_grid, None, window=False, with_bf16=with_bf16,
+                      **kw)
 
 
 def attention_block_params(block, skip_first_norm: bool
@@ -667,7 +715,7 @@ def partition_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, *,
                             window: bool, plain: bool = False
                             ) -> torch.Tensor:
     """See ``partition_attention_bwd_plain``; one CUDA block per (frame,
-    partition, head) with K3's partition addressing."""
+    partition, head) with K3's partition addressing (dh 16, 32, 64)."""
     if plain or not qkv.is_cuda:
         return partition_attention_bwd_plain(qkv, do, heads, dim_head, part,
                                              window)

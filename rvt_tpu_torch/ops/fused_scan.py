@@ -7,19 +7,23 @@ blocks run in parallel and in no order, so the stage is split where the
 recurrence allows it: the attention pair has none and runs over all T*B
 frames at once (``fused_attention_pair``: kernels K1-K3), and only the
 ConvLSTM scans, as kernel K4 ``lstm_scan`` with the time loop inside the
-block and the (h, c) carry in shared memory. For training K4 also writes
-the cell states c_seq, and K8 ``lstm_scan_bwd`` runs the scan backwards
-with the (dh, dc) carry (``ops/fused_train.py``).
+kernel and the (h, c) carry on chip; wider than 64 channels its input
+product x.W_x for every step runs first as one K2 product, and only
+h.W_h stays in the loop. For training K4 also writes the cell states
+c_seq, and K8 ``lstm_scan_bwd`` runs the scan backwards with the (dh, dc)
+carry (``ops/fused_train.py``).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Sequence, Tuple
 
 import torch
 
 from rvt_tpu_torch.ops import kernels
 from rvt_tpu_torch.ops.fused_attention import (fused_attention_pair,
-                                               gemm_bf16_wgrad, sum_parts)
+                                               gemm_bf16, gemm_bf16_wgrad,
+                                               sum_parts)
 from rvt_tpu_torch.ops.kernels import (Counter, check, check_operands, need,
                                        ptr, stream_ptr)
 
@@ -75,41 +79,116 @@ def lstm_scan_plain(x_seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return torch.stack(hs), h, c
 
 
+_FUSED_MAX_C = 64  # K4 keeps the whole W in one block up to this width
+_HOIST_BYTES = 512 * 2 ** 20  # bound of the f32 x . W_x buffer per launch
+
+
+def lstm_weights_t(lstm_w: torch.Tensor) -> torch.Tensor:
+    """K4's weight layout: [2, 4C, C] = (W_x^T, W_h^T) of lstm_w [2C, 4C]
+    (the serving step makes it once, the per-step train path once a
+    window, the whole-window train step on every call)."""
+    C = lstm_w.shape[0] // 2
+    return lstm_w.reshape(2, C, 4 * C).transpose(1, 2).contiguous()
+
+
+def _hoist_steps(T: int, rows: int, C: int) -> int:
+    """Steps of x . W_x that one launch of the product computes: the f32
+    [steps * rows, 4C] buffer stays within ``_HOIST_BYTES``."""
+    return max(1, min(T, _HOIST_BYTES // (rows * 4 * C * 4)))
+
+
+def lstm_scan_launches(T: int, rows: int, C: int) -> int:
+    """Kernel launches of one ``fused_lstm_scan`` call over T steps of
+    ``rows`` pixels: one fused K4 (C <= 64), else per chunk of steps the
+    input product (K2's rt_f32, counted as K4's) and the recurrent K4."""
+    if C <= _FUSED_MAX_C:
+        return 1
+    return 2 * -(-T // _hoist_steps(T, rows, C))
+
+
+def lstm_scan_plan(T: int, rows: int, C: int, x_f32: bool = True) -> Dict:
+    """The recurrent K4 launch's plan on this card (for reports): cluster
+    size, rows per cluster, clusters, clusters resident at once, warps per
+    block, shared memory per block, whether each warp owns one unit."""
+    plan = (ctypes.c_int * 7)()
+    check(kernels.lib("lstm_scan").rvt_lstm_scan_plan(
+        int(x_f32), int(C > _FUSED_MAX_C), T, rows, C, plan),
+        "lstm_scan_plan")
+    return dict(zip(("cluster", "rows", "clusters", "resident", "warps",
+                     "smem", "one_unit"), plan))
+
+
 def fused_lstm_scan(x_seq: torch.Tensor, lstm_w: torch.Tensor,
                     lstm_b: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
-                    *, with_c_seq: bool = False, plain: bool = False):
+                    *, with_c_seq: bool = False, plain: bool = False,
+                    lstm_wt: torch.Tensor | None = None,
+                    x_bf16: torch.Tensor | None = None):
     """Scan the ConvLSTM cell over a [T, B, H, W, C] window (bf16 or f32
-    input; the kernel rounds f32 to bf16 on load). lstm_w [2C, 4C] bf16,
-    lstm_b [4C] bf16, h0/c0 [B, H, W, C] f32. Returns (h_seq bf16, h_T f32,
-    c_T f32); with ``with_c_seq`` (training) (h_seq, c_seq f32, h_T, c_T)."""
+    input, rounded to bf16 as the cell reads it). lstm_w [2C, 4C] bf16,
+    lstm_b [4C] bf16, h0/c0 [B, H, W, C] f32; ``lstm_wt`` is
+    ``lstm_weights_t(lstm_w)`` when the caller keeps it; ``x_bf16``
+    bf16(x_seq) when the caller has it. Returns (h_seq bf16, h_T f32, c_T
+    f32); with ``with_c_seq`` (training) (h_seq, c_seq f32, h_T, c_T).
+
+    On the card, C <= 64 runs one kernel with [x_t, h] . W in its time
+    loop. Wider, x . W_x for every step is first one product over all
+    T*B*H*W rows (``gemm_bf16`` "rt_f32", f32; in chunks of steps that
+    keep its buffer within 512 MiB), and the recurrent kernel adds h . W_h
+    to it in f32 before the bf16 rounding. Every launch, the product's
+    too, counts on ``LSTM_SCAN`` (``lstm_scan_launches``)."""
     if plain or not x_seq.is_cuda:
         return lstm_scan_plain(x_seq, lstm_w, lstm_b, h0, c0, with_c_seq)
     T, B, H, W, C = x_seq.shape
+    rows = B * H * W
     b = lstm_b.reshape(-1)
     h0, c0 = h0.float().contiguous(), c0.float().contiguous()
-    check_operands("lstm_scan", x_seq, lstm_w, b, h0, c0)
+    wt = lstm_weights_t(lstm_w) if lstm_wt is None else lstm_wt
+    check_operands("lstm_scan", x_seq, lstm_w, wt, b, h0, c0)
     need(x_seq.dtype in (torch.float32, torch.bfloat16)
-         and lstm_w.dtype == b.dtype == torch.bfloat16
-         and tuple(lstm_w.shape) == (2 * C, 4 * C) and b.numel() == 4 * C
+         and lstm_w.dtype == wt.dtype == b.dtype == torch.bfloat16
+         and tuple(lstm_w.shape) == (2 * C, 4 * C)
+         and tuple(wt.shape) == (2, 4 * C, C) and b.numel() == 4 * C
          and tuple(h0.shape) == (B, H, W, C) == tuple(c0.shape)
-         and C % 16 == 0 and (C < 64 or C % 64 == 0)
-         and lstm_w.data_ptr() % 32 == 0,
+         and C % 16 == 0 and C <= 512,
          "lstm_scan: x [T, B, H, W, C] f32/bf16, w [2C, 4C] bf16, "
-         "b [4C] bf16, h0/c0 [B, H, W, C] f32; C % 16 == 0 and C < 64 "
-         "or C % 64 == 0")
-    h_seq = torch.empty(x_seq.shape, dtype=torch.bfloat16,
-                        device=x_seq.device)
+         "wt [2, 4C, C] bf16, b [4C] bf16, h0/c0 [B, H, W, C] f32; "
+         "C % 16 == 0 and C <= 512")
+    dev = x_seq.device
+    h_seq = torch.empty(x_seq.shape, dtype=torch.bfloat16, device=dev)
     c_seq = torch.empty(x_seq.shape, dtype=torch.float32,
-                        device=x_seq.device) if with_c_seq else None
+                        device=dev) if with_c_seq else None
     hT = torch.empty_like(h0)
     cT = torch.empty_like(c0)
-    err = kernels.lib("lstm_scan").rvt_lstm_scan(
-        ptr(x_seq), int(x_seq.dtype == torch.float32), ptr(lstm_w),
-        ptr(b), ptr(h0), ptr(c0), ptr(h_seq),
-        ptr(c_seq) if c_seq is not None else None, ptr(hT), ptr(cT),
-        T, B, H * W, C, stream_ptr(x_seq))
-    check(err, "lstm_scan")
-    LSTM_SCAN.launches += 1
+    lib = kernels.lib("lstm_scan")
+    if C <= _FUSED_MAX_C:
+        err = lib.rvt_lstm_scan(
+            ptr(x_seq), int(x_seq.dtype == torch.float32), None, ptr(wt),
+            ptr(b), ptr(h0), ptr(c0), ptr(h_seq),
+            ptr(c_seq) if c_seq is not None else None, ptr(hT), ptr(cT),
+            T, rows, C, stream_ptr(x_seq))
+        check(err, "lstm_scan")
+        LSTM_SCAN.launches += 1
+    else:
+        if x_bf16 is None:
+            x_bf16 = x_seq.to(torch.bfloat16)
+        check_operands("lstm_scan", x_bf16)
+        need(x_bf16.dtype == torch.bfloat16 and x_bf16.shape == x_seq.shape,
+             "lstm_scan: x_bf16 must be bf16 like x_seq")
+        xb = x_bf16.view(T * rows, C)
+        steps = _hoist_steps(T, rows, C)
+        h_in, c_in = h0, c0
+        for t0 in range(0, T, steps):
+            t1 = min(T, t0 + steps)
+            xw = gemm_bf16(xb[t0 * rows:t1 * rows], wt[0], "rt_f32",
+                           counter=LSTM_SCAN)
+            err = lib.rvt_lstm_scan(
+                None, 0, ptr(xw), ptr(wt), ptr(b), ptr(h_in), ptr(c_in),
+                ptr(h_seq[t0:t1]),
+                ptr(c_seq[t0:t1]) if c_seq is not None else None, ptr(hT),
+                ptr(cT), t1 - t0, rows, C, stream_ptr(x_seq))
+            check(err, "lstm_scan")
+            LSTM_SCAN.launches += 1
+            h_in, c_in = hT, cT
     if with_c_seq:
         return h_seq, c_seq, hT, cT
     return h_seq, hT, cT
@@ -220,21 +299,30 @@ def fused_stage_scan(x_seq: torch.Tensor,
                      h0: torch.Tensor, c0: torch.Tensor, *, heads: int,
                      dim_head: int, part: Tuple[int, int], eps: float,
                      ds_ln_params: Sequence[torch.Tensor] = (),
-                     ds_eps: float = 1e-5, plain: bool = False
+                     ds_eps: float = 1e-5, plain: bool = False,
+                     lstm_wt: torch.Tensor | None = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One backbone stage over a whole [T, B, H, W, C] window: the attention
     pair over all T*B frames (K1-K3), then the LSTM scan (K4) on its f32
     residual output. With ``ds_ln_params`` = (scale, bias) x_seq is the raw
     downsample-conv output and its LayerNorm runs first; otherwise x_seq
-    must be bf16 and already normed. Returns (h_seq [T, B, H, W, C] bf16,
-    h_T f32, c_T f32), as the TPU kernel does."""
+    must be bf16 and already normed. ``lstm_wt`` as in
+    ``fused_lstm_scan``. Returns (h_seq [T, B, H, W, C] bf16, h_T f32,
+    c_T f32), as the TPU kernel does."""
     T, B, H, W, C = x_seq.shape
+    # the kernels' wide K4 reads bf16(R), which the pair's last product
+    # writes beside R
+    hoist = not plain and x_seq.is_cuda and C > _FUSED_MAX_C
     R = fused_attention_pair(
         x_seq.reshape(T * B, H, W, C), params_window, params_grid,
         heads=heads, dim_head=dim_head, part=part, skip_first_norm=True,
-        eps=eps, ds_ln_params=ds_ln_params, ds_eps=ds_eps, plain=plain)
-    return fused_lstm_scan(R.view(T, B, H, W, C), lstm_w, lstm_b, h0, c0,
-                           plain=plain)
+        eps=eps, ds_ln_params=ds_ln_params, ds_eps=ds_eps, plain=plain,
+        with_bf16=hoist)
+    R, Rb = R if hoist else (R, None)
+    shape = (T, B, H, W, C)
+    return fused_lstm_scan(R.view(shape), lstm_w, lstm_b, h0, c0,
+                           plain=plain, lstm_wt=lstm_wt,
+                           x_bf16=Rb.view(shape) if hoist else None)
 
 
 def fused_stage(x: torch.Tensor, params_window: Dict[str, torch.Tensor],
@@ -242,7 +330,8 @@ def fused_stage(x: torch.Tensor, params_window: Dict[str, torch.Tensor],
                 lstm_b: torch.Tensor, h: torch.Tensor, c: torch.Tensor, *,
                 heads: int, dim_head: int, part: Tuple[int, int], eps: float,
                 ds_ln_params: Sequence[torch.Tensor] = (),
-                ds_eps: float = 1e-5, plain: bool = False
+                ds_eps: float = 1e-5, plain: bool = False,
+                lstm_wt: torch.Tensor | None = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One backbone stage for one time step
     (``rvt_tpu/ops/fused_attention.py:fused_stage``): the attention pair
@@ -253,7 +342,8 @@ def fused_stage(x: torch.Tensor, params_window: Dict[str, torch.Tensor],
     _, h_t, c_t = fused_stage_scan(
         x.unsqueeze(0), params_window, params_grid, lstm_w, lstm_b, h, c,
         heads=heads, dim_head=dim_head, part=part, eps=eps,
-        ds_ln_params=ds_ln_params, ds_eps=ds_eps, plain=plain)
+        ds_ln_params=ds_ln_params, ds_eps=ds_eps, plain=plain,
+        lstm_wt=lstm_wt)
     return h_t, c_t
 
 

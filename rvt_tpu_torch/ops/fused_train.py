@@ -45,15 +45,21 @@ import torch
 from rvt_tpu_torch.ops.fused_attention import (_attn_heads_bwd,
                                                _attn_heads_fwd, _gelu_grad,
                                                _gelu_tanh, _ln_bwd, _ln_fwd,
-                                               col_sum, gemm_bf16,
-                                               gemm_bf16_wgrad,
+                                               col_sum, dense_attention_ok,
+                                               gemm_bf16, gemm_bf16_wgrad,
                                                layer_scale_bwd, ln_rows,
                                                ln_rows_bwd,
                                                partition_attention,
-                                               partition_attention_bwd)
+                                               partition_attention_bwd,
+                                               partition_geometry_ok)
 from rvt_tpu_torch.ops.fused_scan import (_lstm_cell, _lstm_cell_bwd,
                                           fused_lstm_scan, lstm_scan_bwd)
 from rvt_tpu_torch.ops.kernels import Counter
+
+# The JAX package's 'split' train mode (rvt_tpu/ops/fused_train.py:1278):
+# images of more than _SPLIT_MIN elements train over the whole window only.
+_SPLIT_MIN = 512 * 1024
+_SPLIT_MAX = 1024 * 1024
 
 # Calls of row 7 that ran on the kernels (its composed kernels count their
 # own launches as well).
@@ -273,15 +279,17 @@ class FusedPairTrain(torch.autograd.Function):
 
 class FusedLstmScanTrain(torch.autograd.Function):
     """``fused_lstm_scan_train``: (plain, x_seq [T, B, H, W, C] f32 (R2),
-    lstm_w [2C, 4C] bf16, lstm_b [4C] bf16, h0, c0 f32) -> (h_seq bf16,
-    h_T f32, c_T f32). Saves what ``_lstm_scan_train_fwd`` saves."""
+    lstm_w [2C, 4C] bf16, lstm_b [4C] bf16, h0, c0 f32[, lstm_wt: K4's
+    layout of lstm_w, kept by the per-step caller]) -> (h_seq bf16, h_T
+    f32, c_T f32). Saves what ``_lstm_scan_train_fwd`` saves."""
 
     @staticmethod
-    def forward(ctx, plain: bool, x_seq, w, b, h0, c0):
+    def forward(ctx, plain: bool, x_seq, w, b, h0, c0, wt=None):
         h0 = h0.float().contiguous()
         c0 = c0.float().contiguous()
         h_seq, c_seq, hT, cT = fused_lstm_scan(
-            x_seq.contiguous(), w, b, h0, c0, with_c_seq=True, plain=plain)
+            x_seq.contiguous(), w, b, h0, c0, with_c_seq=True, plain=plain,
+            lstm_wt=wt)
         ctx.plain = plain
         ctx.save_for_backward(x_seq, w, b, h0, c0, h_seq, c_seq)
         return h_seq, hT, cT
@@ -297,7 +305,7 @@ class FusedLstmScanTrain(torch.autograd.Function):
             dhT.float().contiguous(), dcT.float().contiguous(),
             plain=ctx.plain)
         return (None, dx.to(x_seq.dtype), _cast(dW, w), _cast(db, b), dh0,
-                dc0)
+                dc0, None)
 
 
 def split_stage_scan_train(cfg: StageCfg, x_seq, ds_s, ds_b, win, grid,
@@ -318,7 +326,7 @@ fused_stage_scan_train = split_stage_scan_train
 
 
 def fused_stage_step_train(cfg: StageCfg, x, ds_s, ds_b, win, grid, lstm_w,
-                           lstm_b, h, c):
+                           lstm_b, h, c, lstm_wt=None):
     """One backbone stage for one time step, differentiable in every input
     (``rvt_tpu/ops/fused_train.py:fused_stage_step_train``): x [B, H, W, C]
     bf16 (the raw downsample-conv output, or normed with ``ds_ln=False``),
@@ -335,40 +343,30 @@ def fused_stage_step_train(cfg: StageCfg, x, ds_s, ds_b, win, grid, lstm_w,
     that sum as dhT with a zero dh_seq, which K8 adds to it exactly (JAX
     reads dh_t as f32, ``_bwd_lstm_kernel``). The weight gradients leave
     each call in the weights' dtype, so over a window autograd sums them
-    in bf16, step T-1 first, as JAX's scan transpose does."""
+    in bf16, step T-1 first, as JAX's scan transpose does. ``lstm_wt``:
+    K4's layout of lstm_w (``lstm_weights_t``), which a caller that steps
+    one stage over a window makes once."""
     if not cfg.plain and x.is_cuda:
         STAGE_STEP_TRAIN.launches += 1
     B, H, W, C = x.shape
     y = FusedPairTrain.apply(cfg, x, ds_s, ds_b, *win, *grid)
     _, h_t, c_t = FusedLstmScanTrain.apply(cfg.plain, y.view(1, B, H, W, C),
-                                           lstm_w, lstm_b, h, c)
+                                           lstm_w, lstm_b, h, c, lstm_wt)
     return h_t, c_t
 
 
-def _partition_geometry_ok(H: int, W: int, C: int,
-                           part: Tuple[int, int]) -> bool:
-    """``rvt_tpu/ops/fused_attention.py:partition_geometry_ok``."""
-    ph, pw = part
-    if H % ph or W % pw:
-        return False
-    nw = W // pw
-
-    def split_ok(outer: int, minor: int) -> bool:
-        return outer == 1 or minor == 1 or (minor % 2 == 0
-                                             and minor * C >= 128)
-
-    return split_ok(nw, pw) and split_ok(pw, nw) and ph * pw >= 8
-
-
-def per_step_stage_ok(H: int, W: int, C: int, part: Tuple[int, int]) -> bool:
-    """Whether the JAX package trains this stage geometry per step on its
-    kernels (``train_stage_mode(..., scan=False)`` is not None). Where it
-    does not, it runs the XLA module path (erf-gelu, LayerScale folded
-    unfolded) under ``jax.checkpoint``: other numerics, which the port
-    has not ported, so its per-step path raises there. The Hopper kernels
-    themselves take every geometry."""
+def train_stage_ok(H: int, W: int, C: int, part: Tuple[int, int], *,
+                   scan: bool) -> bool:
+    """Whether ``rvt_tpu/ops/fused_train.py:train_stage_mode(scan=scan)``
+    is not None: the JAX package trains an H x W x C stage on its kernels
+    over the whole window (``scan``) or per step. Where it does not, it
+    runs the XLA module path (erf-gelu, LayerScale not folded), which the
+    port has not ported, so the port raises there. Only that outcome is
+    copied, not the TPU sizing behind it."""
     per_image = H * W * C
     grad_bytes = 4 * (2 * (3 * C * C + C * C + 8 * C * C) + 8 * C * C)
-    if grad_bytes + 30 * per_image > 56 * 2 ** 20 or per_image > 512 * 1024:
-        return False
-    return _partition_geometry_ok(H, W, C, part) or H * W <= 1024
+    if grad_bytes + 30 * per_image <= 56 * 2 ** 20 and per_image <= _SPLIT_MIN:
+        return (partition_geometry_ok(H, W, C, part)
+                or dense_attention_ok(H, W))
+    return (scan and per_image <= _SPLIT_MAX
+            and partition_geometry_ok(H, W, C, part))

@@ -42,8 +42,9 @@ SIGNATURES = {
     "gemm_bf16": {"rvt_gemm_bf16": (_P,) * 8 + (_I,) * 5 + (_P,)},
     "partition_attention": {
         "rvt_partition_attention": (_P, _P) + (_I,) * 8 + (_F, _P)},
-    "lstm_scan": {"rvt_lstm_scan": (_P, _I) + (_P,) * 8 + (_I,) * 4
-                  + (_P,)},
+    "lstm_scan": {"rvt_lstm_scan": (_P, _I) + (_P,) * 9 + (_I,) * 3
+                  + (_P,),
+                  "rvt_lstm_scan_plan": (_I,) * 5 + (_P,)},
     "stacked_histogram": {
         "rvt_stacked_histogram": (_P,) * 7 + (_I,) * 6 + (_P,)},
     "ln_rows_bwd": {"rvt_ln_rows_bwd": (_P, _I, _P, _P, _F, _P, _P, _P, _L,
@@ -152,9 +153,12 @@ def need(cond: bool, what: str) -> None:
 
 def check_operands(name: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
-        need(t.is_cuda and t.is_contiguous() and t.data_ptr() % 16 == 0,
-             f"{name}: every operand must be a contiguous, 16-byte aligned "
-             f"CUDA tensor (got {t.device}, {tuple(t.shape)})")
+        # the message only on failure: formatting it is most of a
+        # launch's host time on the small T = 1 calls
+        if not (t.is_cuda and t.is_contiguous() and t.data_ptr() % 16 == 0):
+            raise ValueError(
+                f"{name}: every operand must be a contiguous, 16-byte "
+                f"aligned CUDA tensor (got {t.device}, {tuple(t.shape)})")
 
 
 def stream_ptr(t: torch.Tensor) -> int:

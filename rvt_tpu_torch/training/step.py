@@ -224,7 +224,7 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
     the eval step's postprocess of this forward's decoded predictions,
     computed without gradients. ``plain=True`` runs the kernels' plain
     PyTorch versions."""
-    require_fused_path(model.cfg)
+    require_fused_path(model.cfg, "train")
     grid_np, stride_np = head_grid(cfg)
     dev = next(model.parameters()).device
     grid = torch.from_numpy(grid_np).to(dev)

@@ -52,15 +52,18 @@ def _attention_pair(h: int, w: int, C: int,
                     part: Tuple[int, int], mlp_ratio: int) -> int:
     """Window + grid attention blocks: per block qkv ([C]->[3C]) + the
     per-head score/apply einsums (2 x T x N x C each, N = tokens per
-    partition) + proj ([C]->[C]) + MLP ([C]->[rC]->[C])."""
+    partition) + proj ([C]->[C]) + MLP ([C]->[rC]->[C]). Both partitions
+    hold ph * pw tokens: the window block's (ph, pw) windows and the grid
+    block's (ph, pw) grids of stride (h / ph, w / pw) (``grid_partition``,
+    ``rvt_tpu/models/layers.py:76-83``); the reference's count took
+    (h / ph) * (w / pw) for the grid block."""
     T = h * w
-    n_win = part[0] * part[1]                      # window partition tokens
-    n_grid = (h // part[0]) * (w // part[1])       # grid partition tokens
-    per_block = lambda n: (2 * T * C * 3 * C        # qkv
-                           + 2 * 2 * T * n * C      # scores + apply
-                           + 2 * T * C * C          # proj
-                           + 2 * 2 * T * C * mlp_ratio * C)  # fc1 + fc2
-    return per_block(n_win) + per_block(n_grid)
+    n = part[0] * part[1]  # tokens per partition, window and grid alike
+    per_block = (2 * T * C * 3 * C        # qkv
+                 + 2 * 2 * T * n * C      # scores + apply
+                 + 2 * T * C * C          # proj
+                 + 2 * 2 * T * C * mlp_ratio * C)  # fc1 + fc2
+    return 2 * per_block
 
 
 def detector_flops_per_frame(cfg: ModelConfig) -> Dict[str, float]:

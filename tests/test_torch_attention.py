@@ -19,13 +19,17 @@ from rvt_tpu_torch.models.layers import MaxVitAttentionPair as TPair
 from rvt_tpu_torch.ops import fused_attention as tfa
 from rvt_tpu_torch.ops import fused_scan as tfs
 
-H, W, C, DH, PART = 16, 20, 64, 32, (8, 10)
+GEN1 = (16, 20, 64, 32, (8, 10))  # H, W, C, dim_head, partition
+# gen4's partition (60 tokens) at the small presets' dim_head 24
+GEN4_SMALL = (12, 20, 48, 24, (6, 10))
+H, W, C, DH, PART = GEN1
 
 
-def _pair_weights(sfn: bool):
+def _pair_weights(sfn: bool, geom=GEN1):
     """flax pair variables (perturbed off their identity-ish init, as
     tests/test_fused_attention.py does) and the same weights in the
     port's pair module."""
+    H, W, C, DH, PART = geom
     cfg = AttentionConfig(partition_size=PART, dim_head=DH)
     mod = MaxVitAttentionPair(dim=C, cfg=cfg, skip_first_norm=sfn,
                               dtype=jnp.bfloat16, fused=False)
@@ -42,20 +46,22 @@ def _pair_weights(sfn: bool):
     return variables["params"], pair
 
 
-def _ln_params(rng):
+def _ln_params(rng, C=C):
     s = (1.0 + 0.1 * rng.randn(C)).astype(np.float32)
     b = (0.1 * rng.randn(C)).astype(np.float32)
     return s, b
 
 
-@pytest.mark.parametrize("sfn,ds_ln", [(True, False), (False, False),
-                                       (True, True)],
-                         ids=["skip_first_norm", "norm1", "ds_ln"])
-def test_attention_pair_matches_jax(sfn, ds_ln):
-    p, pair = _pair_weights(sfn)
+@pytest.mark.parametrize(
+    "sfn,ds_ln,geom", [(True, False, GEN1), (False, False, GEN1),
+                       (True, True, GEN1), (True, True, GEN4_SMALL)],
+    ids=["skip_first_norm", "norm1", "ds_ln", "part6x10_dh24"])
+def test_attention_pair_matches_jax(sfn, ds_ln, geom):
+    H, W, C, DH, PART = geom
+    p, pair = _pair_weights(sfn, geom)
     rng = np.random.RandomState(0)
     x = (rng.randn(2, H, W, C) * (2.0 if ds_ln else 1.0)).astype(np.float32)
-    s, b = _ln_params(rng)
+    s, b = _ln_params(rng, C)
     jds = ((jnp.asarray(s, jnp.bfloat16).reshape(1, -1),
             jnp.asarray(b, jnp.bfloat16).reshape(1, -1)) if ds_ln else ())
     tds = ((torch.from_numpy(s).bfloat16(), torch.from_numpy(b).bfloat16())

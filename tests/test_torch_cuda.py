@@ -66,13 +66,26 @@ def test_gemm_kernel(dev, epi, mkn):
     assert fa.GEMM_BF16.launches == n + 1
     ref = fa.gemm_bf16(a, w, epi, bias=bias, out=res(), plain=True)
     if epi == "residual":  # the bf16 increment: its ulp is |v|'s, not |R+v|'s
+        out, copy = fa.gemm_bf16(a, w, epi, bias=bias, out=res(),
+                                 want_aux=True)
+        assert torch.equal(out, got) and torch.equal(
+            copy, got.to(torch.bfloat16))
         got, ref = got - R, ref - R
     _close(got, ref)
 
 
+# (H, W, C, dh, partition): gen1's (8, 10) and gen4's (6, 10) partitions
+# (60 tokens: four 16-row tiles, the last padded) and (2, 3), at dh 16,
+# 24 (padded to 32 for q k^T), 32 and 64, with one to four head groups.
+_ATTN_GEOMS = [(16, 20, 64, 32, (8, 10)), (12, 12, 32, 16, (2, 3)),
+               (16, 20, 96, 24, (8, 10)), (12, 20, 48, 24, (6, 10)),
+               (12, 20, 128, 32, (6, 10)), (16, 20, 256, 64, (8, 10)),
+               (12, 12, 48, 24, (2, 3)), (12, 20, 192, 64, (6, 10)),
+               (16, 20, 512, 32, (8, 10))]
+
+
 @pytest.mark.parametrize("window", [True, False])
-@pytest.mark.parametrize("geom", [(16, 20, 64, 32, (8, 10)),
-                                  (12, 12, 32, 16, (2, 3))])
+@pytest.mark.parametrize("geom", _ATTN_GEOMS)
 def test_partition_attention_kernel(dev, window, geom):
     from rvt_tpu_torch.ops import fused_attention as fa
 
@@ -83,18 +96,27 @@ def test_partition_attention_kernel(dev, window, geom):
     _close(got, fa.partition_attention_plain(qkv, C // dh, dh, part, window))
 
 
-@pytest.mark.parametrize("C", [32, 128, 256])
+# (T, B, H, W): 35 pixels a lane (a ragged last 16-row tile, one cluster
+# of rows) at T = 4, 21 and 1; 391 a lane over two lanes (several
+# clusters, the last ragged); 632 rows (at C = 512 one unit per warp, 96
+# rows per cluster, the last with 56).
+@pytest.mark.parametrize("tbhw", [(4, 2, 5, 7), (21, 2, 5, 7), (1, 2, 5, 7),
+                                  (3, 2, 17, 23), (2, 4, 2, 79)])
+@pytest.mark.parametrize("C", [32, 48, 96, 128, 256, 512])
 @pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
-def test_lstm_scan_kernel(dev, C, xdtype):
+def test_lstm_scan_kernel(dev, C, xdtype, tbhw):
     from rvt_tpu_torch.ops import fused_scan as fs
 
-    T, B, H, W = 4, 2, 5, 7  # 35 pixels: a ragged last tile of 16
+    T, B, H, W = tbhw
     x = _randn(dev, T, B, H, W, C, dtype=xdtype)
     w = _randn(dev, 2 * C, 4 * C, scale=(2 * C) ** -0.5, seed=1)
     b = _randn(dev, 4 * C, scale=0.1, seed=2)
     h0 = _randn(dev, B, H, W, C, scale=0.5, dtype=torch.float32, seed=3)
     c0 = _randn(dev, B, H, W, C, scale=0.5, dtype=torch.float32, seed=4)
+    n = fs.LSTM_SCAN.launches
     got = fs.fused_lstm_scan(x, w, b, h0, c0)
+    assert fs.LSTM_SCAN.launches - n == fs.lstm_scan_launches(T, B * H * W,
+                                                               C)
     ref = fs.lstm_scan_plain(x, w, b, h0, c0)
     for g, r in zip(got, ref):
         _close(g, r, atol=2e-2, rtol=2e-2)

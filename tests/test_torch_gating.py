@@ -168,3 +168,61 @@ def test_shipped_gate_agrees_with_jax():
     for fused, jm in ((True, _j_fused()), (False, shipped)):
         assert _fused_scan_supported(JRVTDetector(cfg=jm)) is fused
         assert det.fused_path_supported(_cfg(fused).model) is fused
+
+
+PRESETS = [(d, s) for d in ("gen1", "gen4") for s in ("tiny", "small",
+                                                      "base")]
+
+
+@pytest.mark.parametrize("dataset,size", PRESETS)
+def test_preset_stage_envelopes_agree_with_jax(dataset, size):
+    """Every stage of the six presets, and of each at a partition the JAX
+    kernels cannot split ((8, 5): an odd minor), is in or out of the port's
+    per-stage envelopes exactly where it is in or out of JAX's
+    ``pair_fusion_mode`` (serving) and ``train_stage_mode`` (training
+    over the window and per step)."""
+    from rvt_tpu.ops.fused_attention import pair_fusion_mode
+    from rvt_tpu.ops.fused_train import train_stage_mode
+
+    m = preset(dataset, size).model
+    for part in (tuple(m.backbone.attention.partition_size), (8, 5)):
+        mp = _with(m, "partition_size", part)
+        serve = det.stage_path_supported(mp, "serve")
+        train = det.stage_path_supported(mp, "train")
+        per_step = det.stage_path_supported(mp, "train_per_step")
+        for i, (H, W, C) in enumerate(det.stage_geometries(mp)):
+            assert serve[i] == (pair_fusion_mode(H, W, C, part)
+                                is not None), (H, W, C, part)
+            assert train[i] == (train_stage_mode(H, W, C, part, scan=True)
+                                is not None), (H, W, C, part)
+            assert per_step[i] == (train_stage_mode(H, W, C, part,
+                                                    scan=False)
+                                   is not None), (H, W, C, part)
+
+
+def _off_envelope_cfg():
+    """gen1 tiny at 256 x 320 with partition (8, 5): its 64 x 80 x 32
+    stage 1 fits neither the partitioned geometry (an odd minor) nor the
+    masked-dense one (> 1024 tokens), so JAX serves and trains it on its
+    XLA modules; the structural gate still passes."""
+    cfg = _cfg()
+    cfg = replace(cfg, model=_with(cfg.model, "partition_size", (8, 5)))
+    bb = replace(cfg.model.backbone, in_res_hw=(256, 320))
+    return replace(cfg, model=replace(cfg.model, backbone=bb))
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_off_envelope_geometry_raises(entry, stage_calls):
+    """A geometry override that JAX routes to its XLA modules: each entry
+    point raises before any stage runs, naming the stage."""
+    from rvt_tpu.ops.fused_attention import pair_fusion_mode
+    from rvt_tpu.ops.fused_train import train_stage_mode
+
+    cfg = _off_envelope_cfg()
+    assert det.fused_path_supported(cfg.model)
+    assert pair_fusion_mode(64, 80, 32, (8, 5)) is None
+    assert train_stage_mode(64, 80, 32, (8, 5), scan=True) is None
+    model = det.init_detector(cfg.model, device="cpu")
+    with pytest.raises(NotImplementedError, match="64x80x32"):
+        _run_entry(entry, model, cfg)
+    assert stage_calls == []

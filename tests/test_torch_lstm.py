@@ -1,6 +1,7 @@
 """The port's ConvLSTM scan (kernel K4's plain version, on the CPU) against
 the JAX package's Pallas LSTM kernels in interpret mode."""
 import numpy as np
+import pytest
 
 import jax.numpy as jnp
 import torch
@@ -63,3 +64,51 @@ def test_lstm_scan_plain_is_the_step_cell():
         h, c = fused_conv_lstm(x[step], h, c, w, b)
         assert torch.equal(h_seq[step], h.bfloat16())
     assert torch.equal(hT, h) and torch.equal(cT, c)
+
+
+def _split_order_scan(x, w, b, h0, c0):
+    """The cell in the summation order of the hoisted K4: x . W_x for every
+    step in f32 first (one product over all T*B*H*W rows), then per step
+    the f32 h . W_h added to it before the one bf16 rounding; b added
+    after that rounding as in ``_lstm_cell``. Returns (h_seq, h_T, c_T)."""
+    Cx = h0.shape[-1]
+    wf = w.float()
+    xw = x.to(torch.bfloat16).float() @ wf[:Cx]  # [T, B, H, W, 4C] f32
+    h, c = h0.float(), c0.float()
+    hs = []
+    for t in range(x.shape[0]):
+        mix = (xw[t] + h.to(torch.bfloat16).float() @ wf[Cx:]).to(
+            torch.bfloat16)
+        mix = (mix.float() + b.float()).to(torch.bfloat16).float()
+        gates = torch.sigmoid(mix[..., :3 * Cx]).to(torch.bfloat16).float()
+        f, i, o = gates.split(Cx, dim=-1)
+        g = torch.tanh(mix[..., 3 * Cx:]).to(torch.bfloat16).float()
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        hs.append(h.to(torch.bfloat16))
+    return torch.stack(hs), h, c
+
+
+@pytest.mark.parametrize("width", [64, 96])
+def test_lstm_scan_split_order_matches_jax(width):
+    """The hoisted K4's order of the f32 sums (x . W_x and h . W_h apart,
+    one bf16 rounding of their sum) against the TPU kernel's single 2C-deep
+    dot, within test_lstm_scan_matches_jax's tolerance. The plain version
+    keeps the single dot."""
+    rng = np.random.RandomState(1)
+    x = (rng.randn(T, B, H, W, width) * 0.5).astype(np.float32)
+    lw = (rng.randn(2 * width, 4 * width) * 0.05).astype(np.float32)
+    lb = (rng.randn(4 * width) * 0.05).astype(np.float32)
+    h0 = (rng.randn(B, H, W, width) * 0.1).astype(np.float32)
+    c0 = (rng.randn(B, H, W, width) * 0.1).astype(np.float32)
+    bf = jnp.bfloat16
+    ref = j_lstm_scan(jnp.asarray(x, bf), jnp.asarray(lw, bf),
+                      jnp.asarray(lb, bf).reshape(1, -1), jnp.asarray(h0),
+                      jnp.asarray(c0), interpret=True)
+    t = torch.from_numpy
+    got = _split_order_scan(t(x), t(lw).bfloat16(), t(lb).bfloat16(), t(h0),
+                            t(c0))
+    np.testing.assert_allclose(got[0].float().numpy(),
+                               np.asarray(ref[0], np.float32), atol=2e-2)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]), atol=2e-2)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), atol=4e-2)

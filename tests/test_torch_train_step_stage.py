@@ -159,7 +159,7 @@ def test_per_step_envelope_matches_jax(dataset, size):
     part = tuple(bb.attention.partition_size)
     for s, C_ in zip(bb.strides, bb.stage_dims):
         geo = (Hi // s, Wi // s, C_)
-        assert tft.per_step_stage_ok(*geo, part) == (
+        assert tft.train_stage_ok(*geo, part, scan=False) == (
             jft.train_stage_mode(*geo, part, scan=False) is not None), geo
 
 

@@ -98,10 +98,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(fake_cuda):
     with pytest.raises(ValueError):  # f32 qkv
         fa.partition_attention(torch.randn(2, 16, 20, 192), heads=2,
                                dim_head=32, part=(8, 10), window=True)
-    with pytest.raises(ValueError):  # C = 96: neither < 64 nor % 64
-        fs.fused_lstm_scan(torch.randn(3, 2, 4, 5, 96), _bf(192, 384),
-                           _bf(384), torch.zeros(2, 4, 5, 96),
-                           torch.zeros(2, 4, 5, 96))
+    with pytest.raises(ValueError):  # C = 40: not a multiple of 16
+        fs.fused_lstm_scan(torch.randn(3, 2, 4, 5, 40), _bf(80, 160),
+                           _bf(160), torch.zeros(2, 4, 5, 40),
+                           torch.zeros(2, 4, 5, 40))
     ev = [torch.zeros(2, 100, dtype=torch.int32) for _ in range(3)]
     t64 = torch.zeros(2, 100, dtype=torch.long)
     with pytest.raises(ValueError):  # int64 t
@@ -258,6 +258,31 @@ def test_gemm_launch_arguments(fake_cuda):
     assert a2[8:13] == (0, 130, 64, 96, 4)
 
 
+def test_stage_scan_hands_k4_the_pairs_bf16_copy(fake_cuda):
+    """On the kernel path a wide stage's last product (the grid block's
+    fc2, "residual") also writes bf16(R) into its aux output, and K4's
+    input product reads that copy instead of casting R again."""
+    T, B, H, W, C = 2, 1, 8, 10, 96
+    prm = {k: _bf(*shape) for k, shape in (
+        ("qkv_w", (C, 3 * C)), ("qkv_b", (3 * C,)), ("proj_w", (C, C)),
+        ("proj_b", (C,)), ("ln2_s", (C,)), ("ln2_b", (C,)),
+        ("fc1_w", (C, 4 * C)), ("fc1_b", (4 * C,)), ("fc2_w", (4 * C, C)),
+        ("fc2_b", (C,)))}
+    grid = dict(prm, ln1_s=_bf(C), ln1_b=_bf(C))
+    fs.fused_stage_scan(torch.randn(T, B, H, W, C).bfloat16(), prm, grid,
+                        _bf(2 * C, 4 * C), _bf(4 * C),
+                        torch.zeros(B, H, W, C), torch.zeros(B, H, W, C),
+                        heads=4, dim_head=24, part=(8, 10), eps=1e-5,
+                        ds_ln_params=(_bf(C), _bf(C)))
+    gemms = [a for fn, a in _FakeLib.launches if fn == "rvt_gemm_bf16"]
+    fc2, product = gemms[-2], gemms[-1]
+    assert fc2[12] == fa.EPILOGUES["residual"] and fc2[5] is not None
+    assert product[12] == fa.EPILOGUES["rt_f32"]
+    assert product[0].value == fc2[5].value  # A of the product = the copy
+    assert [fn for fn, _ in _FakeLib.launches][-2:] == ["rvt_gemm_bf16",
+                                                        "rvt_lstm_scan"]
+
+
 @pytest.mark.parametrize("M", [1, 127, 129, 5000])
 def test_wgrad_launch_arguments(fake_cuda, M):
     """K6's launcher gets the planned splits and rows per split; one
@@ -269,3 +294,32 @@ def test_wgrad_launch_arguments(fake_cuda, M):
     assert fn == "rvt_gemm_bf16_wgrad" and args[3:8] == (M, 40, 48, splits,
                                                           rps)
     assert fake_cuda[1:] == ([] if splits == 1 else ["rvt_sum_parts"])
+
+
+@pytest.mark.parametrize("hoist_bytes,chunks", [(512 * 2 ** 20, 1),
+                                                (2 * 20 * 384 * 4, 2)])
+def test_lstm_scan_hoists_the_input_product(fake_cuda, monkeypatch,
+                                            hoist_bytes, chunks):
+    """Wider than 64 channels K4 runs x . W_x first (K2's rt_f32 epilogue
+    on the bf16 x and W_x^T, counted on K4's counter, not K2's), then the
+    recurrent kernel on its f32 output; a buffer bound splits the steps
+    into chunks whose carries chain through h_T / c_T."""
+    monkeypatch.setattr(fs, "_HOIST_BYTES", hoist_bytes)
+    T, B, H, W, C = 3, 2, 2, 5, 96
+    before = fs.LSTM_SCAN.launches, fa.GEMM_BF16.launches
+    h_seq, hT, cT = fs.fused_lstm_scan(
+        torch.randn(T, B, H, W, C), _bf(2 * C, 4 * C), _bf(4 * C),
+        torch.zeros(B, H, W, C), torch.zeros(B, H, W, C))
+    assert h_seq.shape == (T, B, H, W, C) and hT.dtype == torch.float32
+    assert fake_cuda == ["rvt_gemm_bf16", "rvt_lstm_scan"] * chunks
+    assert fs.lstm_scan_launches(T, B * H * W, C) == 2 * chunks
+    assert (fs.LSTM_SCAN.launches - before[0],
+            fa.GEMM_BF16.launches - before[1]) == (2 * chunks, 0)
+    scans = [args for fn, args in _FakeLib.launches if fn == "rvt_lstm_scan"]
+    gemms = [args for fn, args in _FakeLib.launches if fn == "rvt_gemm_bf16"]
+    assert all(a[12] == fa.EPILOGUES["rt_f32"] for a in gemms)
+    assert [a[11] for a in scans] == ([2, 1] if chunks == 2 else [3])
+    assert all(a[2] is not None and a[0] is None for a in scans)
+    if chunks == 2:  # the second chunk starts from the first one's h_T, c_T
+        assert scans[1][5].value == scans[0][9].value
+        assert scans[1][6].value == scans[0][10].value

@@ -23,9 +23,12 @@ Phases, each of which raises (exit code != 0) when it fails:
      K4 timed as whole ``fused_lstm_scan`` calls (the input product, the
      bf16 cast and the recurrent kernel, all counted as K4's launches);
      then K2 (every epilogue) and K6 at ragged shapes (M in 1, 127, 129,
-     1000, 17000; K, N in 8, 40, 48), and K3 and K4 at the other presets'
+     1000, 17000; K, N in 8, 40, 48), K3 and K4 at the other presets'
      geometries (partitions (8, 10), (6, 10), (2, 3), dh 24, 32, 64;
-     C 48, 96, 512 at T = 21 and 1, ragged rows), correctness only;
+     C 48, 96, 512 at T = 21 and 1, ragged rows), and the training
+     kernels the small presets reach (K5 at C 48-384, K7 at dh 24 and 32
+     on the three partitions, K8 at C 48-384, T = 21 and 1), correctness
+     only;
   4. run the port's RVT-B gen1 streaming eval step (bf16, s2d stem,
      B = 8, T = 21, labels on every 5th frame, pre_nms_topk 512) over
      several windows with the LSTM states carried, random weights from a
@@ -46,9 +49,11 @@ Phases, each of which raises (exit code != 0) when it fails:
      K7 partition_attention_bwd, K8 lstm_scan_bwd and train_reduce (its
      in-order sums timed at every shape of partials the step gives it);
      K6 and K2's gelu-backward column sums bit for bit across two runs;
-     time each (kernel, plain, library yardstick: K8's the cuDNN LSTM's
-     backward) beside its bound and its calls per train step; K1 and K3
-     count again for the train step;
+     time each (kernel, plain, library yardstick: K7's SDPA's backward,
+     K8's the cuDNN LSTM's backward) beside its bound and its calls per
+     train step, K8 as the whole composition its counter counts (pack,
+     the gates' and dx's K2 products, the reverse scan); K1 and K3 count
+     again for the train step;
   7. run the port's RVT-B gen1 TBPTT train step (bf16, no s2d stem, B = 8,
      T = 21, K = 6, M = 48, labels on every 5th frame, random weights from
      seed 0) for 1 + 5 steps with the states carried; check that every
@@ -74,12 +79,18 @@ Phases, each of which raises (exit code != 0) when it fails:
      Trainer's ``restore()`` and another's ``restore_from_artifact``, each
      held bit for bit and taking one more finite step; print ms per step
      and frames/s;
- 10. check that the calls each kernel was timed at per step are the
+ 10. run one gen1 RVT-S train step (``preset("gen1", "small")``: C 48,
+     96, 192, 384, dh 24; B = 8, T = 21) on the kernels after a warm-up
+     step; check that every kernel was launched (K5, K7 and K8 at the
+     small preset's widths) and hold the step against the plain step as
+     phase 7 does, at phase 7's tolerances;
+ 11. check that the calls each kernel was timed at per step are the
      launches its paths made per step; print the kernels line (per
      kernel: launches by path, and ms, plain, bound and library summed
      over one step of each path it serves, and by path), after one line
-     per K4 call shape (path, stage, launches, ms beside cuDNN's LSTM and
-     the recurrent kernel's launch plan), then the device line last.
+     per K4 and per K8 call shape (path, stage, launches, ms beside
+     cuDNN's LSTM forward or backward, and the launch plan of the
+     recurrent kernel), then the device line last.
 
 It imports nothing of JAX. It exits 2 without a CUDA device or without
 the rvt_tpu_torch package beside it.
@@ -213,18 +224,67 @@ def compare(name, got, ref, atol, rtol, mean_tol=1e-3):
 
 LSTM_LIB = {}  # the dtype the cuDNN LSTM yardstick ran in, by call
 K4_STAGES = []  # (path, stage, T, rows, launches, K4 ms, library ms)
+K8_STAGES = []  # the same for K8 (cuDNN's backward), + ms by launch
 
 
-def log_k4_stages():
-    """K4 per call at each stage beside its library yardstick (cuDNN's
-    fp16 ``nn.LSTM``; ``nn.LSTMCell`` at T = 1 serving), same run."""
-    from rvt_tpu_torch.ops.fused_scan import lstm_scan_plan
+def log_lstm_stages():
+    """K4 and K8 per call at each stage beside their library yardstick
+    (cuDNN's fp16 ``nn.LSTM`` forward or backward; ``nn.LSTMCell`` at
+    T = 1 serving), same run, with each call's launch plan."""
+    from rvt_tpu_torch.ops.fused_scan import lstm_scan_bwd_plan, lstm_scan_plan
 
-    for path, stage, T, rows, n, ms, lms in K4_STAGES:
-        C = int(stage.split("x")[-1])
-        log(f"K4 {path} {stage} T={T}: {n} launches, kernel {ms:.4f} ms, "
-            f"library {lms:.4f} ms, factor {ms / lms:.2f}; plan "
-            f"{lstm_scan_plan(T, rows, C)}")
+    for name, stages, plan in (("K4", K4_STAGES, lstm_scan_plan),
+                               ("K8", K8_STAGES, lstm_scan_bwd_plan)):
+        for path, stage, T, rows, n, ms, lms, *parts in stages:
+            C = int(stage.split("x")[-1])
+            by = ("; by launch " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in parts[0].items())
+                if parts and parts[0] else "")
+            log(f"{name} {path} {stage} T={T}: {n} launches, kernel "
+                f"{ms:.4f} ms, library {lms:.4f} ms, factor "
+                f"{ms / lms:.2f}; plan {plan(T, rows, C)}{by}")
+
+
+def k8_parts_ms(x, w, bias, h0, c0, h_seq, c_seq, dh_seq, dhT, dcT):
+    """K8's launches one by one, ms each, on the buffers of one
+    ``lstm_scan_bwd_launch``: the pack of xh, the gates' K2 product, the
+    reverse scan (the cell at T = 1) and the K2 product for dx (dx and
+    dh_0 at T = 1). None where the steps run in chunks."""
+    import torch
+
+    from rvt_tpu_torch.ops import fused_scan as fs
+    from rvt_tpu_torch.ops.fused_attention import gemm_bf16
+    from rvt_tpu_torch.ops.kernels import lib, ptr, stream_ptr
+
+    T, B, H, W, C = x.shape
+    P = B * H * W
+    if fs.lstm_scan_bwd_part_rows(T, P, C) != -(-P // fs._PT):
+        return None
+    _, dmix, xh, part, _, _ = fs.lstm_scan_bwd_launch(
+        x, w, bias, h0, c0, h_seq, c_seq, dh_seq, dhT, dcT)
+    mix = gemm_bf16(xh, w, "bias", bias=bias, counter=fs.LSTM_SCAN_BWD)
+    dh_out, dc_out = torch.empty_like(h0), torch.empty_like(c0)
+    L, st, prod = lib("lstm_scan_bwd"), stream_ptr(x), int(T > 1)
+
+    def run(err):
+        if err != 0:
+            fail(f"lstm_scan_bwd launch failed: error {err}")
+
+    return {
+        "pack": time_ms(lambda: run(L.rvt_lstm_bwd_pack(
+            ptr(x), int(x.dtype == torch.float32), ptr(h_seq), ptr(h0),
+            ptr(xh), T, P, C, st))),
+        "gates": time_ms(lambda: gemm_bf16(xh, w, "bias", bias=bias,
+                                           counter=fs.LSTM_SCAN_BWD)),
+        "scan" if prod else "cell": time_ms(lambda: run(
+            L.rvt_lstm_bwd_scan(
+                ptr(mix), ptr(w), ptr(c_seq), ptr(c0), ptr(dh_seq),
+                ptr(dhT), ptr(dcT), ptr(dmix), ptr(part),
+                ptr(dh_out) if prod else None, ptr(dc_out), 0, T, P, C,
+                prod, st))),
+        "dx": time_ms(lambda: gemm_bf16(dmix, w[:C] if prod else w,
+                                        "rt_f32", counter=fs.LSTM_SCAN_BWD)),
+    }
 
 
 def lstm_library_ms(T, P, C, g, *, grad=False, backward=False):
@@ -550,6 +610,77 @@ def check_attention_lstm_edges():
                             gt, rf, tol, 2e-2, 2e-3)
                 n += 1
     log(f"LSTM widths: {n} cases of K4 agree with its plain version")
+    check_small_preset_train_kernels(randn)
+
+
+def check_small_preset_train_kernels(randn):
+    """Phase 3, correctness only: the training kernels the small presets
+    (RVT-S: C 48, 96, 192, 384, dh 24) and gen4's (6, 10) partition reach,
+    against their plain versions at phase 6's tolerances: K5 at C 48-384
+    (f32 rows added into dres, bf16 rows to bf16); K7 at dh 24 and 32 on
+    (8, 10), (6, 10) and (2, 3), window and grid; K8 at C 48-384, T = 21
+    and 1, x f32 and bf16, 391 pixels a lane."""
+    import torch
+
+    from rvt_tpu_torch.ops import fused_attention as fa
+    from rvt_tpu_torch.ops import fused_scan as fs
+
+    f32 = torch.float32
+    n = 0
+    for C in (48, 96, 192, 384):
+        s = randn(C, scale=0.2) + 1.0
+        for xdt, add in ((f32, True), (torch.bfloat16, False)):
+            x = randn(3000, C, scale=2.0, dtype=xdt) + 0.5
+            dy = randn(3000, C, dtype=f32)
+            d0 = randn(3000, C, dtype=f32) if add else None
+            got = fa.ln_rows_bwd(x, dy, s, 1e-5,
+                                 dres=None if d0 is None else d0.clone())
+            ref = fa.ln_rows_bwd(x, dy, s, 1e-5, plain=True,
+                                 dres=None if d0 is None else d0.clone())
+            compare(f"ln_rows_bwd C={C} {str(xdt)[6:]} dx", got[0], ref[0],
+                    1e-3 if add else 3.2e-2, 1e-2)
+            compare_rel("  ds", got[1], ref[1], 1e-3)
+            compare_rel("  db", got[2], ref[2], 1e-3)
+            n += 1
+    log(f"small-preset widths: {n} cases of K5 agree with its plain version")
+    n = 0
+    for part, (H, W) in (((8, 10), (16, 20)), ((6, 10), (12, 20)),
+                         ((2, 3), (12, 12))):
+        for dh, heads in ((24, 2), (24, 16), (32, 4)):
+            C = heads * dh
+            qkv, do = randn(6, H, W, 3 * C), randn(6, H, W, C)
+            for window in (True, False):
+                kw = dict(heads=heads, dim_head=dh, part=part, window=window)
+                compare(f"partition_attention_bwd part {part} dh {dh} C {C} "
+                        f"{'window' if window else 'grid'}",
+                        fa.partition_attention_bwd(qkv, do, **kw),
+                        fa.partition_attention_bwd(qkv, do, plain=True,
+                                                   **kw), 3.2e-2, 2e-2)
+                n += 1
+    log(f"small-preset geometries: {n} cases of K7 agree with its plain "
+        "version")
+    n = 0
+    B, H, W = 2, 17, 23
+    for C in (48, 96, 192, 384):
+        w = randn(2 * C, 4 * C, scale=(2 * C) ** -0.5)
+        bias = randn(4 * C, scale=0.1)
+        h0 = randn(B, H, W, C, scale=0.5, dtype=f32)
+        c0 = randn(B, H, W, C, scale=0.5, dtype=f32)
+        dhT, dcT = randn(B, H, W, C, dtype=f32), randn(B, H, W, C, dtype=f32)
+        for T in (SEQ_LEN, 1):
+            for dtype in (f32, torch.bfloat16):
+                x = randn(T, B, H, W, C, dtype=dtype)
+                h_seq, c_seq, _, _ = fs.lstm_scan_plain(x, w, bias, h0, c0,
+                                                        True)
+                args = (x, w, bias, h0, c0, h_seq, c_seq,
+                        randn(T, B, H, W, C, scale=0.5), dhT, dcT)
+                for nm, gt, rf in zip(("dx", "dW", "db", "dh0", "dc0"),
+                                      fs.lstm_scan_bwd(*args),
+                                      fs.lstm_scan_bwd(*args, plain=True)):
+                    compare_rel(f"lstm_scan_bwd C={C} T={T} {str(dtype)[6:]} "
+                                f"{nm}", gt, rf, 2e-2)
+                n += 1
+    log(f"small-preset widths: {n} cases of K8 agree with its plain version")
 
 
 def run_main_path():
@@ -1260,15 +1391,21 @@ def check_train_kernels(recs, frames=SEQ_LEN * BATCH, steps=SEQ_LEN,
         for nm, gt, rf in zip(("dx", "dW", "db", "dh0", "dc0"), got, ref):
             err = max(err, compare_rel(f"lstm_scan_bwd {nm}", gt, rf, 2e-2))
         del got, ref
+        # K8 timed as the whole composition its counter counts (pack, the
+        # gates' and dx's K2 products, the scan); K6 and the db sum apart
         ms = time_ms(lambda: fs.lstm_scan_bwd_launch(*args))
         pms = time_ms(lambda: fs.lstm_scan_bwd(*args, plain=True), 1)
         lms = lstm_library_ms(T, P, C, g, backward=True)
+        launches = fs.lstm_scan_bwd_launches(T, P, C)
         recs["lstm_scan_bwd"].add(
             TS, 1, err, ms, pms, T * P * C * 28 + 2 * (8 * C * C + 4 * C),
-            32 * T * P * C * C, PEAK_BF16_FLOPS, lms)
+            32 * T * P * C * C, PEAK_BF16_FLOPS, lms,
+            launches_per_call=launches)
+        K8_STAGES.append((per, f"{H}x{W}x{C}", T, P, launches, ms, lms,
+                          k8_parts_ms(*args)))
         del x, h_seq, c_seq, dh_seq, args
-        sum_parts("lstm db", randn(B * -(-H * W // fs._PT), 4 * C, dtype=f32),
-                  1)
+        sum_parts("lstm db", randn(fs.lstm_scan_bwd_part_rows(T, P, C),
+                                   4 * C, dtype=f32), 1)
         # train_reduce: the LayerScale backward and the qkv-bias column
         # sums, each with the in-order sum of its partials
         dR, v = randn(M, C, dtype=f32), randn(M, C)
@@ -1326,7 +1463,6 @@ def train_batch(cfg, device):
 def run_train_path():
     """Phase 7. Returns (ms per step, frames/s, train MFU %, peak GB,
     launch counts by kernel)."""
-    import copy
     from dataclasses import replace
 
     import torch
@@ -1335,7 +1471,6 @@ def run_train_path():
     from rvt_tpu_torch.models.backbone import zero_states
     from rvt_tpu_torch.ops import fused_attention as fa
     from rvt_tpu_torch.ops import fused_scan as fs
-    from rvt_tpu_torch.training import step as step_mod
     from rvt_tpu_torch.training.step import init_train_state, make_train_step
     from rvt_tpu_torch.utils.flops import detector_flops_per_frame
 
@@ -1396,6 +1531,80 @@ def run_train_path():
         f"{k} {v // (1 + TRAIN_STEPS)}" for k, v in counts.items()))
     profile_window(lambda: step(states, *batch), "train step", top=40)
 
+    hold_train_step_vs_plain(model, opt, cfg, states, batch, step, "train")
+    return dt * 1e3, fps, mfu, peak, counts
+
+
+def run_small_train_path():
+    """Phase 10: one gen1 RVT-S train step (``preset("gen1", "small")``:
+    stages of C 48, 96, 192, 384, dh 24; bf16, the train kernels, B = 8,
+    T = 21, random weights from seed 0) on the kernels after one warm-up
+    step; check that every kernel was launched, K5 at C 48-384, K7 at dh
+    24 and K8 at C = 96 among them; then hold one step against the same
+    step on the plain versions as phase 7 does, at phase 7's tolerances.
+    Returns (ms per step, launch counts of one step)."""
+    from dataclasses import replace
+
+    import torch
+
+    from rvt_tpu_torch.config import preset
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.training.step import init_train_state, make_train_step
+
+    cfg = preset("gen1", "small")
+    cfg = replace(cfg, model=replace(
+        cfg.model, compute_dtype="bfloat16",
+        backbone=replace(cfg.model.backbone, fused_kernels=True)))
+    bb = cfg.model.backbone
+    log(f"gen1 RVT-S: stage widths {bb.stage_dims}, dim_head "
+        f"{bb.attention.dim_head}")
+    model, opt = init_train_state(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():  # LayerScale gammas as phase 7 draws them
+        for name, p in model.named_parameters():
+            if name.endswith(".gamma"):
+                p.normal_(0.0, 0.1, generator=gen)
+    batch = train_batch(cfg, "cuda")
+    states = zero_states(bb, BATCH, device="cuda")
+    step = make_train_step(model, cfg, opt)
+    states, _ = step(states, *batch)  # warm-up: launch plans, allocator
+    counters = stage_step_counters()[:-1]
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, m = step(states, *batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {c.name: c.launches for c in counters}
+    log(f"small train step: {ms:.2f} ms, launches {counts}")
+    for name, n in counts.items():
+        if n == 0:
+            fail(f"kernel {name} was not launched on the gen1 RVT-S step")
+    metrics = {k: float(v) for k, v in m.items()}
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail("gen1 RVT-S train step: non-finite metrics")
+    hold_train_step_vs_plain(model, opt, cfg, states, batch, step,
+                             "small train")
+    del model, opt, states
+    torch.cuda.empty_cache()
+    return ms, counts
+
+
+def hold_train_step_vs_plain(model, opt, cfg, states, batch, step, label):
+    """Phase 7's check (and phase 10's): one step on the plain versions,
+    then the same step on the kernels, from identical model, BatchNorm
+    buffers, optimizer and states, the kernel step's head fed the plain
+    step's features with the kernel backbone's gradient; features, loss
+    parts, each gradient leaf, grad_norm, final states and buffers held
+    at fixed tolerances."""
+    import copy
+
+    import torch
+
+    from rvt_tpu_torch.training import step as step_mod
+    from rvt_tpu_torch.training.step import make_train_step
+
     # one step on the plain versions, then the same step on the kernels,
     # from identical model, BatchNorm buffers, optimizer and states. The
     # kernel step's head is fed the plain step's features (their values,
@@ -1417,14 +1626,15 @@ def run_train_path():
     finally:
         step_mod.fused_train_scan_backbone = scan
     for i, (fk, fp) in enumerate(zip(kept["own"], kept["first"])):
-        compare(f"train features {i + 1} vs plain", fk, fp, 5e-2, 2e-2, 5e-3)
+        compare(f"{label} features {i + 1} vs plain", fk, fp, 5e-2, 2e-2,
+                5e-3)
     for k in ("loss", "iou_loss", "conf_loss", "cls_loss", "num_fg"):
         a, b = float(m_k[k]), float(m_p[k])
         tol = 1e-4 * max(abs(b), 1e-3)  # identical inputs; cuDNN's order
-        log(f"  train {k}: kernels {a:.6g}, plain {b:.6g} (tolerance "
+        log(f"  {label} {k}: kernels {a:.6g}, plain {b:.6g} (tolerance "
             f"{tol:.3g})")
         if not abs(a - b) <= tol:
-            fail(f"train step {k} disagrees with the plain versions")
+            fail(f"{label} step {k} disagrees with the plain versions")
 
     # each gradient leaf within 5e-2 of its max |ref|; grad_norm within 2 %
     def grads(mdl):
@@ -1436,20 +1646,20 @@ def run_train_path():
                        model.named_parameters(), grads(model),
                        grads(pmodel))), reverse=True)
     over = [r for r in rows if not r[0] <= 5e-2]
-    log(f"  train gradients vs plain, {len(rows)} leaves: median "
+    log(f"  {label} gradients vs plain, {len(rows)} leaves: median "
         f"{rows[len(rows) // 2][0]:.3e} of max|ref|; worst "
         + "; ".join(f"{n} {e:.3e}" for e, n in rows[:5])
         + " (tolerance 5e-2)")
     nk, npl = float(m_k["grad_norm"]), float(m_p["grad_norm"])
-    log(f"  train grad_norm: kernels {nk:.6g}, plain {npl:.6g} (tolerance "
+    log(f"  {label} grad_norm: kernels {nk:.6g}, plain {npl:.6g} (tolerance "
         "2e-2 x plain)")
     if over or not abs(nk - npl) <= 2e-2 * npl:
-        fail(f"train gradients disagree with the plain versions "
+        fail(f"{label} gradients disagree with the plain versions "
              f"({len(over)} leaves out of tolerance)")
     for i, ((hk, ck), (hp, cp)) in enumerate(zip(st_k, st_p)):
-        compare(f"train stage {i + 1} h_T vs plain", hk, hp, 5e-2, 2e-2,
+        compare(f"{label} stage {i + 1} h_T vs plain", hk, hp, 5e-2, 2e-2,
                 5e-3)
-        compare(f"train stage {i + 1} c_T vs plain", ck, cp, 1e-1, 2e-2,
+        compare(f"{label} stage {i + 1} c_T vs plain", ck, cp, 1e-1, 2e-2,
                 5e-3)
     bk, bp = dict(model.named_buffers()), dict(pmodel.named_buffers())
     berr = max(compare_rel_quiet(bk[n], bp[n]) for n in bk
@@ -1457,10 +1667,9 @@ def run_train_path():
     log(f"  BatchNorm buffers vs plain: worst {berr:.3e} of max|ref| "
         "(tolerance 2e-2)")
     if not berr <= 2e-2:
-        fail("BatchNorm buffers disagree with the plain versions")
+        fail(f"{label}: BatchNorm buffers disagree with the plain versions")
     del pmodel, popt, st_p
     torch.cuda.empty_cache()
-    return dt * 1e3, fps, mfu, peak, counts
 
 
 def gen1_base_train_cfg(**backbone):
@@ -1972,6 +2181,8 @@ def main() -> int:
     s_counts = run_step_backbone_path(recs)
     torch.cuda.empty_cache()
     tr_ms, tr_fps, tr_counts = run_trainer_path()
+    torch.cuda.empty_cache()
+    sm_ms, _ = run_small_train_path()
     # the calls each record timed per step must be the launches the path
     # made per step (eval: 4 windows; raw: 1 + 21 calls; train: 1 + 5;
     # per-step train: one forward and backward; trainer: 4 + 1 + 1)
@@ -1990,12 +2201,12 @@ def main() -> int:
             if q["launches"] * steps[path] != by_path[path]:
                 fail(f"{name}: {q['launches']} launches per {path} timed, "
                      f"{by_path[path] / steps[path]:g} made")
-    log_k4_stages()
+    log_lstm_stages()
     log(f"card: {card}; eval step {fps:.1f} frames/s, MFU {mfu:.2f}%; "
         f"raw step {raw_fps:.1f} frames/s, MFU {raw_mfu:.2f}%; train step "
         f"{t_ms:.2f} ms, {t_fps:.1f} frames/s, MFU {t_mfu:.2f}%, peak "
         f"{t_peak:.2f} GiB; trainer {tr_ms:.2f} ms per step, "
-        f"{tr_fps:.1f} frames/s")
+        f"{tr_fps:.1f} frames/s; gen1 RVT-S train step {sm_ms:.2f} ms")
     print(json.dumps({"kernels": [r.d for r in recs.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

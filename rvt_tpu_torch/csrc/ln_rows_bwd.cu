@@ -14,17 +14,19 @@
 //
 // Bound on the H100: bytes (x, dy and dx once: 10-14 bytes per element
 // against ~20 flops). Design: one warp per row with the row in registers
-// (C/32 values per lane, C <= 512), lanes striding over the channels so
-// a warp's loads are contiguous; each lane keeps its channels' ds/db
-// sums over the warp's rows, then the 8 warps are added in order in
-// shared memory.
+// (ceil(C/32) values per lane, C <= 512; past C they are masked, so the
+// presets' 48, 96, 192 and 384 take the same path), lanes striding over
+// the channels so a warp's loads are contiguous; each lane keeps its
+// channels' ds/db sums over the warp's rows, then the 8 warps are added
+// in order in shared memory.
 #include "common.cuh"
 
 namespace {
 
 constexpr int WARPS = 8;
 
-template <typename T, int VPL>
+// FULL: C == 32 * VPL, no lane is masked (compiled without the masks)
+template <typename T, int VPL, bool FULL>
 __global__ void __launch_bounds__(32 * WARPS)
 ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dy,
               const bf16* __restrict__ s, float eps, float* __restrict__ dres,
@@ -37,7 +39,8 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dy,
   float sc[VPL], acc_s[VPL], acc_b[VPL];
 #pragma unroll
   for (int j = 0; j < VPL; ++j) {
-    sc[j] = __bfloat162float(s[lane + 32 * j]);
+    sc[j] = FULL || lane + 32 * j < C ? __bfloat162float(s[lane + 32 * j])
+                                      : 0.f;
     acc_s[j] = 0.f;
     acc_b[j] = 0.f;
   }
@@ -47,7 +50,8 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dy,
     float sum = 0.f, sq = 0.f;
 #pragma unroll
     for (int j = 0; j < VPL; ++j) {
-      xv[j] = to_float(x[row * C + lane + 32 * j]);
+      xv[j] = FULL || lane + 32 * j < C ? to_float(x[row * C + lane + 32 * j])
+                                        : 0.f;
       sum += xv[j];
       sq += xv[j] * xv[j];
     }
@@ -59,8 +63,9 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dy,
     float m1 = 0.f, m2 = 0.f;
 #pragma unroll
     for (int j = 0; j < VPL; ++j) {
-      const float d = dy[row * C + lane + 32 * j];
-      xv[j] = (xv[j] - mu) * rstd;  // xhat
+      const bool in = FULL || lane + 32 * j < C;
+      const float d = in ? dy[row * C + lane + 32 * j] : 0.f;
+      xv[j] = in ? (xv[j] - mu) * rstd : 0.f;  // xhat
       acc_s[j] += d * xv[j];
       acc_b[j] += d;
       g[j] = d * sc[j];  // dxhat
@@ -71,6 +76,7 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dy,
     m2 = warp_sum(m2) * inv_c;
 #pragma unroll
     for (int j = 0; j < VPL; ++j) {
+      if (!FULL && lane + 32 * j >= C) break;
       const float dx = rstd * (g[j] - m1 - xv[j] * m2);
       const long o = row * C + lane + 32 * j;
       if (dres != nullptr)
@@ -102,13 +108,20 @@ int launch(const void* x, const void* dy, const void* s, float eps,
   const float* D = (const float*)dy;
   const bf16* S = (const bf16*)s;
 #define RVT_LN_BWD(V)                                                      \
-  ln_bwd_kernel<T, V><<<grid, 32 * WARPS, 0, st>>>(                        \
-      X, D, S, eps, (float*)dres, (bf16*)dxb, (float*)part, M, C, rpb)
-  switch (C / 32) {
+  if (C == 32 * V)                                                         \
+    ln_bwd_kernel<T, V, true><<<grid, 32 * WARPS, 0, st>>>(                \
+        X, D, S, eps, (float*)dres, (bf16*)dxb, (float*)part, M, C, rpb);  \
+  else                                                                     \
+    ln_bwd_kernel<T, V, false><<<grid, 32 * WARPS, 0, st>>>(               \
+        X, D, S, eps, (float*)dres, (bf16*)dxb, (float*)part, M, C, rpb)
+  switch ((C + 31) / 32) {
     case 1: RVT_LN_BWD(1); break;
     case 2: RVT_LN_BWD(2); break;
+    case 3: RVT_LN_BWD(3); break;
     case 4: RVT_LN_BWD(4); break;
+    case 6: RVT_LN_BWD(6); break;
     case 8: RVT_LN_BWD(8); break;
+    case 12: RVT_LN_BWD(12); break;
     case 16: RVT_LN_BWD(16); break;
     default: return (int)cudaErrorInvalidValue;
   }
@@ -120,12 +133,14 @@ int launch(const void* x, const void* dy, const void* s, float eps,
 
 // x [M, C] f32/bf16, dy [M, C] f32, s [C] bf16; exactly one of dres (f32,
 // += dx) and dx_bf16 is set; part [ceil(M / rows_per_block), 2, C] f32.
-// C in {32, 64, 128, 256, 512}.
+// C % 16 == 0, 32 <= C <= 512, ceil(C / 32) in {1, 2, 3, 4, 6, 8, 12, 16}
+// (every preset width: 32, 48, 64, 96, 128, 192, 256, 384, 512).
 extern "C" int rvt_ln_rows_bwd(const void* x, int x_is_f32, const void* dy,
                                const void* s, float eps, void* dres,
                                void* dx_bf16, void* part, long M, int C,
                                int rows_per_block, void* stream) {
-  if (C % 32 != 0 || (dres == nullptr) == (dx_bf16 == nullptr))
+  if (C % 16 != 0 || C < 32 || C > 512 ||
+      (dres == nullptr) == (dx_bf16 == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (x_is_f32)

@@ -23,9 +23,9 @@
 // at gen1 stage 1, where the group is every head), copied with cp.async.
 // A warp owns 16 queries of one head: S = q k^T stays in its registers
 // (the keys padded to 16, pad keys at -inf), the row max and sum use quad
-// shuffles, the probabilities are divided, rounded to bf16 and repacked
-// from the accumulator layout straight into the A operand of p v; the
-// whole row is in registers, so the softmax is two-pass, not online. dh
+// shuffles (``softmax_rows``, warp_mma.cuh, which K7 shares), the
+// probabilities are divided, rounded to bf16 and repacked from the
+// accumulator layout straight into the A operand of p v. dh
 // 24 is padded to 32 with zeros for q k^T. o goes through shared memory
 // so that each token's HG*dh outputs are written as one contiguous run.
 #include "warp_mma.cuh"
@@ -128,39 +128,7 @@ attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int H,
       }
     }
 
-    // softmax over the keys of rows g (e = 0, 1) and g + 8 (e = 2, 3)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j >= nt) break;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = j * 8 + 2 * qd + (e & 1) < n;
-        s[j][e] = ok ? s[j][e] * scale : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 1));
-      mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 2));
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j >= nt) break;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float v = __expf(s[j][e] - mx[e >> 1]);  // pad keys: 0
-        s[j][e] = v;
-        sum[e >> 1] += v;
-      }
-    }
-#pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      sum[h2] += __shfl_xor_sync(0xffffffffu, sum[h2], 1);
-      sum[h2] += __shfl_xor_sync(0xffffffffu, sum[h2], 2);
-    }
+    softmax_rows<NT>(s, nt, n, scale);
 
     float o[DHP / 8][4];
 #pragma unroll
@@ -173,11 +141,10 @@ attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int H,
       const float* s0 = s[2 * kk];
       const float* s1 = s[2 * kk + 1];
       uint32_t a[4];
-      const float r0 = sum[0], r1 = sum[1];
-      a[0] = pack_bf16x2(__fdividef(s0[0], r0), __fdividef(s0[1], r0));
-      a[1] = pack_bf16x2(__fdividef(s0[2], r1), __fdividef(s0[3], r1));
-      a[2] = pack_bf16x2(__fdividef(s1[0], r0), __fdividef(s1[1], r0));
-      a[3] = pack_bf16x2(__fdividef(s1[2], r1), __fdividef(s1[3], r1));
+      a[0] = pack_bf16x2(s0[0], s0[1]);
+      a[1] = pack_bf16x2(s0[2], s0[3]);
+      a[2] = pack_bf16x2(s1[0], s1[1]);
+      a[3] = pack_bf16x2(s1[2], s1[3]);
 #pragma unroll
       for (int dp = 0; dp < DHP / 16; ++dp) {
         uint32_t b[4];

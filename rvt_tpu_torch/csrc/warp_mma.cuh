@@ -1,7 +1,8 @@
-// Warp-level tensor-core helpers of K3 and K4: mma.sync m16n8k16 (bf16 in,
-// f32 sums), ldmatrix from shared memory, cp.async, the 128-byte XOR
-// swizzle of 16-byte chunks, and the thread-block-cluster primitives
-// (distributed shared memory stores, the split cluster barrier).
+// Warp-level tensor-core helpers of K3, K4, K7 and K8: mma.sync m16n8k16
+// (bf16 in, f32 sums), ldmatrix from shared memory, cp.async, the 128-byte
+// XOR swizzle of 16-byte chunks, the thread-block-cluster primitives
+// (distributed shared memory stores, the split cluster barrier), and the
+// softmax K3 and K7 share.
 #pragma once
 
 #include "common.cuh"
@@ -87,6 +88,15 @@ __device__ __forceinline__ void st_cluster16(uint32_t addr, uint4 v) {
       "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
       : "memory");
 }
+__device__ __forceinline__ void st_cluster_f32x2(uint32_t addr, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+               "f"(v.x), "f"(v.y)
+               : "memory");
+}
+
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
 
 // Eight values as eight bf16 in one 16-byte word.
 __device__ __forceinline__ uint4 bf16x8(const float* v) {
@@ -96,4 +106,55 @@ __device__ __forceinline__ uint4 bf16x8(const float* v) {
   r.z = pack_bf16x2(v[4], v[5]);
   r.w = pack_bf16x2(v[6], v[7]);
   return r;
+}
+
+// The softmax of K3 and K7 over the keys of a warp's 16 query rows: s
+// holds q . k^T (unscaled) of the n8 key tiles j < nt in the m16n8k16
+// accumulator layout (row g: e = 0, 1; row g + 8: e = 2, 3); keys >= n
+// are masked to -inf. On return s holds the probabilities, divided in f32
+// and not yet rounded (the caller rounds them to bf16): K7 recomputes
+// exactly the probabilities K3 used. The whole row is in registers, so
+// the softmax is two-pass, not online.
+template <int NT>
+__device__ __forceinline__ void softmax_rows(float (&s)[NT][4], int nt,
+                                             int n, float scale) {
+  const int qd = threadIdx.x & 3;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nt) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = j * 8 + 2 * qd + (e & 1) < n;
+      s[j][e] = ok ? s[j][e] * scale : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 1));
+    mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nt) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = __expf(s[j][e] - mx[e >> 1]);  // pad keys: 0
+      s[j][e] = v;
+      sum[e >> 1] += v;
+    }
+  }
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    sum[h2] += __shfl_xor_sync(0xffffffffu, sum[h2], 1);
+    sum[h2] += __shfl_xor_sync(0xffffffffu, sum[h2], 2);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nt) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = __fdividef(s[j][e], sum[e >> 1]);
+  }
 }

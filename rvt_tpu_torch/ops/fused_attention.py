@@ -34,7 +34,8 @@ Training (``ops/fused_train.py``) adds the backward kernels of the pair:
                              backward
   K5 ``ln_rows_bwd``         LayerNorm backward, ds/db partial sums
   K6 ``gemm_bf16_wgrad``     a^T.b weight gradients, rows split over blocks
-  K7 ``partition_attention_bwd``  per-(frame, partition, head) backward
+  K7 ``partition_attention_bwd``  per-(frame, partition, head group)
+                             backward, K3's softmax in registers
   ``train_reduce``           column sums (bias, gamma, split-sum passes)
 """
 from __future__ import annotations
@@ -591,6 +592,11 @@ def layer_scale_bwd(dR: torch.Tensor, v: torch.Tensor, gamma: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+# Values per lane of K5's one-warp rows it is compiled for: every preset
+# width (32, 48, 64, 96, 128, 192, 256, 384, 512).
+_LN_BWD_VPL = (1, 2, 3, 4, 6, 8, 12, 16)
+
+
 def ln_rows_bwd_plain(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                       eps: float):
     """(dx f32, ds, db) of the LayerNorm of x [M, C] with cotangent dy."""
@@ -618,9 +624,10 @@ def ln_rows_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     need(x.dtype in (torch.float32, torch.bfloat16)
          and dy.dtype == torch.float32 and tuple(dy.shape) == (M, C)
          and s.dtype == torch.bfloat16 and s.numel() == C
-         and C in (32, 64, 128, 256, 512),
+         and C % 16 == 0 and 32 <= C <= 512 and -(-C // 32) in _LN_BWD_VPL,
          "ln_rows_bwd: x f32/bf16 [M, C], dy f32 [M, C], scale bf16 [C]; "
-         "C in 32..512, a power of two")
+         "C in 32..512, a multiple of 16 with ceil(C / 32) in "
+         f"{_LN_BWD_VPL}")
     dxb = None
     if dres is not None:
         check_operands("ln_rows_bwd", dres)
@@ -715,7 +722,8 @@ def partition_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, *,
                             window: bool, plain: bool = False
                             ) -> torch.Tensor:
     """See ``partition_attention_bwd_plain``; one CUDA block per (frame,
-    partition, head) with K3's partition addressing (dh 16, 32, 64)."""
+    partition, group of heads) with K3's partition addressing and softmax
+    (dh 16, 24, 32, 64; up to 128 tokens)."""
     if plain or not qkv.is_cuda:
         return partition_attention_bwd_plain(qkv, do, heads, dim_head, part,
                                              window)
@@ -725,11 +733,11 @@ def partition_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, *,
     check_operands("partition_attention_bwd", qkv, do)
     need(qkv.dtype == do.dtype == torch.bfloat16 and C == heads * dim_head
          and tuple(do.shape) == (N, H, W, C)
-         and dim_head in (16, 32, 64) and H % ph == 0 and W % pw == 0
+         and dim_head in (16, 24, 32, 64) and H % ph == 0 and W % pw == 0
          and ph * pw <= 128,
          "partition_attention_bwd: bf16 qkv [N, H, W, 3*heads*dh], do "
-         "[N, H, W, heads*dh], dh in (16, 32, 64), H, W divisible by the "
-         "partition, <= 128 tokens")
+         "[N, H, W, heads*dh], dh in (16, 24, 32, 64), H, W divisible by "
+         "the partition, <= 128 tokens")
     dqkv = torch.empty_like(qkv)
     err = kernels.lib("partition_attention_bwd").rvt_partition_attention_bwd(
         ptr(qkv), ptr(do), ptr(dqkv), N, H, W, C, dim_head, ph, pw,

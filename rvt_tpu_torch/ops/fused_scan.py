@@ -29,7 +29,7 @@ from rvt_tpu_torch.ops.kernels import (Counter, check, check_operands, need,
 
 LSTM_SCAN = Counter("lstm_scan")
 LSTM_SCAN_BWD = Counter("lstm_scan_bwd")
-_PT = 16  # pixels per K8 block (its db partials)
+_PT = 32  # rows per K8 db partial: one partial row per 32-row tile
 
 
 def _lstm_cell(xh: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -224,15 +224,54 @@ def lstm_scan_bwd_plain(x_seq, w, b, h0, c0, h_seq, c_seq, dh_seq, dhT, dcT):
     return dx, dW, db, dh, dc
 
 
+def _bwd_steps(T: int, rows: int, C: int) -> int:
+    """Steps of gates that one launch of K8's mix product forms: the bf16
+    [steps * rows, 4C] buffer stays within ``_HOIST_BYTES``."""
+    return max(1, min(T, _HOIST_BYTES // (rows * 4 * C * 2)))
+
+
+def lstm_scan_bwd_launches(T: int, rows: int, C: int) -> int:
+    """Kernel launches of one K8 call (``lstm_scan_bwd_launch``) over T
+    steps of ``rows`` pixels, all counted on ``LSTM_SCAN_BWD``: the pack of
+    xh, per chunk of steps the gates' product (K2 "bias") and the reverse
+    scan, then dx as one K2 "rt_f32" product; at T = 1 the pack, the
+    gates, the cell and one K2 product for dx and dh_0 together."""
+    return 2 + 2 * _bwd_chunks(T, rows, C)
+
+
+def _bwd_chunks(T: int, rows: int, C: int) -> int:
+    return -(-T // _bwd_steps(T, rows, C))
+
+
+def lstm_scan_bwd_part_rows(T: int, rows: int, C: int) -> int:
+    """Rows of K8's f32 db partials: one per 32 rows, per chunk of steps
+    (rows past a launch's clusters are zeros)."""
+    return _bwd_chunks(T, rows, C) * -(-rows // _PT)
+
+
+def lstm_scan_bwd_plan(T: int, rows: int, C: int) -> Dict:
+    """The scan (T > 1) or cell (T = 1) launch's plan on this card (for
+    reports): cluster size, rows per cluster, clusters, clusters resident
+    at once, threads per block, shared memory per block, and the chunks of
+    steps."""
+    plan = (ctypes.c_int * 6)()
+    check(kernels.lib("lstm_scan_bwd").rvt_lstm_bwd_scan_plan(
+        rows, C, int(T > 1), plan), "lstm_scan_bwd_plan")
+    out = dict(zip(("cluster", "rows", "clusters", "resident", "threads",
+                    "smem"), plan))
+    out["chunks"] = _bwd_chunks(T, rows, C)
+    return out
+
+
 def lstm_scan_bwd(x_seq, w, b, h0, c0, h_seq, c_seq, dh_seq, dhT, dcT, *,
                   plain: bool = False):
     """Backward of ``fused_lstm_scan(..., with_c_seq=True)``: x_seq
     [T, B, H, W, C] f32 (the cell input, rounded to bf16 as in the
     forward), w [2C, 4C] / b [4C] bf16, h0/c0 f32, the forward's h_seq
     (bf16) and c_seq (f32), the cotangents dh_seq (bf16), dhT and dcT
-    (f32). K8 runs the reverse scan and writes bf16(dmix) and [x, h_prev];
-    K6 forms dW from them; db is the in-order sum of K8's partials.
-    Returns (dx f32, dW f32, db f32, dh0, dc0)."""
+    (f32). K8 (``lstm_scan_bwd_launch``) writes [x, h_prev], bf16(dmix),
+    dx and the carries; K6 forms dW from the first two; db is the in-order
+    sum of K8's partials. Returns (dx f32, dW f32, db f32, dh0, dc0)."""
     if plain or not x_seq.is_cuda:
         return lstm_scan_bwd_plain(x_seq, w, b, h0, c0, h_seq, c_seq,
                                    dh_seq, dhT, dcT)
@@ -249,11 +288,10 @@ def lstm_scan_bwd(x_seq, w, b, h0, c0, h_seq, c_seq, dh_seq, dhT, dcT, *,
          and h_seq.shape == c_seq.shape == dh_seq.shape == x_seq.shape
          and tuple(h0.shape) == tuple(c0.shape) == tuple(dhT.shape)
          == tuple(dcT.shape) == (B, H, W, C)
-         and C % 16 == 0 and (C < 64 or C % 64 == 0)
-         and w.data_ptr() % 32 == 0,
+         and C % 16 == 0 and C <= 512,
          "lstm_scan_bwd: x [T, B, H, W, C] f32/bf16, w [2C, 4C] / b [4C] "
          "bf16, h_seq / dh_seq bf16, c_seq f32 like x, h0 / c0 / dhT / dcT "
-         "f32 [B, H, W, C]; C % 16 == 0 and C < 64 or C % 64 == 0")
+         "f32 [B, H, W, C]; C % 16 == 0 and C <= 512")
     dx, dmix, xh, part, dh0, dc0 = lstm_scan_bwd_launch(
         x_seq, w, bb, h0, c0, h_seq, c_seq, dh_seq, dhT, dcT)
     return dx, gemm_bf16_wgrad(xh, dmix), sum_parts(part), dh0, dc0
@@ -261,26 +299,52 @@ def lstm_scan_bwd(x_seq, w, b, h0, c0, h_seq, c_seq, dh_seq, dhT, dcT, *,
 
 def lstm_scan_bwd_launch(x_seq, w, bb, h0, c0, h_seq, c_seq, dh_seq, dhT,
                          dcT):
-    """K8 alone (operands checked by ``lstm_scan_bwd``): returns (dx,
-    bf16(dmix) [T*B*P, 4C], xh [T*B*P, 2C], db partials, dh0, dc0)."""
+    """K8 alone (operands checked by ``lstm_scan_bwd``), every launch
+    counted on ``LSTM_SCAN_BWD`` (``lstm_scan_bwd_launches``): the pack
+    writes xh = [bf16(x_t), h_{t-1}]; K2's "bias" epilogue forms the gates
+    mix = bf16(bf16(xh . W) + b) for a chunk of steps at once; the scan
+    runs that chunk's steps in reverse with the (dh, dc) carry on chip and
+    only bf16(dmix) . W_h^T in its loop, the carry chained from chunk to
+    chunk; then dx = bf16(dmix) . W_x^T is one K2 "rt_f32" product over
+    every step. At T = 1 there is no recurrence: the cell kernel writes
+    dmix and dc_0, and one K2 product over W gives dx and dh_0 together
+    (column views of its [rows, 2C] output). Returns (dx, bf16(dmix)
+    [T*B*P, 4C], xh [T*B*P, 2C], db partials, dh0, dc0)."""
     T, B, H, W, C = x_seq.shape
-    P = H * W
+    rows = B * H * W
     dev = x_seq.device
-    dx = torch.empty(x_seq.shape, dtype=torch.float32, device=dev)
-    dmix = torch.empty((T * B * P, 4 * C), dtype=torch.bfloat16, device=dev)
-    xh = torch.empty((T * B * P, 2 * C), dtype=torch.bfloat16, device=dev)
-    dh0 = torch.empty_like(h0)
-    dc0 = torch.empty_like(c0)
-    part = torch.empty((B * -(-P // _PT), 4 * C), dtype=torch.float32,
-                       device=dev)
-    err = kernels.lib("lstm_scan_bwd").rvt_lstm_scan_bwd(
-        ptr(x_seq), int(x_seq.dtype == torch.float32), ptr(w), ptr(bb),
-        ptr(h0), ptr(c0), ptr(h_seq), ptr(c_seq), ptr(dh_seq), ptr(dhT),
-        ptr(dcT), ptr(dx), ptr(dmix), ptr(xh), ptr(dh0), ptr(dc0), ptr(part),
-        T, B, P, C, stream_ptr(x_seq))
-    check(err, "lstm_scan_bwd")
+    lib = kernels.lib("lstm_scan_bwd")
+    stream = stream_ptr(x_seq)
+    xh = torch.empty((T * rows, 2 * C), dtype=torch.bfloat16, device=dev)
+    check(lib.rvt_lstm_bwd_pack(
+        ptr(x_seq), int(x_seq.dtype == torch.float32), ptr(h_seq), ptr(h0),
+        ptr(xh), T, rows, C, stream), "lstm_scan_bwd pack")
     LSTM_SCAN_BWD.launches += 1
-    return dx, dmix, xh, part, dh0, dc0
+    dmix = torch.empty((T * rows, 4 * C), dtype=torch.bfloat16, device=dev)
+    n_part = -(-rows // _PT)
+    steps = _bwd_steps(T, rows, C)
+    part = torch.empty((lstm_scan_bwd_part_rows(T, rows, C), 4 * C),
+                       dtype=torch.float32, device=dev)
+    dh, dc = dhT, dcT
+    for k, t1 in enumerate(range(T, 0, -steps)):
+        t0 = max(0, t1 - steps)
+        mix = gemm_bf16(xh[t0 * rows:t1 * rows], w, "bias", bias=bb,
+                        counter=LSTM_SCAN_BWD)
+        dh_out = torch.empty_like(h0) if T > 1 else None
+        dc_out = torch.empty_like(c0)
+        check(lib.rvt_lstm_bwd_scan(
+            ptr(mix), ptr(w), ptr(c_seq), ptr(c0), ptr(dh_seq), ptr(dh),
+            ptr(dc), ptr(dmix), ptr(part[k * n_part:(k + 1) * n_part]),
+            ptr(dh_out) if dh_out is not None else None, ptr(dc_out), t0,
+            t1, rows, C, int(T > 1), stream), "lstm_scan_bwd scan")
+        LSTM_SCAN_BWD.launches += 1
+        dh, dc = dh_out, dc_out
+    if T == 1:
+        dxh = gemm_bf16(dmix, w, "rt_f32", counter=LSTM_SCAN_BWD)
+        return (dxh[:, :C].view(x_seq.shape), dmix, xh, part,
+                dxh[:, C:].view(h0.shape), dc)
+    dx = gemm_bf16(dmix, w[:C], "rt_f32", counter=LSTM_SCAN_BWD)
+    return dx.view(x_seq.shape), dmix, xh, part, dh, dc
 
 
 def fused_conv_lstm(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,

@@ -53,8 +53,10 @@ SIGNATURES = {
                                                 _L, _P)},
     "partition_attention_bwd": {
         "rvt_partition_attention_bwd": (_P, _P, _P) + (_I,) * 8 + (_F, _P)},
-    "lstm_scan_bwd": {"rvt_lstm_scan_bwd": (_P, _I) + (_P,) * 15
-                      + (_I,) * 4 + (_P,)},
+    "lstm_scan_bwd": {"rvt_lstm_bwd_pack": (_P, _I) + (_P,) * 3
+                      + (_I,) * 3 + (_P,),
+                      "rvt_lstm_bwd_scan": (_P,) * 11 + (_I,) * 5 + (_P,),
+                      "rvt_lstm_bwd_scan_plan": (_I,) * 3 + (_P,)},
     "train_reduce": {
         "rvt_sum_parts": (_P, _P, _I, _L, _P),
         "rvt_colsum": (_P, _I, _P, _L, _I, _I, _P),

@@ -239,7 +239,7 @@ def test_wgrad_kernel(dev, mkn):
     assert torch.equal(got, fa.gemm_bf16_wgrad(a, b))  # deterministic
 
 
-@pytest.mark.parametrize("C", [32, 64, 512])
+@pytest.mark.parametrize("C", [32, 48, 64, 96, 192, 384, 512])
 @pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
 def test_ln_rows_bwd_kernel(dev, C, xdtype):
     from rvt_tpu_torch.ops import fused_attention as fa
@@ -262,10 +262,18 @@ def test_ln_rows_bwd_kernel(dev, C, xdtype):
 @pytest.mark.parametrize("window", [True, False])
 @pytest.mark.parametrize("geom", [(16, 20, 64, 32, (8, 10)),
                                   (12, 12, 32, 16, (2, 3)),
-                                  (16, 16, 128, 64, (8, 16))])
+                                  (16, 16, 128, 64, (8, 16)),
+                                  (16, 20, 48, 24, (8, 10)),
+                                  (12, 20, 96, 24, (6, 10)),
+                                  (12, 20, 192, 32, (6, 10)),
+                                  (16, 20, 384, 24, (8, 10)),
+                                  (12, 12, 192, 24, (2, 3)),
+                                  (12, 20, 512, 32, (6, 10))])
 def test_partition_attention_bwd_kernel(dev, window, geom):
     """K7 at 80 tokens, at 6 (padded to 16) and at its limits (128 tokens,
-    dh 64)."""
+    dh 64); the small presets' dh 24 (padded to 32 for the products over
+    dh) at C 48-384, and gen4's (6, 10) partition (60 tokens: the last
+    16-query tile padded)."""
     from rvt_tpu_torch.ops import fused_attention as fa
 
     H, W, C, dh, part = geom
@@ -295,33 +303,60 @@ def test_train_reduce_kernels(dev):
     _rel_close(got[2], ref[2], 1e-5)
 
 
-@pytest.mark.parametrize("C", [32, 128, 256])
-def test_lstm_scan_bwd_kernel(dev, C):
-    """K4 with c_seq, then K8 + K6 against the plain BPTT (35 pixels: a
-    ragged last tile of 16)."""
+# (B, H, W): 35 pixels a lane (70 rows: one ragged 32-row tile past two),
+# 391 a lane (782 rows over several clusters, the last ragged), 632 rows
+# (gen1 stage 4's 640 less one tile)
+@pytest.mark.parametrize("bhw", [(2, 5, 7), (2, 17, 23), (4, 2, 79)])
+@pytest.mark.parametrize("T", [1, 4, 21])
+@pytest.mark.parametrize("C", [32, 48, 64, 96, 128, 192, 256, 384, 512])
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+def test_lstm_scan_bwd_kernel(dev, C, T, bhw, xdtype):
+    """K8 (pack, the gates' K2 product, the reverse scan, dx's K2 product;
+    at T = 1 the cell and one K2 product for dx and dh_0) + K6 against the
+    plain BPTT at every preset width; all of K8's launches count on its
+    own counter, none on K2's."""
+    from rvt_tpu_torch.ops import fused_attention as fa
     from rvt_tpu_torch.ops import fused_scan as fs
 
-    T, B, H, W = 4, 2, 5, 7
-    x = _randn(dev, T, B, H, W, C, dtype=torch.float32)
+    B, H, W = bhw
+    x = _randn(dev, T, B, H, W, C, dtype=xdtype)
     w = _randn(dev, 2 * C, 4 * C, scale=(2 * C) ** -0.5, seed=1)
     b = _randn(dev, 4 * C, scale=0.1, seed=2)
     h0 = _randn(dev, B, H, W, C, scale=0.5, dtype=torch.float32, seed=3)
     c0 = _randn(dev, B, H, W, C, scale=0.5, dtype=torch.float32, seed=4)
-    got = fs.fused_lstm_scan(x, w, b, h0, c0, with_c_seq=True)
-    ref = fs.fused_lstm_scan(x, w, b, h0, c0, with_c_seq=True, plain=True)
-    for g_, r_ in zip(got, ref):
-        _close(g_, r_, atol=2e-2, rtol=2e-2)
-    h_seq, c_seq = ref[0], ref[1]
+    h_seq, c_seq, _, _ = fs.fused_lstm_scan(x, w, b, h0, c0, with_c_seq=True,
+                                            plain=True)
     dh_seq = _randn(dev, T, B, H, W, C, seed=5)
     dhT = _randn(dev, B, H, W, C, dtype=torch.float32, seed=6)
     dcT = _randn(dev, B, H, W, C, dtype=torch.float32, seed=7)
     args = (x, w, b, h0, c0, h_seq, c_seq, dh_seq, dhT, dcT)
-    n = fs.LSTM_SCAN_BWD.launches
+    n, n2 = fs.LSTM_SCAN_BWD.launches, fa.GEMM_BF16.launches
     got = fs.lstm_scan_bwd(*args)
-    assert fs.LSTM_SCAN_BWD.launches == n + 1
+    assert fs.LSTM_SCAN_BWD.launches - n == fs.lstm_scan_bwd_launches(
+        T, B * H * W, C)
+    assert fa.GEMM_BF16.launches == n2
     ref = fs.lstm_scan_bwd(*args, plain=True)
     for name, g_, r_ in zip(("dx", "dW", "db", "dh0", "dc0"), got, ref):
+        assert g_.shape == r_.shape, name
         _rel_close(g_, r_, 2e-2)
+
+
+def test_lstm_scan_with_c_seq_kernel(dev):
+    """K4 with c_seq (the train forward) against its plain version."""
+    from rvt_tpu_torch.ops import fused_scan as fs
+
+    T, B, H, W = 4, 2, 5, 7
+    for C in (32, 128, 256):
+        x = _randn(dev, T, B, H, W, C, dtype=torch.float32)
+        w = _randn(dev, 2 * C, 4 * C, scale=(2 * C) ** -0.5, seed=1)
+        b = _randn(dev, 4 * C, scale=0.1, seed=2)
+        h0 = _randn(dev, B, H, W, C, scale=0.5, dtype=torch.float32, seed=3)
+        c0 = _randn(dev, B, H, W, C, scale=0.5, dtype=torch.float32, seed=4)
+        got = fs.fused_lstm_scan(x, w, b, h0, c0, with_c_seq=True)
+        ref = fs.fused_lstm_scan(x, w, b, h0, c0, with_c_seq=True,
+                                 plain=True)
+        for g_, r_ in zip(got, ref):
+            _close(g_, r_, atol=2e-2, rtol=2e-2)
 
 
 def test_pair_train_kernels_vs_plain(dev):
@@ -413,7 +448,9 @@ def test_stage_step_train_kernels_vs_plain(dev, ds_ln):
         loss = (torch.stack(hs).float() * wh).sum() + (c * wh[0]).sum()
         loss.backward()
         assert ft.STAGE_STEP_TRAIN.launches - n_stage == (0 if plain else T)
-        assert fs.LSTM_SCAN_BWD.launches - n_k8 == (0 if plain else T)
+        # K8 at T = 1: pack, gates, cell, one product for dx and dh_0
+        assert fs.LSTM_SCAN_BWD.launches - n_k8 == (
+            0 if plain else T * fs.lstm_scan_bwd_launches(1, B * H * W, C))
         outs.append([torch.stack(hs).detach(), h.detach(), c.detach()]
                     + [t.grad for t in leaves])
     for i, (got, ref) in enumerate(zip(*outs)):

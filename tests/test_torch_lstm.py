@@ -6,10 +6,13 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+import jax
+
 from rvt_tpu.ops.fused_lstm import fused_conv_lstm as j_conv_lstm
+from rvt_tpu.ops.fused_train import fused_lstm_scan_train as j_scan_train
 from rvt_tpu.ops.fused_scan import fused_lstm_scan as j_lstm_scan
-from rvt_tpu_torch.ops.fused_scan import (fused_conv_lstm, fused_lstm_scan,
-                                          lstm_scan_plain)
+from rvt_tpu_torch.ops.fused_scan import (_lstm_cell_bwd, fused_conv_lstm,
+                                          fused_lstm_scan, lstm_scan_plain)
 
 T, B, H, W, C = 3, 2, 16, 20, 64
 
@@ -112,3 +115,78 @@ def test_lstm_scan_split_order_matches_jax(width):
                                np.asarray(ref[0], np.float32), atol=2e-2)
     np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]), atol=2e-2)
     np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), atol=4e-2)
+
+
+def _split_order_scan_bwd(x, w, b, h0, c0, h_seq, c_seq, dh_seq, dhT, dcT,
+                          CL):
+    """BPTT in the summation order of the redesigned K8: the gates of every
+    step from one product over all T*B*H*W rows (K2 "bias": one 2C-deep
+    f32 dot, bf16, + b in bf16), then per step in reverse the carry
+    dh_{t-1} as the CL blocks' f32 partials of bf16(dmix) . W_h^T, each
+    over its own 4C/CL dmix columns (all four gates of C/CL channels),
+    added in rank order; dx = bf16(dmix) . W_x^T after the loop over every
+    step at once. Returns (dx, dW, db, dh0, dc0)."""
+    T, Cx = x.shape[0], h0.shape[-1]
+    Cs = Cx // CL
+    wf = w.float()
+    h_prev = torch.cat([h0.to(torch.bfloat16)[None], h_seq[:-1]]).float()
+    c_prev = torch.cat([c0[None], c_seq[:-1]])
+    xh = torch.cat([x.to(torch.bfloat16).float(), h_prev], -1)
+    mix = (xh @ wf).to(torch.bfloat16)
+    mix = (mix.float() + b.float()).to(torch.bfloat16).float()
+    gates = torch.sigmoid(mix[..., :3 * Cx]).to(torch.bfloat16).float()
+    f, i, o = gates.split(Cx, dim=-1)
+    g = torch.tanh(mix[..., 3 * Cx:]).to(torch.bfloat16).float()
+    c_t = f * c_prev + i * g
+    cols = [torch.cat([torch.arange(q * Cx + r * Cs, q * Cx + (r + 1) * Cs)
+                       for q in range(4)]) for r in range(CL)]
+    dh, dc = dhT.float(), dcT.float()
+    dmix = [None] * T
+    for t in reversed(range(T)):
+        dmix[t], dc = _lstm_cell_bwd(f[t], i[t], o[t], g[t], c_prev[t],
+                                     c_t[t], dh + dh_seq[t].float(), dc)
+        dmb = dmix[t].to(torch.bfloat16).float()
+        dh = sum(dmb[..., cols[r]] @ wf[Cx:, cols[r]].t()
+                 for r in range(CL))
+    dmix = torch.stack(dmix)
+    dmb = dmix.to(torch.bfloat16).float()
+    dx = dmb @ wf[:Cx].t()
+    dW = xh.reshape(-1, 2 * Cx).t() @ dmb.reshape(-1, 4 * Cx)
+    return dx, dW, dmix.reshape(-1, 4 * Cx).sum(0), dh, dc
+
+
+@pytest.mark.parametrize("width,CL", [(64, 1), (96, 2)])
+def test_lstm_scan_bwd_split_order_matches_jax(width, CL):
+    """The redesigned K8's order of the f32 sums (the gates from one
+    product over all steps, dh through the W_h^T partials in rank order,
+    dx apart after the loop) against the TPU kernel's per-step 4C-deep
+    dot (``_lstm_scan_train_bwd`` in interpret mode), at
+    test_torch_train_ops.py's gradient tolerance. The plain version keeps
+    the single dot."""
+    rng = np.random.RandomState(2)
+    Tn, Bn, Hn, Wn = 3, 2, 8, 10
+    x = (rng.randn(Tn, Bn, Hn, Wn, width) * 1.5).astype(np.float32)
+    lw = (rng.randn(2 * width, 4 * width) * (2 * width) ** -0.5).astype(
+        np.float32)
+    lb = (rng.randn(4 * width) * 0.1).astype(np.float32)
+    h0 = (rng.randn(Bn, Hn, Wn, width) * 0.3).astype(np.float32)
+    c0 = (rng.randn(Bn, Hn, Wn, width) * 0.3).astype(np.float32)
+    dh_seq = rng.randn(Tn, Bn, Hn, Wn, width).astype(np.float32)
+    dhT = rng.randn(Bn, Hn, Wn, width).astype(np.float32)
+    dcT = rng.randn(Bn, Hn, Wn, width).astype(np.float32)
+    bf = jnp.bfloat16
+    jw, jb = jnp.asarray(lw, bf), jnp.asarray(lb, bf).reshape(1, -1)
+    out, vjp = jax.vjp(lambda *a: j_scan_train(True, *a), jnp.asarray(x), jw,
+                       jb, jnp.asarray(h0), jnp.asarray(c0))
+    ref = vjp((jnp.asarray(dh_seq, bf), jnp.asarray(dhT), jnp.asarray(dcT)))
+    t = torch.from_numpy
+    h_seq, c_seq, _, _ = lstm_scan_plain(t(x), t(lw).bfloat16(),
+                                         t(lb).bfloat16(), t(h0), t(c0),
+                                         with_c_seq=True)
+    got = _split_order_scan_bwd(
+        t(x), t(lw).bfloat16(), t(lb).bfloat16(), t(h0), t(c0), h_seq,
+        c_seq, t(dh_seq).bfloat16(), t(dhT), t(dcT), CL)
+    for name, gt, rf in zip(("dx", "dW", "db", "dh0", "dc0"), got, ref):
+        rf = np.asarray(rf, np.float32)
+        err = np.abs(gt.numpy().reshape(rf.shape) - rf).max()
+        assert err <= 1.2e-2 * np.abs(rf).max(), (name, err)

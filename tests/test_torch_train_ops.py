@@ -1,8 +1,9 @@
 """The port's train-layout stage (rvt_tpu_torch.ops.fused_train, plain
 PyTorch versions of the kernels on the CPU) against the JAX package's
 ``fused_pair_train`` / ``fused_lstm_scan_train`` in interpret mode, forward
-and every gradient, at (16, 10, 32), partition (8, 10), dh 32; and the
-train-mode BatchNorm against flax's."""
+and every gradient, at (16, 10, 32), partition (8, 10), dh 32, and at a
+small-preset stage (12, 20, 96), partition (6, 10), dh 24 (RVT-S stage 2,
+gen4's partition); and the train-mode BatchNorm against flax's."""
 import numpy as np
 import pytest
 
@@ -13,7 +14,9 @@ import torch
 from rvt_tpu.ops import fused_train as jft
 from rvt_tpu_torch.ops import fused_train as tft
 
-H, W, C, PART, DH = 16, 10, 32, (8, 10), 32
+# (H, W, C, partition, dh)
+TINY = (16, 10, 32, (8, 10), 32)
+SMALL = (12, 20, 96, (6, 10), 24)
 T, B = 3, 2
 EPS = 1e-5
 
@@ -27,7 +30,18 @@ FWD_TOL = 5e-3
 GRAD_TOL = 1.2e-2
 
 
-def _block(rng, sfn):
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small shapes: the suite runs in
+    parallel workers, where per-process thread pools oversubscribe the
+    cores and every small op waits on them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _block(rng, sfn, C=TINY[2]):
     """One sub-block in the train layout (``train_block_params``), as
     float32 numpy arrays of bf16-exact weights, and the dtype of each."""
     def bf(a):
@@ -67,8 +81,8 @@ def _rel(got, ref):
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-6))
 
 
-@pytest.fixture(scope="module")
-def pair_case():
+def _pair_case(geom):
+    H, W, C, PART, DH = geom
     rng = np.random.RandomState(0)
     N = T * B
     x = np.asarray(jnp.asarray(rng.randn(N, H, W, C) * 2 + 0.3,
@@ -77,7 +91,7 @@ def pair_case():
                       np.float32), "bf16"),
           (np.asarray(jnp.asarray(0.2 * rng.randn(C), jnp.bfloat16),
                       np.float32), "bf16")]
-    win, grid = _block(rng, True), _block(rng, False)
+    win, grid = _block(rng, True, C), _block(rng, False, C)
     wgt = rng.randn(N, H, W, C).astype(np.float32)
 
     cfg = (C // DH, DH, PART, EPS, EPS, False, True)
@@ -101,14 +115,40 @@ def pair_case():
     return jy, jg, ty, tx, tds, twin, tgrid
 
 
-def test_pair_forward_matches_jax(pair_case):
-    jy, _, ty, *_ = pair_case
+@pytest.fixture(scope="module")
+def pair_case():
+    return _pair_case(TINY)
+
+
+@pytest.fixture(scope="module")
+def pair_case_small():
+    return _pair_case(SMALL)
+
+
+def _check_pair_forward(case):
+    jy, _, ty, *_ = case
     assert ty.dtype == torch.float32
     assert _rel(ty.detach().numpy(), jy) < FWD_TOL
 
 
+def test_pair_forward_matches_jax(pair_case):
+    _check_pair_forward(pair_case)
+
+
+def test_pair_forward_matches_jax_small_preset(pair_case_small):
+    _check_pair_forward(pair_case_small)
+
+
 def test_pair_grads_match_jax(pair_case):
-    _, jg, _, tx, tds, twin, tgrid = pair_case
+    _check_pair_grads(pair_case)
+
+
+def test_pair_grads_match_jax_small_preset(pair_case_small):
+    _check_pair_grads(pair_case_small)
+
+
+def _check_pair_grads(case):
+    _, jg, _, tx, tds, twin, tgrid = case
     jx, jds_s, jds_b, jwin, jgrid = jg
     pairs = ([("x", tx, jx), ("ds_s", tds[0], jds_s),
               ("ds_b", tds[1], jds_b)]
@@ -124,8 +164,8 @@ def test_pair_grads_match_jax(pair_case):
         assert err < GRAD_TOL, (name, err)
 
 
-@pytest.fixture(scope="module")
-def lstm_case():
+def _lstm_case(geom):
+    H, W, C = geom[:3]
     rng = np.random.RandomState(1)
     x = (rng.randn(T, B, H, W, C) * 1.5).astype(np.float32)
     w = np.asarray(jnp.asarray(rng.randn(2 * C, 4 * C) * (2 * C) ** -0.5,
@@ -167,15 +207,41 @@ def lstm_case():
     return jout, jg, tout, targs
 
 
-def test_lstm_scan_forward_matches_jax(lstm_case):
-    jout, _, tout, _ = lstm_case
+@pytest.fixture(scope="module")
+def lstm_case():
+    return _lstm_case(TINY)
+
+
+@pytest.fixture(scope="module")
+def lstm_case_small():
+    return _lstm_case(SMALL)
+
+
+def _check_lstm_forward(case):
+    jout, _, tout, _ = case
     assert tout[0].dtype == torch.bfloat16
     for name, t, j in zip(("h_seq", "h_T", "c_T"), tout, jout):
         assert _rel(t.detach().float().numpy(), j) < FWD_TOL, name
 
 
+def test_lstm_scan_forward_matches_jax(lstm_case):
+    _check_lstm_forward(lstm_case)
+
+
+def test_lstm_scan_forward_matches_jax_small_preset(lstm_case_small):
+    _check_lstm_forward(lstm_case_small)
+
+
 def test_lstm_scan_grads_match_jax(lstm_case):
-    _, jg, _, targs = lstm_case
+    _check_lstm_grads(lstm_case)
+
+
+def test_lstm_scan_grads_match_jax_small_preset(lstm_case_small):
+    _check_lstm_grads(lstm_case_small)
+
+
+def _check_lstm_grads(case):
+    _, jg, _, targs = case
     for name, t, j in zip(("x", "w", "b", "h0", "c0"), targs, jg):
         assert t.grad.dtype == t.dtype, name
         err = _rel(t.grad.float().numpy(), j)

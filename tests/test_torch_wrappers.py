@@ -161,15 +161,18 @@ def test_train_wrappers_launch_once_and_count(fake_cuda):
         + ["rvt_gemm_bf16_wgrad", "rvt_sum_parts"]
         + ["rvt_partition_attention_bwd"] + ["rvt_ls_bwd", "rvt_sum_parts"]
         + ["rvt_colsum", "rvt_sum_parts"] + ["rvt_lstm_scan"]
-        + ["rvt_lstm_scan_bwd", "rvt_gemm_bf16_wgrad", "rvt_sum_parts",
+        + ["rvt_lstm_bwd_pack", "rvt_gemm_bf16", "rvt_lstm_bwd_scan",
+           "rvt_gemm_bf16", "rvt_gemm_bf16_wgrad", "rvt_sum_parts",
            "rvt_sum_parts"])
+    # K8's two K2 products count on K8's counter, not on K2's
+    assert fs.lstm_scan_bwd_launches(T, B * H * W, C) == 4
     assert [c.launches - b for c, b in zip(counters, before)] == [
-        4, 1, 2, 1, 9, 1, 1]
+        4, 1, 2, 1, 9, 1, 4]
 
 
 def test_train_wrappers_reject_what_the_kernels_do_not_take(fake_cuda):
-    with pytest.raises(ValueError):  # C = 96 is not a power of two
-        fa.ln_rows_bwd(torch.randn(40, 96), torch.randn(40, 96), _bf(96),
+    with pytest.raises(ValueError):  # C = 160: five values a lane
+        fa.ln_rows_bwd(torch.randn(40, 160), torch.randn(40, 160), _bf(160),
                        1e-5)
     with pytest.raises(ValueError):  # 8 x 20 = 160 tokens > 128
         fa.partition_attention_bwd(_bf(2, 16, 20, 192), _bf(2, 16, 20, 64),
@@ -323,3 +326,110 @@ def test_lstm_scan_hoists_the_input_product(fake_cuda, monkeypatch,
     if chunks == 2:  # the second chunk starts from the first one's h_T, c_T
         assert scans[1][5].value == scans[0][9].value
         assert scans[1][6].value == scans[0][10].value
+
+
+@pytest.mark.parametrize("C", [48, 96, 192, 384])
+def test_ln_rows_bwd_takes_every_preset_width(fake_cuda, C):
+    """K5 takes the small presets' widths (ceil(C / 32) values a lane,
+    masked past C): one launch, then the in-order sum of its partials."""
+    dx, ds, db = fa.ln_rows_bwd(torch.randn(40, C), torch.randn(40, C),
+                                _bf(C), 1e-5, dres=torch.zeros(40, C))
+    assert dx.shape == (40, C) and ds.shape == db.shape == (C,)
+    assert fake_cuda == ["rvt_ln_rows_bwd", "rvt_sum_parts"]
+    assert _FakeLib.launches[0][1][9] == C
+
+
+@pytest.mark.parametrize("dim_head,part,C", [(24, (6, 10), 96),
+                                             (24, (8, 10), 48),
+                                             (32, (6, 10), 128)])
+def test_partition_attention_bwd_takes_the_small_presets(fake_cuda,
+                                                         dim_head, part, C):
+    """K7 takes dh 24 and the (6, 10) partition: one launch with the
+    head width and the partition passed to the launcher."""
+    H, W = 2 * part[0], 2 * part[1]
+    dqkv = fa.partition_attention_bwd(_bf(2, H, W, 3 * C), _bf(2, H, W, C),
+                                      heads=C // dim_head, dim_head=dim_head,
+                                      part=part, window=False)
+    assert dqkv.shape == (2, H, W, 3 * C)
+    (fn, args), = _FakeLib.launches
+    assert fn == "rvt_partition_attention_bwd"
+    assert args[3:11] == (2, H, W, C, dim_head, part[0], part[1], 0)
+
+
+def _k8_args(T, B, H, W, C):
+    z = torch.zeros(B, H, W, C)
+    return (torch.randn(T, B, H, W, C), _bf(2 * C, 4 * C), _bf(4 * C), z, z,
+            _bf(T, B, H, W, C), torch.randn(T, B, H, W, C),
+            _bf(T, B, H, W, C), z, z)
+
+
+@pytest.mark.parametrize("hoist_bytes,chunks", [(512 * 2 ** 20, 1),
+                                                (2 * 20 * 96 * 4 * 2, 2)])
+def test_lstm_scan_bwd_launch_sequence(fake_cuda, monkeypatch, hoist_bytes,
+                                       chunks):
+    """K8 over T > 1 steps: the pack of xh, per chunk of steps (in reverse
+    time) K2's "bias" product for the gates and the scan, then one K2
+    "rt_f32" product for dx over W_x = w[:C]; every launch counts on
+    LSTM_SCAN_BWD, none on K2's counter. Chunks chain the (dh, dc) carry
+    and write their own rows of the db partials."""
+    monkeypatch.setattr(fs, "_HOIST_BYTES", hoist_bytes)
+    T, B, H, W, C = 3, 2, 2, 5, 96
+    rows = B * H * W
+    args = _k8_args(T, B, H, W, C)
+    before = fs.LSTM_SCAN_BWD.launches, fa.GEMM_BF16.launches
+    dx, dmix, xh, part, dh0, dc0 = fs.lstm_scan_bwd_launch(*args)
+    assert dx.shape == (T, B, H, W, C) and dx.dtype == torch.float32
+    assert dmix.shape == (T * rows, 4 * C) and xh.shape == (T * rows, 2 * C)
+    assert part.shape == (chunks * -(-rows // fs._PT), 4 * C)
+    assert fake_cuda == (["rvt_lstm_bwd_pack"]
+                         + ["rvt_gemm_bf16", "rvt_lstm_bwd_scan"] * chunks
+                         + ["rvt_gemm_bf16"])
+    assert fs.lstm_scan_bwd_launches(T, rows, C) == 2 + 2 * chunks
+    assert (fs.LSTM_SCAN_BWD.launches - before[0],
+            fa.GEMM_BF16.launches - before[1]) == (2 + 2 * chunks, 0)
+    gemms = [a for fn, a in _FakeLib.launches if fn == "rvt_gemm_bf16"]
+    scans = [a for fn, a in _FakeLib.launches if fn == "rvt_lstm_bwd_scan"]
+    assert [a[12] for a in gemms] == ([fa.EPILOGUES["bias"]] * chunks
+                                      + [fa.EPILOGUES["rt_f32"]])
+    # the gates' products read xh and the bias; dx's reads dmix and W_x
+    assert all(a[0].value >= xh.data_ptr() and a[2] is not None
+               for a in gemms[:-1])
+    assert gemms[-1][0].value == dmix.data_ptr()
+    assert gemms[-1][1].value == args[1].data_ptr()
+    assert gemms[-1][9:12] == (T * rows, C, 4 * C)
+    # reverse time: (t0, t1) per chunk, product on, the carry chained
+    assert [tuple(a[11:13]) for a in scans] == (
+        [(0, 3)] if chunks == 1 else [(1, 3), (0, 1)])
+    assert all(a[15] == 1 and a[13:15] == (rows, C) for a in scans)
+    assert scans[0][5].value == args[8].data_ptr()  # dh_in = dhT
+    if chunks == 2:
+        assert scans[1][5].value == scans[0][9].value  # dh_out -> dh_in
+        assert scans[1][6].value == scans[0][10].value
+        assert scans[1][8].value == scans[0][8].value + part[0].numel() * 4 \
+            * -(-rows // fs._PT)
+    assert dh0.data_ptr() == scans[-1][9].value
+    assert dc0.data_ptr() == scans[-1][10].value
+
+
+def test_lstm_scan_bwd_at_one_step(fake_cuda):
+    """K8 at T = 1 (the per-step path) has no recurrence: pack, the gates,
+    the cell (no product, no dh carry out), then one K2 product over the
+    whole W gives dx and dh_0 together as column views."""
+    B, H, W, C = 2, 2, 5, 64
+    rows = B * H * W
+    before = fs.LSTM_SCAN_BWD.launches, fa.GEMM_BF16.launches
+    dx, dmix, xh, part, dh0, dc0 = fs.lstm_scan_bwd_launch(
+        *_k8_args(1, B, H, W, C))
+    assert fake_cuda == ["rvt_lstm_bwd_pack", "rvt_gemm_bf16",
+                         "rvt_lstm_bwd_scan", "rvt_gemm_bf16"]
+    assert fs.lstm_scan_bwd_launches(1, rows, C) == 4
+    assert (fs.LSTM_SCAN_BWD.launches - before[0],
+            fa.GEMM_BF16.launches - before[1]) == (4, 0)
+    (_, pack), (_, mix), (_, scan), (_, dxh) = _FakeLib.launches
+    assert mix[12] == fa.EPILOGUES["bias"]
+    assert dxh[12] == fa.EPILOGUES["rt_f32"] and dxh[9:12] == (rows, 2 * C,
+                                                               4 * C)
+    assert scan[11:16] == (0, 1, rows, C, 0) and scan[9] is None
+    assert dx.shape == (1, B, H, W, C) and dh0.shape == (B, H, W, C)
+    assert dh0.data_ptr() == dx.data_ptr() + C * 4  # columns C: of dxh
+    assert dc0.data_ptr() == scan[10].value

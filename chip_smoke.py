@@ -9,8 +9,10 @@ Phases, each of which raises (exit code != 0) when it fails:
   2. build the CUDA kernels from rvt_tpu_torch/csrc (one nvcc per source,
      all in parallel) and print the build time;
   3. hold each kernel against its plain PyTorch version on the card, at
-     every gen1 RVT-B stage shape (T*B = 168 frames): ln_rows on bf16 and
-     f32 rows, gemm_bf16 with each epilogue at the qkv/proj/fc1/fc2
+     every gen1 RVT-B stage shape (T*B = 168 frames): ln_rows on bf16 rows
+     with their f32 copy (the downsample LN as the paths run it) and on
+     f32 rows, printing its lane plan, gemm_bf16 with each epilogue at
+     the qkv/proj/fc1/fc2
      shapes, partition_attention in window and grid mode, lstm_scan at
      T = 21 and at T = 1; and stacked_histogram with zero error on gen1
      events (8 x 32768 over 240x304), on gen4 events retargeted into the
@@ -20,6 +22,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      library call's times (CUDA events; K4's yardstick cuDNN's
      ``nn.LSTM``, ``nn.LSTMCell`` at T = 1), with the least time the card
      could take (bound), the kernel's TFLOP/s and its share of the bound;
+     for ln_rows and train_reduce also the device time of a CUDA graph of
+     10 calls (no host time between launches);
      K4 timed as whole ``fused_lstm_scan`` calls (the input product, the
      bf16 cast and the recurrent kernel, all counted as K4's launches);
      then K2 (every epilogue) and K6 at ragged shapes (M in 1, 127, 129,
@@ -46,9 +50,11 @@ Phases, each of which raises (exit code != 0) when it fails:
   6. hold each training kernel against its plain version at every gen1
      RVT-B stage shape (T*B = 168 frames), forward and backward: K2's
      train epilogues, K4 with c_seq, K5 ln_rows_bwd, K6 gemm_bf16_wgrad,
-     K7 partition_attention_bwd, K8 lstm_scan_bwd and train_reduce (its
-     in-order sums timed at every shape of partials the step gives it);
-     K6 and K2's gelu-backward column sums bit for bit across two runs;
+     K7 partition_attention_bwd, K8 lstm_scan_bwd and train_reduce (one
+     launch each for the LayerScale backward and the qkv-bias sums; its
+     in-order sums timed at every shape of partials the step gives it,
+     each with its launch plan); K6, K2's gelu-backward column sums and
+     the three train_reduce functions bit for bit across two runs;
      time each (kernel, plain, library yardstick: K7's SDPA's backward,
      K8's the cuDNN LSTM's backward) beside its bound and its calls per
      train step, K8 as the whole composition its counter counts (pack,
@@ -142,17 +148,19 @@ class Record:
     """One kernel's entry of the kernels line. For each path it serves
     (eval step, raw step, train step) it sums count x per-launch time over
     one step's calls; ``ms``, ``plain_ms``, ``bound_ms`` and
-    ``library_ms`` add the paths, ``by_path`` keeps them apart."""
+    ``library_ms`` add the paths, ``by_path`` keeps them apart.
+    ``device_ms`` (ln_rows and train_reduce; None for the others) is the
+    same sum of ``device_ms_of`` times: no host time between launches."""
 
     def __init__(self, name, source, replaces):
         self.d = dict(name=name, route="cuda", source=source,
                       replaces=replaces, launches=0, max_abs_err=0.0,
                       ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=None,
-                      library_ms=None, by_path={})
+                      library_ms=None, device_ms=None, by_path={})
         self.paths = {}
 
     def add(self, path, count, err, ms, plain_ms, nbytes, ops, peak, lib_ms,
-            launches_per_call=1):
+            launches_per_call=1, device_ms=None):
         """``count`` calls per ``path`` step of a function timed at ``ms``
         per call, which launches the kernel ``launches_per_call`` times.
         ``path`` may be a dict {path: calls per step}, each multiplied by
@@ -161,9 +169,11 @@ class Record:
         d["max_abs_err"] = max(d["max_abs_err"], err)
         b_ms, o_ms = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+        dev = ("" if device_ms is None else f" (device {device_ms:.4f} ms, "
+               f"{max(b_ms, o_ms) / device_ms:.1%} of the bound)")
         counts = {p: n * count for p, n in (
             path.items() if isinstance(path, dict) else ((path, 1),))}
-        log(f"    per call: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        log(f"    per call: kernel {ms:.4f} ms{dev}, plain {plain_ms:.4f} ms, "
             f"library {lib} ms, bound {max(b_ms, o_ms):.4f} ms "
             f"({'bytes' if b_ms >= o_ms else 'operations'}); kernel "
             f"{ops / ms * 1e-9:.1f} TFLOP/s, {max(b_ms, o_ms) / ms:.1%} of "
@@ -172,14 +182,14 @@ class Record:
         for path, count in counts.items():
             if count:
                 self._accumulate(path, count, ms, plain_ms, b_ms, o_ms,
-                                 lib_ms, launches_per_call)
+                                 lib_ms, launches_per_call, device_ms)
 
     def _accumulate(self, path, count, ms, plain_ms, b_ms, o_ms, lib_ms,
-                    launches_per_call):
+                    launches_per_call, device_ms):
         d = self.d
         q = self.paths.setdefault(path, dict(
             launches=0, ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
-            library_ms=None))
+            library_ms=None, device_ms=None))
         q["launches"] += count * launches_per_call
         q["ms"] += count * ms
         q["plain_ms"] += count * plain_ms
@@ -187,9 +197,13 @@ class Record:
         q["ops_ms"] += count * o_ms
         if lib_ms is not None:
             q["library_ms"] = (q["library_ms"] or 0.0) + count * lib_ms
+        if device_ms is not None:
+            q["device_ms"] = (q["device_ms"] or 0.0) + count * device_ms
         qs = self.paths.values()
         for k in ("ms", "plain_ms"):
             d[k] = sum(q[k] for q in qs)
+        devs = [q["device_ms"] for q in qs if q["device_ms"] is not None]
+        d["device_ms"] = sum(devs) if devs else None
         d["bound_ms"] = sum(max(q["bytes_ms"], q["ops_ms"]) for q in qs)
         d["bound_by"] = ("bytes" if sum(q["bytes_ms"] for q in qs)
                          >= sum(q["ops_ms"] for q in qs) else "operations")
@@ -198,8 +212,35 @@ class Record:
         d["by_path"] = {p: dict(launches=q["launches"], ms=q["ms"],
                                 plain_ms=q["plain_ms"],
                                 bound_ms=max(q["bytes_ms"], q["ops_ms"]),
-                                library_ms=q["library_ms"])
+                                library_ms=q["library_ms"],
+                                device_ms=q["device_ms"])
                         for p, q in self.paths.items()}
+
+
+def device_ms_of(fn, iters: int = 10) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph, the replay timed with CUDA events. ``time_ms`` times calls
+    launched from the host one after another, so where a call's host work
+    (the Python wrapper, the launch) outlasts its kernel it measures the
+    host's pace; here no host time lies between the launches."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
 
 
 def compare(name, got, ref, atol, rtol, mean_tol=1e-3):
@@ -332,6 +373,38 @@ def lstm_library_ms(T, P, C, g, *, grad=False, backward=False):
                                                retain_graph=True))
 
 
+def ln_rows_case(fa, randn, s, b, M, C, dtype):
+    """K1 on M x C rows as the paths call it: the downsample LN reads the
+    bf16 conv output and also writes its f32 copy (the residual stream R,
+    ``with_f32``), LN1/LN2 read the f32 residual. Held against the plain
+    version (and ``yf`` against ``y`` widened) and timed. Returns (err,
+    ms, plain ms, library ms, bytes: x read, y (and yf) written, s and b
+    read, device ms)."""
+    import torch
+    import torch.nn.functional as F
+
+    x = randn(M, C, scale=2.0, dtype=dtype) + 0.5
+    with_f32 = dtype == torch.bfloat16
+    plan = fa.ln_rows_plan(C, x.element_size())
+    log(f"  K1 plan, {str(dtype)[6:]} rows of {C}: {plan.vec} elements a "
+        f"load, {plan.nv} loads a lane, {32 // plan.group} rows a warp")
+    got = fa.ln_rows(x, s, b, 1e-5, with_f32=with_f32)
+    y = got[0] if with_f32 else got
+    if with_f32 and not torch.equal(got[1], y.float()):
+        fail("ln_rows: yf is not y widened to f32")
+    err = compare(f"ln_rows[{str(dtype)[6:]}{' + yf' if with_f32 else ''}]",
+                  y, fa.ln_rows_plain(x, s, b, 1e-5), 3.2e-2, 1e-2)
+    del got, y
+    ms = time_ms(lambda: fa.ln_rows(x, s, b, 1e-5, with_f32=with_f32))
+    dms = device_ms_of(lambda: fa.ln_rows(x, s, b, 1e-5, with_f32=with_f32))
+    pms = time_ms(lambda: fa.ln_rows(x, s, b, 1e-5, with_f32=with_f32,
+                                     plain=True))
+    sw, bw = s.to(dtype), b.to(dtype)
+    lms = time_ms(lambda: F.layer_norm(x, (C,), sw, bw, 1e-5))
+    nbytes = M * C * (x.element_size() + 2 + (4 if with_f32 else 0)) + 4 * C
+    return err, ms, pms, lms, nbytes, dms
+
+
 def check_kernels():
     """Phase 3, at the main path's shapes (T*B frames through the pair,
     B lanes through the scan). Returns {kernel name: Record}."""
@@ -367,21 +440,14 @@ def check_kernels():
         # K1: the ds-LN reads the bf16 conv output, LN1/LN2 the f32
         # residual; the train step runs each twice (forward, recompute)
         for dtype, count in ((torch.bfloat16, 1), (torch.float32, 3)):
-            x = randn(M, C, scale=2.0, dtype=dtype) + 0.5
-            y = fa.ln_rows(x, s, b, 1e-5)
-            ref = fa.ln_rows_plain(x, s, b, 1e-5)
-            err = compare(f"ln_rows[{str(dtype)[6:]}]", y, ref, 3.2e-2, 1e-2)
-            ms = time_ms(lambda: fa.ln_rows(x, s, b, 1e-5))
-            pms = time_ms(lambda: fa.ln_rows_plain(x, s, b, 1e-5))
-            sw, bw = s.to(dtype), b.to(dtype)
-            lms = time_ms(lambda: F.layer_norm(x, (C,), sw, bw, 1e-5))
             # the trainer's stage 1 takes a normed, masked input: no ds-LN
             masked = si == 0 and dtype == torch.bfloat16
+            err, ms, pms, lms, nbytes, dms = ln_rows_case(fa, randn, s, b,
+                                                          M, C, dtype)
             recs["ln_rows"].add(
                 {"eval step": count, "train step": 2 * count,
                  "trainer": 0 if masked else 2 * count}, 1, err, ms, pms,
-                M * C * (x.element_size() + 2) + 4 * C, 8 * M * C,
-                PEAK_F32_FLOPS, lms)
+                nbytes, 8 * M * C, PEAK_F32_FLOPS, lms, device_ms=dms)
         # K2: every product of the two sub-blocks
         for label, K, N, epi in (("qkv", C, 3 * C, "bias"),
                                  ("proj", C, C, "residual"),
@@ -1101,16 +1167,10 @@ def check_fwd_kernels(recs, paths, paths_ds, g, n_frames, H, W, C):
     # the ds-LN (bf16 in) and LN1, LN2 x 2 (f32), forward and recompute
     for dtype, count, where in ((torch.bfloat16, 2, paths_ds),
                                 (torch.float32, 6, paths)):
-        x = randn(M, C, scale=2.0, dtype=dtype) + 0.5
-        err = compare(f"ln_rows[{str(dtype)[6:]}]", fa.ln_rows(x, s, b, 1e-5),
-                      fa.ln_rows_plain(x, s, b, 1e-5), 3.2e-2, 1e-2)
-        ms = time_ms(lambda: fa.ln_rows(x, s, b, 1e-5))
-        pms = time_ms(lambda: fa.ln_rows_plain(x, s, b, 1e-5))
-        sw, bw = s.to(dtype), b.to(dtype)
-        lms = time_ms(lambda: F.layer_norm(x, (C,), sw, bw, 1e-5))
-        recs["ln_rows"].add(where, count, err, ms, pms,
-                            M * C * (x.element_size() + 2) + 4 * C,
-                            8 * M * C, PEAK_F32_FLOPS, lms)
+        err, ms, pms, lms, nbytes, dms = ln_rows_case(fa, randn, s, b, M, C,
+                                                      dtype)
+        recs["ln_rows"].add(where, count, err, ms, pms, nbytes, 8 * M * C,
+                            PEAK_F32_FLOPS, lms, device_ms=dms)
     heads, n_tok = C // DIM_HEAD, PART[0] * PART[1]
     parts = (H // PART[0]) * (W // PART[1])
     qkv = randn(n_frames, H, W, 3 * C)
@@ -1173,24 +1233,33 @@ def check_train_kernels(recs, frames=SEQ_LEN * BATCH, steps=SEQ_LEN,
     def first(x):
         return x[0] if isinstance(x, tuple) else x
 
+    def plan(what, M, N, itemsize=4):
+        p = fa.reduce_plan(M, N, itemsize)
+        log(f"  train_reduce plan, {what} [{M}, {N}]: {p.chunks} row chunks "
+            f"of {p.rows}, {p.blocks(N)} blocks of {p.tx} x {p.ty} threads, "
+            f"{p.vec} columns a thread")
+
     def sum_parts(label, part, count, where=None):
         """``train_reduce``'s in-order sum at partials the path gives it;
         plain = torch's sum over the same partials."""
+        plan(f"sum_parts {label}", part.shape[0], part[0].numel())
         err = compare_rel(f"sum_parts[{label} {list(part.shape)}]",
                           fa.sum_parts(part), part.sum(0), 1e-5)
         ms = time_ms(lambda: fa.sum_parts(part))
+        dms = device_ms_of(lambda: fa.sum_parts(part))
         pms = time_ms(lambda: fa.sum_parts(part, plain=True))
         lms = time_ms(lambda: torch.sum(part, 0))
         recs["train_reduce"].add(where or TS, count, err, ms, pms,
                                  4 * (part.numel() + part[0].numel()),
-                                 part.numel(), PEAK_F32_FLOPS, lms)
+                                 part.numel(), PEAK_F32_FLOPS, lms,
+                                 device_ms=dms)
         n = count * (where or TS)[per]
-        for k, v in zip(sp, (n, n * ms, n * pms, n * lms)):
+        for k, v in zip(sp, (n, n * ms, n * pms, n * lms, n * dms)):
             sp[k] += v
 
     T, B, n_frames = steps, BATCH, frames
     sms = sm_count(torch.empty(1, device=dev))
-    sp = dict(calls=0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+    sp = dict(calls=0, ms=0.0, plain_ms=0.0, library_ms=0.0, device_ms=0.0)
     for si, (H, W, C) in enumerate(STAGES):
         M = n_frames * H * W
         rpb = fa._rows_per_block(M)
@@ -1407,7 +1476,8 @@ def check_train_kernels(recs, frames=SEQ_LEN * BATCH, steps=SEQ_LEN,
         sum_parts("lstm db", randn(fs.lstm_scan_bwd_part_rows(T, P, C),
                                    4 * C, dtype=f32), 1)
         # train_reduce: the LayerScale backward and the qkv-bias column
-        # sums, each with the in-order sum of its partials
+        # sums, each one launch (its partials summed by its last block)
+        plan("layer_scale_bwd", M, C)
         dR, v = randn(M, C, dtype=f32), randn(M, C)
         gam = randn(C, scale=0.3, dtype=f32)
         got = fa.layer_scale_bwd(dR, v, gam)
@@ -1417,25 +1487,36 @@ def check_train_kernels(recs, frames=SEQ_LEN * BATCH, steps=SEQ_LEN,
         err = max(compare_rel("layer_scale_bwd dbias", got[1], ref[1], 1e-4),
                   compare_rel("layer_scale_bwd dgamma", got[2], ref[2],
                               1e-4))
+        if not all(torch.equal(a, b) for a, b in zip(
+                got, fa.layer_scale_bwd(dR, v, gam))):
+            fail("layer_scale_bwd: two runs differ")
+        del got, ref
         ms = time_ms(lambda: fa.layer_scale_bwd(dR, v, gam))
+        dms = device_ms_of(lambda: fa.layer_scale_bwd(dR, v, gam))
         pms = time_ms(lambda: fa.layer_scale_bwd_plain(dR, v, gam))
+        # one of the kernel's three outputs: the bias gradient
         lms = time_ms(lambda: (dR * gam).sum(0))
         recs["train_reduce"].add(TS, 4, err, ms, pms, M * C * 8, 4 * M * C,
-                                 PEAK_F32_FLOPS, lms, launches_per_call=2)
+                                 PEAK_F32_FLOPS, lms, device_ms=dms)
+        plan("col_sum", M, 3 * C, 2)
         dq = randn(M, 3 * C)
-        err = compare_rel("col_sum[dqkv]", fa.col_sum(dq),
-                          dq.float().sum(0), 1e-4)
+        got = fa.col_sum(dq)
+        err = compare_rel("col_sum[dqkv]", got, dq.float().sum(0), 1e-4)
+        if not torch.equal(got, fa.col_sum(dq)):
+            fail("col_sum: two runs differ")
         ms = time_ms(lambda: fa.col_sum(dq))
+        dms = device_ms_of(lambda: fa.col_sum(dq))
         pms = time_ms(lambda: dq.float().sum(0))
         lms = time_ms(lambda: torch.sum(dq, 0, dtype=f32))
         recs["train_reduce"].add(TS, 2, err, ms, pms, M * 3 * C * 2,
                                  M * 3 * C, PEAK_F32_FLOPS, lms,
-                                 launches_per_call=2)
+                                 device_ms=dms)
         del dR, v, dq
         torch.cuda.empty_cache()
     log(f"sum_parts of K2's gelu backward, K5, K6 and K8, per {per}: "
-        f"{sp['calls']} calls, kernel {sp['ms']:.4f} ms, plain "
-        f"{sp['plain_ms']:.4f} ms, torch.sum {sp['library_ms']:.4f} ms")
+        f"{sp['calls']} calls, kernel {sp['ms']:.4f} ms (device "
+        f"{sp['device_ms']:.4f} ms), plain {sp['plain_ms']:.4f} ms, "
+        f"torch.sum {sp['library_ms']:.4f} ms")
 
 
 def train_batch(cfg, device):
@@ -2099,6 +2180,12 @@ def stage_bounds():
     return out
 
 
+# the kernels of csrc/ln_rows.cu and csrc/train_reduce.cu, whose template
+# instances the profile lists apart
+PROFILE_FAMILIES = {"ln_rows": ("ln_rows_kernel", "ln_rows_wide_kernel"),
+                    "train_reduce": ("colsum_kernel", "ls_bwd_kernel")}
+
+
 def profile_window(fn, what, top=14):
     """Device time of one call of ``fn`` by kernel name (torch.profiler),
     and the device's idle share of the call's wall time."""
@@ -2126,6 +2213,12 @@ def profile_window(fn, what, top=14):
     for key, us, n in rows[:top]:
         log(f"  {us / 1e3:9.3f} ms {100 * us / max(busy, 1):5.1f}%  "
             f"x{n:<4d} {key[:90]}")
+    fams = {k: [(us, n) for key, us, n in rows
+                if any(f"::{name}<" in key for name in names)]
+            for k, names in PROFILE_FAMILIES.items()}
+    log("  device time by kernel, all its instances: " + "; ".join(
+        f"{k} {sum(us for us, _ in v) / 1e3:.3f} ms x{sum(n for _, n in v)}"
+        for k, v in fams.items()))
     host = [(e.key, e.self_cpu_time_total, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CPU]
     host.sort(key=lambda r: -r[1])

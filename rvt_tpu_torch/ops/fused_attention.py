@@ -40,7 +40,8 @@ Training (``ops/fused_train.py``) adds the backward kernels of the pair:
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import functools
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -137,6 +138,35 @@ def ln_rows_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return _ln_fwd(x.float(), scale, bias, eps)[0]
 
 
+_LN_NV_MAX = 8  # vectors a lane K1 is compiled for; wider rows: a warp a row
+
+
+class LnRowsPlan(NamedTuple):
+    vec: int    # elements a load (16 bytes where C allows, else 1)
+    group: int  # lanes a row (a power of two up to 32): 32 / group rows a warp
+    nv: int     # vectors a lane; 0: the wide kernel, a warp a row
+
+
+@functools.lru_cache(maxsize=None)
+def ln_rows_plan(C: int, itemsize: int) -> LnRowsPlan:
+    """K1's lane map for rows of C elements of ``itemsize`` bytes: lane l
+    of a row's group holds vectors l, l + group, ... (masked past C). It
+    depends on C and the input type alone, so a row's result does not
+    depend on M or the grid. The presets' widths fill every lane: the
+    group is the largest power of two (up to 32) dividing the row's
+    vectors; where that leaves more than 4 a lane, the row is spread over
+    all 32 lanes."""
+    vec = 16 // itemsize
+    if C % vec:
+        vec = 1
+    nvec = C // vec
+    group = min(nvec & -nvec, 32)
+    nv = nvec // group
+    if nv > 4:
+        group, nv = 32, -(-nvec // 32)
+    return LnRowsPlan(vec, group, nv if nv <= _LN_NV_MAX else 0)
+
+
 def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             eps: float, *, with_f32: bool = False, plain: bool = False):
     """LayerNorm over the last axis of ``x`` (f32 or bf16) -> bf16. With
@@ -151,13 +181,15 @@ def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     need(x.dtype in (torch.float32, torch.bfloat16)
          and s.dtype == b.dtype == torch.bfloat16 and s.numel() == C,
          "ln_rows: x f32/bf16 [..., C], scale/bias bf16 [C]")
-    y = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
-    yf = torch.empty(x.shape, dtype=torch.float32,
-                     device=x.device) if with_f32 else None
+    # empty_like: under half of torch.empty's host time (a launch's host
+    # time paces the small per-step calls)
+    y = torch.empty_like(x, dtype=torch.bfloat16)
+    yf = torch.empty_like(x, dtype=torch.float32) if with_f32 else None
     M = x.numel() // C
     err = kernels.lib("ln_rows").rvt_ln_rows(
-        ptr(x), int(x.dtype == torch.float32), ptr(s), ptr(b), ptr(y),
-        ptr(yf) if yf is not None else None, M, C, float(eps),
+        x.data_ptr(), int(x.dtype == torch.float32), s.data_ptr(),
+        b.data_ptr(), y.data_ptr(), yf.data_ptr() if with_f32 else None, M,
+        C, float(eps), *ln_rows_plan(C, x.element_size()), sm_count(x),
         stream_ptr(x))
     check(err, "ln_rows")
     LN_ROWS.launches += 1
@@ -514,25 +546,103 @@ def attention_block_params(block, skip_first_norm: bool
 
 
 def _rows_per_block(M: int) -> int:
-    """Rows per block of the column-sum kernels: at most 1024 partial rows
-    for ``sum_parts`` to add, at least 64 rows per block."""
+    """Rows per block of K5's column-sum partials: at most 1024 partial
+    rows for ``sum_parts`` to add, at least 64 rows per block."""
     rpb = max(64, -(-M // 1024))
     return -(-rpb // 8) * 8
 
 
+_RED_THREADS, _RED_UNROLL = 256, 4  # csrc/train_reduce.cu's THREADS, UNROLL
+_RED_BLOCKS = 528  # blocks wanted: four an SM of a 132-SM H100 (a constant,
+#                    not the card's count, so that the sum order is too)
+_RED_FINAL = 32    # partial rows a thread of the finishing block adds at most
+_RED_TICKETS = 1024  # > the column tiles of a split sum (< _RED_BLOCKS)
+# Per device: (tickets, f32 partials), kept from call to call
+_WORKSPACE: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+class ReducePlan(NamedTuple):
+    chunks: int  # row chunks, each summed by its own blocks
+    rows: int    # rows a chunk
+    vec: int     # columns a thread owns (16 bytes of input where N allows)
+    tx: int      # column vectors a block's tile
+    ty: int      # row lanes a block
+
+    def blocks(self, N: int) -> int:
+        """Blocks of a launch over N columns: column tiles x row chunks."""
+        return -(-(N // self.vec) // self.tx) * self.chunks
+
+
+@functools.lru_cache(maxsize=None)
+def reduce_plan(M: int, N: int, itemsize: int = 4) -> ReducePlan:
+    """How ``train_reduce`` splits the column sums of an [M, N] array of
+    ``itemsize``-byte elements: a function of the shape alone, so the sum
+    order is the same on every card. Up to 16 column vectors and 256 // tx
+    row lanes a block (fewer lanes where the rows cannot give each
+    ``_RED_UNROLL``); the rows in chunks until about ``_RED_BLOCKS``
+    blocks, each lane keeping at least two batches of ``_RED_UNROLL`` rows
+    and the finishing block at most ``_RED_FINAL`` partials a thread."""
+    vec = 16 // itemsize
+    while N % vec:
+        vec //= 2
+    nv = N // vec
+    # 8-16 vectors a row (128-256 bytes of f32) across a tile, a divisor of
+    # nv where there is one; the rest of the block's 256 threads row lanes
+    tx = nv if nv <= 16 else next((d for d in range(16, 7, -1) if nv % d == 0),
+                                  16)
+    ty = _RED_THREADS // tx
+    while ty > 1 and ty * _RED_UNROLL > M:
+        ty //= 2
+    tx = min(nv, _RED_THREADS // ty)
+    tiles = -(-nv // tx)
+    chunks = max(1, min(-(-_RED_BLOCKS // tiles), _RED_FINAL * ty,
+                        M // (ty * 2 * _RED_UNROLL)))
+    rows = -(-M // chunks)
+    return ReducePlan(-(-M // rows), rows, vec, tx, ty)
+
+
+def _reduce_workspace(like: torch.Tensor, floats: int):
+    """The device's ``train_reduce`` workspace: the tickets, one int a
+    column tile, zeroed once here and reset by each finishing block; and
+    room for ``floats`` f32 partials, grown when a call needs more. Kept
+    from call to call: the port launches on one stream, so one launch's
+    partials are read before the next launch writes them."""
+    dev = like.get_device()
+    ws = _WORKSPACE.get(dev)
+    if ws is None or ws[1].numel() < floats:
+        tickets = ws[0] if ws is not None else torch.zeros(
+            _RED_TICKETS, dtype=torch.int32, device=like.device)
+        ws = _WORKSPACE[dev] = (tickets, torch.empty(
+            max(floats, 1 << 16), dtype=torch.float32, device=like.device))
+    return ws
+
+
+def _reduce_launch(name: str, fn: str, args: tuple, plan: ReducePlan,
+                   nout: int, like: torch.Tensor) -> None:
+    """One ``train_reduce`` launch: ``args`` then the plan, the partials
+    (``nout`` result columns a chunk), the tickets and the stream."""
+    tickets, part = _reduce_workspace(like, plan.chunks * nout)
+    err = getattr(kernels.lib("train_reduce"), fn)(
+        *args, *plan, part.data_ptr(), tickets.data_ptr(), stream_ptr(like))
+    check(err, name)
+    TRAIN_REDUCE.launches += 1
+
+
 def sum_parts(part: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
-    """part [n, ...] f32 -> its sum over the first axis, in order (the
-    second pass of every split sum)."""
+    """part [n, ...] f32 -> its sum over the first axis, in a fixed order
+    (the second pass of K2's gelu backward, K5, K6 and K8)."""
     if plain or not part.is_cuda:
         return part.sum(0)
     check_operands("sum_parts", part)
-    need(part.dtype == torch.float32, "sum_parts: f32 partials")
-    out = torch.empty(part.shape[1:], dtype=torch.float32, device=part.device)
-    err = kernels.lib("train_reduce").rvt_sum_parts(
-        ptr(part), ptr(out), part.shape[0], out.numel(), stream_ptr(part))
-    check(err, "sum_parts")
-    TRAIN_REDUCE.launches += 1
-    return out
+    need(part.dtype == torch.float32 and part.dim() >= 2
+         and part.shape[0] > 0, "sum_parts: f32 partials [n > 0, ...]")
+    P = part.shape[0]
+    N = part.numel() // P
+    out = part.new_empty(N)
+    _reduce_launch("sum_parts", "rvt_sum_parts",
+                   (part.data_ptr(), out.data_ptr(), P, N), reduce_plan(P, N),
+                   N, part)
+    return out if part.dim() == 2 else out.view(part.shape[1:])
 
 
 def col_sum(x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
@@ -542,16 +652,14 @@ def col_sum(x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
         return x.float().sum(0)
     M, N = x.shape
     check_operands("col_sum", x)
-    need(x.dtype in (torch.float32, torch.bfloat16), "col_sum: f32/bf16")
-    rpb = _rows_per_block(M)
-    part = torch.empty((-(-M // rpb), N), dtype=torch.float32,
-                       device=x.device)
-    err = kernels.lib("train_reduce").rvt_colsum(
-        ptr(x), int(x.dtype == torch.float32), ptr(part), M, N, rpb,
-        stream_ptr(x))
-    check(err, "col_sum")
-    TRAIN_REDUCE.launches += 1
-    return sum_parts(part)
+    need(x.dtype in (torch.float32, torch.bfloat16) and M > 0,
+         "col_sum: f32/bf16 [M > 0, N]")
+    out = x.new_empty(N, dtype=torch.float32)
+    _reduce_launch("col_sum", "rvt_colsum",
+                   (x.data_ptr(), int(x.dtype == torch.float32),
+                    out.data_ptr(), M, N),
+                   reduce_plan(M, N, x.element_size()), N, x)
+    return out
 
 
 def layer_scale_bwd_plain(dR: torch.Tensor, v: torch.Tensor,
@@ -572,19 +680,14 @@ def layer_scale_bwd(dR: torch.Tensor, v: torch.Tensor, gamma: torch.Tensor,
     g = gamma.reshape(-1)
     check_operands("layer_scale_bwd", dR, v, g)
     need(dR.dtype == g.dtype == torch.float32 and v.dtype == torch.bfloat16
-         and tuple(v.shape) == (M, C) and g.numel() == C,
-         "layer_scale_bwd: dR f32 [M, C], v bf16 [M, C], gamma f32 [C]")
-    rpb = _rows_per_block(M)
-    d = torch.empty((M, C), dtype=torch.bfloat16, device=dR.device)
-    part = torch.empty((-(-M // rpb), 2, C), dtype=torch.float32,
-                       device=dR.device)
-    err = kernels.lib("train_reduce").rvt_ls_bwd(
-        ptr(dR), ptr(v), ptr(g), ptr(d), ptr(part), M, C, rpb,
-        stream_ptr(dR))
-    check(err, "layer_scale_bwd")
-    TRAIN_REDUCE.launches += 1
-    sums = sum_parts(part)
-    return d, sums[0], sums[1]
+         and tuple(v.shape) == (M, C) and g.numel() == C and M > 0,
+         "layer_scale_bwd: dR f32 [M > 0, C], v bf16 [M, C], gamma f32 [C]")
+    d = torch.empty_like(v)
+    sums = dR.new_empty(2 * C)  # the sums of d, then of v * dR
+    _reduce_launch("layer_scale_bwd", "rvt_ls_bwd",
+                   (dR.data_ptr(), v.data_ptr(), g.data_ptr(), d.data_ptr(),
+                    sums.data_ptr(), M, C), reduce_plan(M, C), 2 * C, dR)
+    return d, sums[:C], sums[C:]
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ launch; ``check`` raises on a nonzero value.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -35,10 +36,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
 _F = ctypes.c_float
+# train_reduce's plan arguments: chunks, rows a chunk, vec, tx, ty
+# (``fused_attention.reduce_plan``)
+_REDUCE_PLAN = (_I, _L, _I, _I, _I)
 # The exported launchers of each source and their C signatures
 # (argtypes); each returns an int, cudaGetLastError() after the launch.
 SIGNATURES = {
-    "ln_rows": {"rvt_ln_rows": (_P, _I, _P, _P, _P, _P, _I, _I, _F, _P)},
+    "ln_rows": {"rvt_ln_rows": (_P, _I, _P, _P, _P, _P, _L, _I, _F)
+                + (_I,) * 4 + (_P,)},
     "gemm_bf16": {"rvt_gemm_bf16": (_P,) * 8 + (_I,) * 5 + (_P,)},
     "partition_attention": {
         "rvt_partition_attention": (_P, _P) + (_I,) * 8 + (_F, _P)},
@@ -58,9 +63,10 @@ SIGNATURES = {
                       "rvt_lstm_bwd_scan": (_P,) * 11 + (_I,) * 5 + (_P,),
                       "rvt_lstm_bwd_scan_plan": (_I,) * 3 + (_P,)},
     "train_reduce": {
-        "rvt_sum_parts": (_P, _P, _I, _L, _P),
-        "rvt_colsum": (_P, _I, _P, _L, _I, _I, _P),
-        "rvt_ls_bwd": (_P, _P, _P, _P, _P, _L, _I, _I, _P)},
+        "rvt_sum_parts": (_P, _P, _L, _L) + _REDUCE_PLAN + (_P, _P, _P),
+        "rvt_colsum": (_P, _I, _P, _L, _L) + _REDUCE_PLAN + (_P, _P, _P),
+        "rvt_ls_bwd": (_P, _P, _P, _P, _P, _L, _I) + _REDUCE_PLAN
+        + (_P, _P, _P)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -164,13 +170,22 @@ def check_operands(name: str, *tensors: torch.Tensor) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on the card ``t`` lies on, as the raw
+    pointer (the accessor PyTorch's generated code uses: building a
+    ``torch.cuda.Stream`` costs several microseconds of host time a
+    launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def sm_count(t: torch.Tensor) -> int:
-    """Streaming multiprocessors of the card ``t`` lies on (the split
-    sums size their partial buffers by it)."""
-    return torch.cuda.get_device_properties(t.device).multi_processor_count
+    """Streaming multiprocessors of the card ``t`` lies on (K6 sizes its
+    splits, K1 its grid by it)."""
+    return _sm_count(t.get_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

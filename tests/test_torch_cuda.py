@@ -303,6 +303,119 @@ def test_train_reduce_kernels(dev):
     _rel_close(got[2], ref[2], 1e-5)
 
 
+_PRESET_C = [32, 48, 64, 96, 128, 192, 256, 384, 512]
+
+
+@pytest.mark.parametrize("with_f32", [False, True], ids=["y", "y+yf"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C", _PRESET_C)
+def test_ln_rows_kernel_every_width(dev, C, dtype, with_f32):
+    """K1 at every preset width, f32 and bf16 rows, with and without the
+    f32 copy; the same rows give the same bits at 8 and 168 frames' worth
+    of rows (the per-step and whole-window launches), and two runs agree."""
+    from rvt_tpu_torch.ops import fused_attention as fa
+
+    frame = 80  # rows of one gen1 stage-4 frame (8 x 10)
+    x = _randn(dev, 168 * frame, C, scale=2.0, dtype=dtype) + 0.5
+    s, b = _randn(dev, C, seed=1) + 1, _randn(dev, C, seed=2)
+    n = fa.LN_ROWS.launches
+    got = fa.ln_rows(x, s, b, 1e-5, with_f32=with_f32)
+    assert fa.LN_ROWS.launches == n + 1
+    y = got[0] if with_f32 else got
+    _close(y, fa.ln_rows_plain(x, s, b, 1e-5))
+    if with_f32:
+        assert torch.equal(got[1], y.float())
+    again = fa.ln_rows(x, s, b, 1e-5, with_f32=with_f32)
+    assert torch.equal(y, again[0] if with_f32 else again)
+    for lo in (0, 37 * frame):  # 8 frames from the start and from within
+        part = fa.ln_rows(x[lo:lo + 8 * frame].contiguous(), s, b, 1e-5,
+                          with_f32=with_f32)
+        assert torch.equal(part[0] if with_f32 else part,
+                           y[lo:lo + 8 * frame])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C", [33, 40, 100, 1040])
+def test_ln_rows_kernel_other_widths(dev, C, dtype):
+    """K1 at widths no preset has: 1-element loads (33; 100 for bf16),
+    lanes idle past C (40), a warp a row past 8 vectors a lane (1040
+    f32)."""
+    from rvt_tpu_torch.ops import fused_attention as fa
+
+    x = _randn(dev, 300, C, scale=2.0, dtype=dtype) + 0.5
+    s, b = _randn(dev, C, seed=1) + 1, _randn(dev, C, seed=2)
+    y, yf = fa.ln_rows(x, s, b, 1e-5, with_f32=True)
+    _close(y, fa.ln_rows_plain(x, s, b, 1e-5))
+    assert torch.equal(yf, y.float())
+
+
+@pytest.mark.parametrize("M", [13440, 13441, 5])
+@pytest.mark.parametrize("C", _PRESET_C)
+def test_col_sum_and_layer_scale_bwd_every_width(dev, C, M):
+    """``col_sum`` at N = 3C (bf16 and f32) and ``layer_scale_bwd`` at C,
+    at the stage-4 train rows, a ragged count and a few rows: one launch
+    each, against the plain sums, bit for bit across two runs."""
+    from rvt_tpu_torch.ops import fused_attention as fa
+
+    dq = _randn(dev, M, 3 * C)
+    for x in (dq, dq.float()):
+        n = fa.TRAIN_REDUCE.launches
+        got = fa.col_sum(x)
+        assert fa.TRAIN_REDUCE.launches == n + 1
+        _rel_close(got, x.float().sum(0), 1e-5)
+        assert torch.equal(got, fa.col_sum(x))
+    dR = _randn(dev, M, C, dtype=torch.float32, seed=1)
+    v = _randn(dev, M, C, seed=2)
+    g = _randn(dev, C, scale=0.3, dtype=torch.float32, seed=3)
+    n = fa.TRAIN_REDUCE.launches
+    got = fa.layer_scale_bwd(dR, v, g)
+    assert fa.TRAIN_REDUCE.launches == n + 1
+    ref = fa.layer_scale_bwd_plain(dR, v, g)
+    assert torch.equal(got[0], ref[0])
+    _rel_close(got[1], ref[1], 1e-5)
+    _rel_close(got[2], ref[2], 1e-5)
+    again = fa.layer_scale_bwd(dR, v, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("C", [33, 34])
+def test_train_reduce_narrow_vectors(dev, C):
+    """``col_sum`` (f32 and bf16) and ``layer_scale_bwd`` where 16 bytes do
+    not divide the row: 2- and 1-element vectors, split into chunks."""
+    from rvt_tpu_torch.ops import fused_attention as fa
+
+    dq = _randn(dev, 4001, 3 * C)
+    for x in (dq, dq.float()):
+        _rel_close(fa.col_sum(x), x.float().sum(0), 1e-5)
+    dR = _randn(dev, 4001, C, dtype=torch.float32, seed=1)
+    v = _randn(dev, 4001, C, seed=2)
+    g = _randn(dev, C, scale=0.3, dtype=torch.float32, seed=3)
+    got = fa.layer_scale_bwd(dR, v, g)
+    ref = fa.layer_scale_bwd_plain(dR, v, g)
+    plan = fa.reduce_plan(4001, C)
+    assert plan.vec < 4 and plan.chunks > 1
+    assert torch.equal(got[0], ref[0])
+    _rel_close(got[1], ref[1], 1e-5)
+    _rel_close(got[2], ref[2], 1e-5)
+
+
+@pytest.mark.parametrize("shape", [(13440, 256), (3, 12288), (1024, 2, 64),
+                                   (5, 37), (700, 38)])
+def test_sum_parts_kernel(dev, shape):
+    """``sum_parts`` on K2's gelu partials at gen1 stage 1 ([13440, 256]),
+    a few wide partials, K5's [n, 2, C] and a ragged width: one launch,
+    against torch's sum, bit for bit across two runs."""
+    from rvt_tpu_torch.ops import fused_attention as fa
+
+    part = _randn(dev, *shape, dtype=torch.float32)
+    n = fa.TRAIN_REDUCE.launches
+    got = fa.sum_parts(part)
+    assert fa.TRAIN_REDUCE.launches == n + 1
+    assert got.shape == part.shape[1:]
+    _rel_close(got, part.sum(0), 1e-5)
+    assert torch.equal(got, fa.sum_parts(part))
+
+
 # (B, H, W): 35 pixels a lane (70 rows: one ragged 32-row tile past two),
 # 391 a lane (782 rows over several clusters, the last ragged), 632 rows
 # (gen1 stage 4's 640 less one tile)

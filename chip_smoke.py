@@ -16,14 +16,18 @@ Phases, each of which raises (exit code != 0) when it fails:
      shapes, partition_attention in window and grid mode, lstm_scan at
      T = 21 and at T = 1; and stacked_histogram with zero error on gen1
      events (8 x 32768 over 240x304), on gen4 events retargeted into the
-     360x640 half grid, on a lane whose events all hit one pixel and on a
-     lane with out-of-range and past-counts events. Prints the error
+     360x640 half grid, on a lane whose events all hit one pixel, on a
+     lane with out-of-range and past-counts events, on t out of order,
+     100,000 events in one bin, N = 0, counts = 0 and a total that is not
+     a multiple of 16, with its event and device time at gen1, gen4 ds2
+     and the clustered lane beside each bound and its launches a call.
+     Prints the error
      beside its tolerance and the kernel's, plain version's and one
      library call's times (CUDA events; K4's yardstick cuDNN's
      ``nn.LSTM``, ``nn.LSTMCell`` at T = 1), with the least time the card
      could take (bound), the kernel's TFLOP/s and its share of the bound;
-     for ln_rows and train_reduce also the device time of a CUDA graph of
-     10 calls (no host time between launches);
+     for ln_rows, train_reduce and stacked_histogram also the device time
+     of a CUDA graph of 10 calls (no host time between launches);
      K4 timed as whole ``fused_lstm_scan`` calls (the input product, the
      bf16 cast and the recurrent kernel, all counted as K4's launches);
      then K2 (every epilogue) and K6 at ragged shapes (M in 1, 127, 129,
@@ -90,6 +94,14 @@ Phases, each of which raises (exit code != 0) when it fails:
      step; check that every kernel was launched (K5, K7 and K8 at the
      small preset's widths) and hold the step against the plain step as
      phase 7 does, at phase 7's tolerances;
+ 12. (run after phase 10) ``preset("gen1", "base")`` as shipped
+     (fused_kernels off, f32: the module path at RVT-B's full widths, no
+     kernel launched): the eval step at B = 8, T = 21 over 2 windows
+     (frames/s, the idle share of a profiled window), a per-step forward
+     over one window against the window scan bit for bit, two carried
+     train steps (ms per step, peak memory); then the module path on the
+     card against the same path on the CPU at gen1 tiny (64, 80), T = 2,
+     f32 (states and head outputs within 1e-4 of max|ref|);
  11. check that the calls each kernel was timed at per step are the
      launches its paths made per step; print the kernels line (per
      kernel: launches by path, and ms, plain, bound and library summed
@@ -119,6 +131,7 @@ STEP_SEQ_LEN = SEQ_LEN  # the per-step backbone's window (phase 8)
 EVENTS, RAW_FRAMES, RAW_CALLS = 32768, 4, 21
 STAGES = ((64, 80, 64), (32, 40, 128), (16, 20, 256), (8, 10, 512))
 PART, DIM_HEAD = (8, 10), 32
+CARD = ""  # nvidia-smi's name and power limit, set by main
 
 
 def log(*a):
@@ -845,8 +858,15 @@ def run_main_path():
 
 def check_voxelizer():
     """Phase 3, the voxelizer: stacked_histogram against its plain version
-    with zero error on five event sets. Returns its Record (timed at the
-    raw path's gen1 shape, one launch per raw step)."""
+    with zero error on gen1 events, gen4 events retargeted into the ds2
+    half grid (and against full resolution + 1::2), a clustered lane, out
+    of range events, bin edges, t out of order, more than 65,535 events
+    in one bin, N = 0, counts = 0, counts > N and a total that is not a
+    multiple of 16. Times the gen1 raw shape, gen4 ds2 and the clustered
+    lane (event time, and the device time of a CUDA graph of 10 calls)
+    beside each bound; prints the kernel launches a call. Returns its
+    Record (timed at the raw path's gen1 shape, one wrapper call per raw
+    step)."""
     import torch
 
     from rvt_tpu_torch.inference import ds2_retarget
@@ -859,24 +879,49 @@ def check_voxelizer():
     g = torch.Generator(device=dev).manual_seed(2)
     B, N, bins = BATCH, EVENTS, 10
 
-    def events(H, W):
+    def events(H, W, n=N, lanes=B):
         def ints(hi):
-            return torch.randint(0, hi, (B, N), generator=g, device=dev,
+            return torch.randint(0, hi, (lanes, n), generator=g, device=dev,
                                  dtype=torch.int32)
         t = torch.sort(ints(50_000), dim=1).values
-        counts = torch.full((B,), N - 17, dtype=torch.int32, device=dev)
+        counts = torch.full((lanes,), max(n - 17, 0), dtype=torch.int32,
+                            device=dev)
         return [ints(W), ints(H), ints(2), t, counts]
 
     def check(label, ev, H, W):
+        n = vx.STACKED_HISTOGRAM.launches
         got = vx.stacked_histogram_batched(*ev, bins, H, W)
+        if vx.STACKED_HISTOGRAM.launches != n + 1:
+            fail("stacked_histogram: the wrapper did not count its call")
         ref = vx.stacked_histogram_plain(*ev, bins, H, W)
-        err = float((got.int() - ref.int()).abs().max())
+        err = float((got.int() - ref.int()).abs().max()) if ref.numel() else 0.0
         log(f"  stacked_histogram[{label}]: max|err| {err:g} (tolerance 0: "
             f"integer counts), {int(ref.sum())} events counted, "
-            f"max count {int(ref.max())}")
+            f"max count {int(ref.max()) if ref.numel() else 0}")
         if not torch.equal(got, ref):
             fail(f"stacked_histogram[{label}] differs from its plain version")
         return got, err
+
+    def timed(label, ev, H, W):
+        """Event and device time beside the bound: each kept event's x,
+        y, p, t read once, counts read, uint8 out; ~10 operations per
+        event for its bin, one per output bin to narrow."""
+        lanes, n = ev[0].shape
+        plan = vx.histogram_plan(lanes, n, bins, H, W)
+        plane = 2 * bins * H * W
+        fn = lambda: vx.stacked_histogram_batched(*ev, bins, H, W)  # noqa
+        ms, dms = time_ms(fn, 20), device_ms_of(fn)
+        n_valid = int(torch.clamp(ev[4], 0, n).sum())
+        nbytes = 16 * n_valid + 4 * lanes + lanes * plane
+        ops = 10 * n_valid + lanes * plane
+        bound = max(nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS) * 1e3
+        log(f"  stacked_histogram time[{label}]: event {ms:.4f} ms, device "
+            f"{dms:.4f} ms, bound {bound:.4f} ms ({bound / dms:.1%} of it "
+            f"by device time, {bound / ms:.1%} by event time); "
+            f"{plan.launches} kernel launches a call (bucket, "
+            f"tile), {plan.tiles} tiles of {plan.tile_bins} bins; "
+            f"{CARD}")
+        return ms, dms, nbytes, ops, n_valid
 
     log(f"voxelizer: {B} lanes x {N} events")
     ev = events(240, 304)
@@ -885,7 +930,8 @@ def check_voxelizer():
     # held against voxelizing 720x1280 and taking every odd pixel
     ev4 = events(720, 1280)
     x2, y2 = ds2_retarget(ev4[0], ev4[1], bins, 360, 640)
-    half, e = check("gen4 ds2 360x640", [x2, y2] + ev4[2:], 360, 640)
+    ev4d = [x2, y2] + ev4[2:]
+    half, e = check("gen4 ds2 360x640", ev4d, 360, 640)
     err = max(err, e)
     full = vx.stacked_histogram_batched(*ev4, bins, 720, 1280)
     if not torch.equal(half, full[..., 1::2, 1::2]):
@@ -911,18 +957,42 @@ def check_voxelizer():
               + 1000).to(torch.int32)
     evt[4] = (spans + 1).to(torch.int32)
     err = max(err, check("bin edges", evt, 240, 304)[1])
+    # t out of order (the bins span t[b, 0] .. t[b, counts - 1]); lane 2
+    # counts past N
+    evu = [a.clone() for a in ev]
+    evu[3] = torch.randint(0, 50_000, (B, N), generator=g, device=dev,
+                           dtype=torch.int32)
+    evu[4][2] = N + 100
+    err = max(err, check("unsorted t, counts > N", evu, 240, 304)[1])
+    # 100,000 events in one bin of lane 0: a counter past 65,535
+    evh = events(240, 304, 100_000, 2)
+    evh[0][0], evh[1][0], evh[2][0], evh[3][0] = 5, 6, 1, 9
+    evh[4][0] = 100_000
+    got, e = check("100000 events in one bin", evh, 240, 304)
+    err = max(err, e)
+    if int(got[0].max()) != 255:
+        fail("stacked_histogram: the hot bin did not saturate")
+    # no events, no valid events, a total that is not a multiple of 16
+    e0 = [a[:, :0].contiguous() for a in ev[:4]] + [ev[4]]
+    err = max(err, check("N = 0", e0, 240, 304)[1])
+    ez = [a.clone() for a in ev]
+    ez[4].zero_()
+    err = max(err, check("counts = 0", ez, 240, 304)[1])
+    err = max(err, check("3 lanes of 7x9: total % 16 = 4",
+                         events(7, 9, lanes=3), 7, 9)[1])
 
     H, W = 240, 304
     plane = 2 * bins * H * W
-    ms = time_ms(lambda: vx.stacked_histogram_batched(*ev, bins, H, W), 20)
+    ms, dms, nbytes, ops, _ = timed("gen1 raw cell 240x304", ev, H, W)
+    timed("gen4 ds2 360x640", ev4d, 360, 640)
+    timed("clustered lane", evc, H, W)
     pms = time_ms(lambda: vx.stacked_histogram_plain(*ev, bins, H, W))
     flat = vx.flat_bins(*ev, bins, H, W).reshape(-1)
     lms = time_ms(lambda: torch.bincount(flat, minlength=B * plane + 1), 20)
-    n_valid = int(torch.clamp(ev[4], 0, N).sum())
-    # each kept event's x, y, p, t read once, counts read, uint8 out;
-    # ~10 operations per event for its bin, one per output bin to narrow
-    rec.add("raw step", 1, err, ms, pms, 16 * n_valid + 4 * B + B * plane,
-            10 * n_valid + B * plane, PEAK_F32_FLOPS, lms)
+    log(f"stacked_histogram: {vx.histogram_plan(B, N, bins, H, W).launches}"
+        " kernel launches per call (one wrapper call, counted once)")
+    rec.add("raw step", 1, err, ms, pms, nbytes, ops, PEAK_F32_FLOPS, lms,
+            device_ms=dms)
     return rec
 
 
@@ -1698,14 +1768,14 @@ def hold_train_step_vs_plain(model, opt, cfg, states, batch, step, label):
     # cell) where a 1e-3 move of one stem weight moved it by 4 %.
     pmodel, popt = copy.deepcopy((model, opt))
     kept = {}
-    scan = step_mod.fused_train_scan_backbone
-    step_mod.fused_train_scan_backbone = shared_features(scan, kept)
+    scan = step_mod.scan_backbone
+    step_mod.scan_backbone = shared_features(scan, kept)
     try:
         st_p, m_p = make_train_step(pmodel, cfg, popt, plain=True)(states,
                                                                   *batch)
         st_k, m_k = step(states, *batch)
     finally:
-        step_mod.fused_train_scan_backbone = scan
+        step_mod.scan_backbone = scan
     for i, (fk, fp) in enumerate(zip(kept["own"], kept["first"])):
         compare(f"{label} features {i + 1} vs plain", fk, fp, 5e-2, 2e-2,
                 5e-3)
@@ -2110,8 +2180,8 @@ def shared_features(scan, kept):
     ``kept["own"]`` and returns the first call's values, with its own
     gradient (straight through: f + (first - f), the difference detached,
     exact in f32 and rounded back to the first call's bf16 values)."""
-    def run(model, ev_seq, init_states, **kw):
-        feats, states = scan(model, ev_seq, init_states, **kw)
+    def run(model, ev_seq, init_states, *args, **kw):
+        feats, states = scan(model, ev_seq, init_states, *args, **kw)
         if "first" not in kept:
             kept["first"] = tuple(f.detach() for f in feats)
             return feats, states
@@ -2180,6 +2250,142 @@ def stage_bounds():
     return out
 
 
+def all_counters():
+    """Every kernel's launch counter."""
+    from rvt_tpu_torch.ops import voxelization as vx
+
+    return stage_step_counters() + (vx.STACKED_HISTOGRAM,)
+
+
+def run_shipped_preset():
+    """Phase 12: ``preset("gen1", "base")`` as it stands (fused_kernels
+    off, f32: the module path at RVT-B's full widths, no kernel), random
+    weights from seed 0 with gammas drawn at 0.1. The eval step at B = 8,
+    T = 21 over 2 windows after a warm-up (frames/s, the idle share of a
+    profiled window), a per-step forward over one window against the
+    window scan bit for bit, two carried train steps (ms per step, peak
+    memory), every kernel counter still 0; then the module path on the
+    card against the same path on the CPU at gen1 tiny (64, 80), B = 2,
+    T = 2: states and head outputs within 1e-4 of max|ref|. Returns
+    frames/s, ms per step and peak GiB."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from rvt_tpu_torch.config import preset
+    from rvt_tpu_torch.models import detector as det
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.training.optimizer import make_optimizer
+    from rvt_tpu_torch.training.step import make_eval_step, make_train_step
+
+    cfg = preset("gen1", "base")
+    if det.stage_routes(cfg.model, "train") != ["modules"] * 4:
+        fail("the shipped preset does not route to the module path")
+    model = gen1_base_model(cfg)
+    for c in all_counters():
+        c.reset()
+    rng = np.random.RandomState(0)
+    ev = torch.from_numpy(rng.randint(0, 8, size=(BATCH, SEQ_LEN, 240, 304,
+                                                  20)).astype(np.uint8)).cuda()
+    frame_valid = torch.from_numpy(
+        (np.arange(SEQ_LEN) % LABEL_EVERY == LABEL_EVERY - 1)[None].repeat(
+            BATCH, 0)).cuda()
+    is_first = torch.zeros(BATCH, dtype=torch.bool, device="cuda")
+    step = make_eval_step(model, cfg)
+    out = step(zero_states(cfg.model.backbone, BATCH, device="cuda"), ev,
+               frame_valid, is_first)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        out = step(out.states, ev, frame_valid, is_first)
+    dets_sum = float(out.dets.sum())
+    torch.cuda.synchronize()
+    fps = BATCH * SEQ_LEN * 2 / (time.perf_counter() - t0)
+    if not np.isfinite(dets_sum) or not all(
+            bool(torch.isfinite(h).all()) for h, _ in out.states):
+        fail("shipped preset: non-finite eval outputs")
+    log(f"shipped preset eval step (f32, modules): {fps:.1f} frames/s "
+        f"over 2 windows of {BATCH} x {SEQ_LEN}; {CARD}")
+    profile_window(lambda: step(out.states, ev, frame_valid, is_first),
+                   "shipped-preset window")
+    # a step at a time over one window vs the window scan
+    from rvt_tpu_torch.training.step import pad_ev_repr
+
+    with torch.inference_mode():
+        seq = pad_ev_repr(ev, cfg.model.backbone.in_res_hw, None).transpose(
+            0, 1)
+        feats, states = det.scan_backbone(model, seq, out.states)
+        st = out.states
+        for t in range(SEQ_LEN):
+            f, st = model.forward_backbone(seq[t], st)
+            for i, s in enumerate(cfg.model.fpn.in_stages):
+                if not torch.equal(f[s], feats[i][t]):
+                    fail(f"per-step feature {s} at t={t} differs from the "
+                         "window scan")
+        if not all(torch.equal(a, b) for x, y in zip(st, states)
+                   for a, b in zip(x, y)):
+            fail("per-step states differ from the window scan")
+    log("  per-step forward over one window equals the window scan bit for "
+        "bit (features and states)")
+
+    opt = make_optimizer(model.parameters(), cfg.training)
+    train = make_train_step(model, cfg, opt)
+    batch = train_batch(cfg, "cuda")
+    states = zero_states(cfg.model.backbone, BATCH, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, metrics = train(states, *batch)
+        loss = float(metrics["loss"])
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(loss) or not np.isfinite(
+                float(metrics["grad_norm"])):
+            fail(f"shipped preset: non-finite train step ({metrics})")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"shipped preset train step (f32, modules, checkpoint per step): "
+        f"{times[0]:.2f}, {times[1]:.2f} ms, peak {peak:.2f} GiB, loss "
+        f"{loss:.4f}; {CARD}")
+    made = {c.name: c.launches for c in all_counters() if c.launches}
+    if made:
+        fail(f"the shipped preset's module path launched kernels: {made}")
+
+    # the module path on the card vs on the CPU, gen1 tiny, f32
+    tcfg = preset("gen1", "tiny", resolution_hw=(64, 80), sequence_length=2,
+                  max_labeled_frames=2)
+    cpu_model = det.init_detector(tcfg.model, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in cpu_model.named_parameters():
+            if name.endswith(".gamma"):
+                p.normal_(0.0, 0.1, generator=gen)
+    gpu_model = copy.deepcopy(cpu_model).cuda()
+    H, W = tcfg.model.backbone.in_res_hw
+    evs = torch.from_numpy(rng.randint(0, 8, size=(2, 2, 64, 80, 20)
+                                       ).astype(np.uint8))
+    fv = torch.ones(2, 2, dtype=torch.bool)
+    first = torch.ones(2, dtype=torch.bool)
+    ref = make_eval_step(cpu_model, tcfg)(
+        zero_states(tcfg.model.backbone, 2, device="cpu"), evs, fv, first)
+    got = make_eval_step(gpu_model, tcfg)(
+        zero_states(tcfg.model.backbone, 2, device="cuda"), evs.cuda(),
+        fv.cuda(), first.cuda())
+    pairs = [(f"stage {i + 1} {n}", g, r)
+             for i, (gs, rs) in enumerate(zip(got.states, ref.states))
+             for n, g, r in zip(("h", "c"), gs, rs)]
+    pairs.append(("head outputs", got.preds, ref.preds))
+    for name, g, r in pairs:
+        err = float((g.cpu() - r).abs().max())
+        scale = max(float(r.abs().max()), 1e-6)
+        log(f"  card vs CPU, gen1 tiny f32, {name}: max|err| {err:.3e} "
+            f"(tolerance 1e-4 * {scale:.3f})")
+        if err > 1e-4 * scale:
+            fail(f"shipped preset: the card's {name} disagrees with the CPU")
+    return dict(fps=fps, ms=times[1], peak=peak)
+
+
 # the kernels of csrc/ln_rows.cu and csrc/train_reduce.cu, whose template
 # instances the profile lists apart
 PROFILE_FAMILIES = {"ln_rows": ("ln_rows_kernel", "ln_rows_wide_kernel"),
@@ -2245,11 +2451,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    card = subprocess.run(
+    global CARD
+    card = CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log(card)
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     kernels.build_all()
@@ -2276,6 +2484,8 @@ def main() -> int:
     tr_ms, tr_fps, tr_counts = run_trainer_path()
     torch.cuda.empty_cache()
     sm_ms, _ = run_small_train_path()
+    torch.cuda.empty_cache()
+    sh = run_shipped_preset()
     # the calls each record timed per step must be the launches the path
     # made per step (eval: 4 windows; raw: 1 + 21 calls; train: 1 + 5;
     # per-step train: one forward and backward; trainer: 4 + 1 + 1)
@@ -2299,7 +2509,10 @@ def main() -> int:
         f"raw step {raw_fps:.1f} frames/s, MFU {raw_mfu:.2f}%; train step "
         f"{t_ms:.2f} ms, {t_fps:.1f} frames/s, MFU {t_mfu:.2f}%, peak "
         f"{t_peak:.2f} GiB; trainer {tr_ms:.2f} ms per step, "
-        f"{tr_fps:.1f} frames/s; gen1 RVT-S train step {sm_ms:.2f} ms")
+        f"{tr_fps:.1f} frames/s; gen1 RVT-S train step {sm_ms:.2f} ms; "
+        f"shipped gen1 RVT-B (f32, modules) eval {sh['fps']:.1f} frames/s, "
+        f"train {sh['ms']:.2f} ms per step, peak {sh['peak']:.2f} GiB; "
+        f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": [r.d for r in recs.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

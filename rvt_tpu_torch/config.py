@@ -80,8 +80,8 @@ class BackboneConfig:
     # Run the backbone on the hand-written kernels (ops/fused_*.py). As in
     # the JAX package, only configs with this set (and bf16 compute and the
     # shipped block variants, models/detector.py:fused_path_supported) take
-    # the kernels; the others take the JAX package's XLA module path,
-    # which the port has not ported: its entry points raise on them.
+    # the kernels; the others run the module path (models/layers.py), as
+    # the JAX package runs its XLA modules.
     fused_kernels: bool = False
     partition_split_32: int = 2
     embed_dim: int = 64

@@ -7,9 +7,10 @@ that the port's modules use:
 
   backbone/stage{i}/downsample/{conv,norm}  -> backbone.stages.{i-1}.downsample_cf2cl.{conv,norm}
   backbone/stage{i}/block{j}/att_{window,grid}/
-      (norm1|self_attn.qkv|self_attn.proj|ls1|norm2|mlp.fc1|mlp.fc2|ls2)
-                                            -> ...att_blocks.{j}.att_*.(...|mlp.net.0.0|mlp.net.2|...)
-  backbone/stage{i}/lstm/conv1x1            -> backbone.stages.{i-1}.lstm.conv1x1
+      (norm1|self_attn.qkv|self_attn.proj|ls1|norm2|mlp.fc1|mlp.glu.proj|mlp.fc2|ls2)
+                                            -> ...att_blocks.{j}.att_*.(...|mlp.net.0.0|mlp.net.0.proj|mlp.net.2|...)
+  backbone/stage{i}/lstm/{conv1x1,conv3x3_dws}
+                                            -> backbone.stages.{i-1}.lstm.{conv1x1,conv3x3_dws}
   fpn/NAME/... (CSP members m{k})           -> fpn.NAME.... (m.{k})
   head/stem{k}                              -> yolox_head.stems.{k}
   head/{cls,reg}_conv{k}_{j}                -> yolox_head.{cls,reg}_convs.{k}.{j}
@@ -52,6 +53,7 @@ def _attention(rest: Tuple[str, ...], v: np.ndarray):
     names = {("self_attn", "qkv"): "self_attn.qkv",
              ("self_attn", "proj"): "self_attn.proj",
              ("mlp", "fc1"): "mlp.net.0.0", ("mlp", "fc2"): "mlp.net.2",
+             ("mlp", "glu", "proj"): "mlp.net.0.proj",
              ("norm1",): "norm1", ("norm2",): "norm2", ("ls1",): "ls1",
              ("ls2",): "ls2"}
     if mod not in names:
@@ -75,8 +77,8 @@ def _backbone(path: Tuple[str, ...], v: np.ndarray):
     if m:
         key, v = _attention(rest[2:], v)
         return pre + f"att_blocks.{m.group(1)}.{rest[1]}.{key}", v
-    if rest[:2] == ("lstm", "conv1x1"):
-        return (pre + f"lstm.conv1x1.{_LEAF[rest[2]]}",
+    if rest[0] == "lstm" and rest[1] in ("conv1x1", "conv3x3_dws"):
+        return (pre + f"lstm.{rest[1]}.{_LEAF[rest[2]]}",
                 _conv(v) if rest[2] == "kernel" else v)
     raise KeyError(f"unhandled backbone parameter {path}")
 

@@ -9,7 +9,8 @@ the model's device:
        for ds2 configs (gen4) unless ``ds2_direct=False``
     -> optional 2x nearest downsample
     -> pad to the model resolution (uint8; the stem conv casts to bf16)
-    -> single-step recurrent detector (``RVTDetector.forward``)
+    -> single-step recurrent detector (``RVTDetector.forward``: on the
+       kernels, or on the modules where the JAX package runs its modules)
     -> sigmoid, confidence filter and NMS (``ops/boxes.py``)
 
 Only the raw event arrays go to the device and the padded detections
@@ -26,7 +27,7 @@ from rvt_tpu_torch.config import ExperimentConfig
 from rvt_tpu_torch.models.backbone import LstmStates
 from rvt_tpu_torch.models.detector import (RVTDetector,
                                            backbone_kernel_params,
-                                           require_fused_path)
+                                           fused_path_supported)
 from rvt_tpu_torch.ops.boxes import postprocess
 from rvt_tpu_torch.ops.voxelization import stacked_histogram_batched
 from rvt_tpu_torch.training.step import reset_states
@@ -85,8 +86,9 @@ def make_raw_inference_step(model: RVTDetector, cfg: ExperimentConfig, *,
 
     x, y, p, t: [B, N] int32 (t sorted per lane, zero padded); counts: [B]
     int32 valid events per lane; one event frame per lane per call, the
-    recurrent states carried. The backbone's kernel weights are prepared
-    here, once: a later change to the model's parameters needs a new step.
+    recurrent states carried. For a config on the kernels their weights
+    are prepared here, once: a later change to the model's parameters
+    needs a new step.
 
     ``ds2_direct`` (configs with ``downsample_by_factor_2``, gen4):
     voxelize the odd-coordinate events straight into the half-resolution
@@ -97,10 +99,10 @@ def make_raw_inference_step(model: RVTDetector, cfg: ExperimentConfig, *,
     if cfg.model.backbone.stem_s2d:
         raise ValueError("the raw pipeline emits HWC frames; use "
                          "stem_s2d=False")
-    require_fused_path(model.cfg)
     pp = cfg.model.postprocess
     num_classes = cfg.model.head.num_classes
-    params = backbone_kernel_params(model)
+    params = (backbone_kernel_params(model)
+              if fused_path_supported(model.cfg) else None)
 
     @torch.inference_mode()
     def step(states: LstmStates, x: torch.Tensor, y: torch.Tensor,

@@ -1,10 +1,13 @@
-"""Recurrent MaxViT backbone ("MaxViTRNN") parameters and states.
+"""Recurrent MaxViT backbone ("MaxViTRNN"): parameters, states, one step.
 
 Port of ``rvt_tpu/models/backbone.py``: 4 stages, each a strided-conv
-downsample, one window+grid attention pair and a 1x1 ConvLSTM; the
-stage's hidden state is both its output and the FPN's skip feature. The
-serving computation over a whole window is
-``models/detector.py:fused_scan_backbone``.
+downsample, attention pairs and a ConvLSTM; the stage's hidden state is
+both its output and the FPN's skip feature. ``RVTBackbone.forward`` is
+one time step on the modules (the JAX package's XLA module path); the
+serving and training computations over a whole window on the kernels are
+``models/detector.py:fused_scan_backbone`` and
+``fused_train_scan_backbone``, and ``models/detector.py:scan_backbone``
+routes between them as the JAX package's does.
 
 Parameter names follow upstream ``maxvit_rnn.py``
 (``stages.{i}.downsample_cf2cl``, ``stages.{i}.att_blocks.{j}``,
@@ -12,7 +15,7 @@ Parameter names follow upstream ``maxvit_rnn.py``
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -20,7 +23,7 @@ from torch import nn
 from rvt_tpu_torch import resolve_device
 from rvt_tpu_torch.config import BackboneConfig
 from rvt_tpu_torch.models.layers import (ConvDownsample, DWSConvLSTM2d,
-                                         MaxVitAttentionPair)
+                                         Gen, MaxVitAttentionPair)
 
 LstmState = Tuple[torch.Tensor, torch.Tensor]  # (h, c), each [B, H, W, C]
 LstmStates = Tuple[LstmState, ...]
@@ -43,6 +46,29 @@ class RVTStage(nn.Module):
             MaxVitAttentionPair(dim_out, cfg.attention, i == 0)
             for i in range(num_blocks))
         self.lstm = DWSConvLSTM2d(dim_out, cfg.lstm)
+        self.s2d = cfg.stem_s2d and downsample_factor == cfg.stem_patch_size
+
+    def forward(self, x: torch.Tensor, h_c: LstmState,
+                token_mask: Optional[torch.Tensor] = None, *,
+                dtype: torch.dtype, deterministic: bool = True,
+                gen: Gen = None, kernels: bool = False, plain: bool = False
+                ) -> Tuple[torch.Tensor, LstmState]:
+        """One step (``rvt_tpu/models/backbone.py:RVTStage.__call__``):
+        downsample, the mask token where ``token_mask`` [B, h, w] is set
+        (with ``enable_masking``), the attention pairs, the cell. Returns
+        (h_t, (h_t, c_t)), f32. ``kernels``: the blocks may run on the
+        kernels, as the JAX modules do when serving a ``fused_kernels``
+        config in bf16."""
+        x = self.downsample_cf2cl(x, dtype, self.s2d)
+        if token_mask is not None and hasattr(self, "mask_token"):
+            x = torch.where(token_mask[..., None],
+                            self.mask_token.to(x.dtype).reshape(-1), x)
+        for blk in self.att_blocks:
+            x = blk(x, dtype, deterministic, gen, kernels=kernels,
+                    plain=plain)
+        h, c = self.lstm(x, h_c, dtype, deterministic, gen, kernels=kernels,
+                         plain=plain)
+        return h, (h, c)
 
 
 class RVTBackbone(nn.Module):
@@ -61,6 +87,25 @@ class RVTBackbone(nn.Module):
                      enable_token_masking=cfg.enable_masking and i == 0,
                      cfg=cfg)
             for i in range(cfg.num_stages))
+
+    def forward(self, x: torch.Tensor, prev_states: LstmStates,
+                token_mask: Optional[torch.Tensor] = None, *,
+                dtype: torch.dtype, deterministic: bool = True,
+                gen: Gen = None, kernels: bool = False, plain: bool = False
+                ) -> Tuple[Dict[int, torch.Tensor], LstmStates]:
+        """One time step on x [B, H, W, C_in] (uint8 or float, padded;
+        s2d-blocked with ``stem_s2d``): ({1..4: h_t}, new states), as
+        ``rvt_tpu/models/backbone.py:RVTBackbone.__call__``. The token mask
+        reaches stage 1 only."""
+        states, out = [], {}
+        for i, stage in enumerate(self.stages):
+            x, state = stage(x, prev_states[i],
+                             token_mask if i == 0 else None, dtype=dtype,
+                             deterministic=deterministic, gen=gen,
+                             kernels=kernels, plain=plain)
+            states.append(state)
+            out[i + 1] = x
+        return out, tuple(states)
 
 
 def zero_states(cfg: BackboneConfig, batch_size: int, device="cuda",

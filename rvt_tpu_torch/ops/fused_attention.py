@@ -95,8 +95,9 @@ def pair_fusion_ok(H: int, W: int, C: int, part: Tuple[int, int]) -> bool:
     None: the JAX package serves an H x W x C stage on its kernels (its
     partitioned or masked-dense path), and on its XLA modules (erf-gelu,
     LayerScale not folded) beyond 1M elements an image or where neither
-    geometry fits. Only that outcome is copied: the Hopper kernels take
-    both geometries alike."""
+    geometry fits (the port then runs its modules too,
+    ``models/detector.py:stage_routes``). Only that outcome is copied: the
+    Hopper kernels take both geometries alike."""
     if H * W * C > 1024 * 1024:
         return False
     return partition_geometry_ok(H, W, C, part) or dense_attention_ok(H, W)

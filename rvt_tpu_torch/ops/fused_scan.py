@@ -348,11 +348,14 @@ def lstm_scan_bwd_launch(x_seq, w, bb, h0, c0, h_seq, c_seq, dh_seq, dhT,
 
 
 def fused_conv_lstm(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
-                    w: torch.Tensor, b: torch.Tensor
+                    w: torch.Tensor, b: torch.Tensor, *, plain: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One ConvLSTM step (``rvt_tpu/ops/fused_lstm.py:fused_conv_lstm``):
-    ``fused_lstm_scan`` at T = 1. Returns (h_t, c_t) f32."""
-    _, hT, cT = fused_lstm_scan(x.unsqueeze(0).contiguous(), w, b, h, c)
+    ``fused_lstm_scan`` at T = 1 (w [2C, 4C] and b bf16). Returns (h_t,
+    c_t) f32."""
+    _, hT, cT = fused_lstm_scan(x.unsqueeze(0).contiguous(), w.contiguous(),
+                                b, h.contiguous(), c.contiguous(),
+                                plain=plain)
     return hT, cT
 
 

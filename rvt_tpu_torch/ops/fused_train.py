@@ -360,9 +360,9 @@ def train_stage_ok(H: int, W: int, C: int, part: Tuple[int, int], *,
     """Whether ``rvt_tpu/ops/fused_train.py:train_stage_mode(scan=scan)``
     is not None: the JAX package trains an H x W x C stage on its kernels
     over the whole window (``scan``) or per step. Where it does not, it
-    runs the XLA module path (erf-gelu, LayerScale not folded), which the
-    port has not ported, so the port raises there. Only that outcome is
-    copied, not the TPU sizing behind it."""
+    runs the XLA module path (erf-gelu, LayerScale not folded), and so
+    does the port (``models/detector.py:stage_routes``). Only that outcome
+    is copied, not the TPU sizing behind it."""
     per_image = H * W * C
     grad_bytes = 4 * (2 * (3 * C * C + C * C + 8 * C * C) + 8 * C * C)
     if grad_bytes + 30 * per_image <= 56 * 2 ** 20 and per_image <= _SPLIT_MIN:

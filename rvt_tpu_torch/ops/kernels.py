@@ -51,7 +51,7 @@ SIGNATURES = {
                   + (_P,),
                   "rvt_lstm_scan_plan": (_I,) * 5 + (_P,)},
     "stacked_histogram": {
-        "rvt_stacked_histogram": (_P,) * 7 + (_I,) * 6 + (_P,)},
+        "rvt_stacked_histogram": (_P,) * 8 + (_I,) * 10 + (_P,)},
     "ln_rows_bwd": {"rvt_ln_rows_bwd": (_P, _I, _P, _P, _F, _P, _P, _P, _L,
                                         _I, _I, _P)},
     "gemm_bf16_wgrad": {"rvt_gemm_bf16_wgrad": (_P, _P, _P, _L, _I, _I, _I,

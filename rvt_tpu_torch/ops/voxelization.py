@@ -2,10 +2,14 @@
 
 Port of the serving voxelizer of ``rvt_tpu/ops/voxelization.py``. The TPU
 kernel (``stacked_histogram_pallas_batched`` / ``_hist_tile_kernel``)
-sorts events by output tile and sums one-hot products on the matrix unit
-because Mosaic cannot scatter. Hopper can: ``csrc/stacked_histogram.cu``
-adds one per event with atomics into an int32 histogram and saturates it
-to uint8 in a second pass.
+sorts events by output tile and sums one-hot products for each tile on
+the matrix unit. ``csrc/stacked_histogram.cu`` keeps the sort by tile:
+each block of events sorts its events by output tile (16-bit in-tile
+indices and a table of each tile's offset and count), then one block a
+tile counts the entries the event blocks wrote for it in shared memory
+and writes the tile's uint8 bins once (``histogram_plan``). The table
+and the sorted indices are a per-device workspace kept from call to
+call.
 
 The semantics are the Pallas kernel's, not the XLA scatter's: an event
 counts when its index is below its lane's ``counts`` and 0 <= x < W,
@@ -15,6 +19,9 @@ row instead; the two agree on in-range events.)
 """
 from __future__ import annotations
 
+import functools
+from typing import Dict, NamedTuple, Tuple
+
 import torch
 
 from rvt_tpu_torch.ops import kernels
@@ -22,6 +29,70 @@ from rvt_tpu_torch.ops.kernels import (Counter, check, check_operands, need,
                                        ptr, stream_ptr)
 
 STACKED_HISTOGRAM = Counter("stacked_histogram")
+
+# bins of one tile block (csrc/stacked_histogram.cu:kTileBins): 16-bit
+# counters two a word, 48 KB of shared memory, four blocks an SM; a
+# multiple of 16 below 2**16 (the 16-bit in-tile indices)
+HIST_TILE_BINS = 24576
+HIST_EVENTS_PER_BLOCK = 1024  # the bucket kernel's block of events
+HIST_MAX_SPAN = 5632          # csrc/stacked_histogram.cu:kMaxSpan
+
+
+class HistPlan(NamedTuple):
+    """How ``csrc/stacked_histogram.cu`` cuts one call's work."""
+    total: int         # output bins, B * 2*bins*H*W
+    tile_bins: int     # bins of one tile, counted by one block
+    tiles: int         # tile blocks; tile k holds bins [k, k+1) * tile_bins
+    span: int          # the most tiles one lane's plane touches
+    event_blocks: int  # bucket blocks a lane
+    launches: int      # kernel launches a call: bucket, tile
+
+    @property
+    def table_entries(self) -> int:
+        """(offset, count) pairs of the bucket kernel's table, per lane."""
+        return self.event_blocks * self.span
+
+    @property
+    def chunk_entries(self) -> int:
+        """16-bit in-tile indices of the chunk array, per lane."""
+        return self.event_blocks * HIST_EVENTS_PER_BLOCK
+
+
+@functools.lru_cache(maxsize=64)
+def histogram_plan(B: int, N: int, bins: int, height: int,
+                   width: int) -> HistPlan:
+    """The tiles of the flat [B * 2*bins*H*W] output (the last one
+    ragged; a tile may span lanes) and the blocks of one call."""
+    plane = 2 * bins * height * width
+    total = B * plane
+    tiles = max(1, -(-total // HIST_TILE_BINS))
+    span = min(tiles, -(-plane // HIST_TILE_BINS) + 1)
+    if span > HIST_MAX_SPAN:
+        raise ValueError(f"stacked_histogram: a lane of {plane} bins spans "
+                         f"more than {HIST_MAX_SPAN} tiles")
+    return HistPlan(total, HIST_TILE_BINS, tiles, span,
+                    max(1, -(-N // HIST_EVENTS_PER_BLOCK)), 2)
+
+
+_HIST_WS: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _hist_workspace(like: torch.Tensor, table: int, chunk: int):
+    """The device's voxelizer workspace: the bucket kernel's (offset,
+    count) table, int32 [2 * table], and its chunk array of 16-bit in-tile
+    indices, [chunk]; grown when a call needs more. Every entry a call
+    reads, it wrote first: nothing to reset. The port launches on one
+    stream, so one call's chunk is read before the next call writes it."""
+    dev = like.get_device()
+    ws = _HIST_WS.get(dev)
+    if ws is None or ws[0].numel() < 2 * table or ws[1].numel() < chunk:
+        old_t, old_c = (ws[0].numel(), ws[1].numel()) if ws else (0, 0)
+        ws = _HIST_WS[dev] = (
+            torch.empty(max(2 * table, old_t, 1 << 14), dtype=torch.int32,
+                        device=like.device),
+            torch.empty(max(chunk, old_c, 1 << 18), dtype=torch.int16,
+                        device=like.device))
+    return ws
 
 
 def _time_bin_indices(t: torch.Tensor, counts: torch.Tensor,
@@ -31,6 +102,8 @@ def _time_bin_indices(t: torch.Tensor, counts: torch.Tensor,
     (clamped into the array, as JAX's gather clamps). The same f32 steps
     as ``rvt_tpu/ops/voxelization.py:_time_bin_indices``; int32
     differences wrap as there."""
+    if t.shape[1] == 0:
+        return torch.zeros_like(t)
     last = (counts.clamp(min=1) - 1).clamp(max=t.shape[1] - 1).long()
     t0 = t[:, :1]
     t1 = torch.gather(t, 1, last[:, None])
@@ -78,9 +151,10 @@ def stacked_histogram_batched(x: torch.Tensor, y: torch.Tensor,
                               width: int, count_cutoff: int = 255, *,
                               plain: bool = False) -> torch.Tensor:
     """Stacked histogram of a batch of event lanes (the layout of
-    ``stacked_histogram_pallas_batched``): x, y, p, t [B, N] int32, t
-    sorted in each lane, ``counts`` [B] int32 valid leading events (at
-    most N). Returns [B, 2*bins, height, width] uint8."""
+    ``stacked_histogram_pallas_batched``): x, y, p, t [B, N] int32 (t in
+    any order: each lane's time bins span t[b, 0] to t[b, counts - 1]),
+    ``counts`` [B] int32 valid leading events (more than N counts as N).
+    Returns [B, 2*bins, height, width] uint8."""
     if plain or not x.is_cuda:
         return stacked_histogram_plain(x, y, p, t, counts, bins, height,
                                        width, count_cutoff)
@@ -90,15 +164,21 @@ def stacked_histogram_batched(x: torch.Tensor, y: torch.Tensor,
     need(all(a.dtype == torch.int32 and tuple(a.shape) == (B, N)
              for a in (x, y, p, t))
          and counts.dtype == torch.int32 and tuple(counts.shape) == (B,)
-         and bins >= 1 and 0 < count_cutoff <= 255,
+         and bins >= 1 and height >= 1 and width >= 1 and B >= 1
+         and B * N < 2 ** 31 and 0 < count_cutoff <= 255
+         and 2 * bins * height * width + HIST_TILE_BINS < 2 ** 31,
          "stacked_histogram: x, y, p, t int32 [B, N], counts int32 [B], "
-         "bins >= 1, 0 < count_cutoff <= 255")
-    shape = (B, 2 * bins, height, width)
-    scratch = torch.empty(shape, dtype=torch.int32, device=x.device)
-    out = torch.empty(shape, dtype=torch.uint8, device=x.device)
+         "B >= 1, bins, height, width >= 1, B * N < 2**31, a lane's "
+         "2*bins*H*W bins in 31 bits, 0 < count_cutoff <= 255")
+    plan = histogram_plan(B, N, bins, height, width)
+    table, chunk = _hist_workspace(x, B * plan.table_entries,
+                                   B * plan.chunk_entries)
+    out = torch.empty((B, 2 * bins, height, width), dtype=torch.uint8,
+                      device=x.device)
     err = kernels.lib("stacked_histogram").rvt_stacked_histogram(
-        ptr(x), ptr(y), ptr(p), ptr(t), ptr(counts), ptr(scratch), ptr(out),
-        B, N, bins, height, width, count_cutoff, stream_ptr(x))
+        ptr(x), ptr(y), ptr(p), ptr(t), ptr(counts), ptr(table), ptr(chunk),
+        ptr(out), B, N, bins, height, width, count_cutoff, plan.tile_bins,
+        plan.tiles, plan.span, plan.event_blocks, stream_ptr(x))
     check(err, "stacked_histogram")
     STACKED_HISTOGRAM.launches += 1
     return out

@@ -2,8 +2,10 @@
 
 Port of ``rvt_tpu/training/step.py``. The train step (upstream
 ``modules/detection.py:104-158``): reset the LSTM states of restarted
-lanes, scan the backbone over the window with gradients on the
-hand-written forward and backward kernels, gather the labelled frames and
+lanes, scan the backbone over the window with gradients
+(``models/detector.py:scan_backbone``: on the hand-written forward and
+backward kernels where the JAX package runs its own, else on the modules
+under checkpoint), gather the labelled frames and
 their labels, run PAFPN + YOLOX head with batch-statistics BatchNorm, the
 SimOTA YOLOX loss, backpropagate, clip and AdamW; optionally with a
 stage-1 token mask, the training batch's detections (``with_detections``)
@@ -24,9 +26,9 @@ from rvt_tpu_torch.config import ExperimentConfig
 from rvt_tpu_torch.models.backbone import LstmStates
 from rvt_tpu_torch.models.detector import (RVTDetector,
                                            backbone_kernel_params,
-                                           fused_scan_backbone,
-                                           fused_train_scan_backbone,
-                                           init_detector, require_fused_path)
+                                           dropout_rates,
+                                           fused_path_supported,
+                                           init_detector, scan_backbone)
 from rvt_tpu_torch.models.yolox import make_grids_and_strides
 from rvt_tpu_torch.ops.boxes import postprocess
 from rvt_tpu_torch.ops.s2d import s2d_input_hw
@@ -154,16 +156,17 @@ def make_eval_step(model: RVTDetector, cfg: ExperimentConfig, *,
 
     ``eval_step(lstm_states, ev_repr [B, T, ...], frame_valid [B, T],
     is_first_sample [B])`` returns an ``EvalOutput``. The window stays in
-    its storage dtype (uint8); the stem conv casts it. The backbone's
-    kernel weights are prepared here, once: a later change to the model's
+    its storage dtype (uint8); the stem conv casts it. The backbone runs
+    as ``scan_backbone`` routes it; for a config on the kernels their
+    weights are prepared here, once: a later change to the model's
     parameters needs a new step.
     ``plain=True`` runs the kernels' plain PyTorch versions (the
     reference the chip check holds the kernels against)."""
     K = cfg.dataset.max_labeled_frames
     in_res = cfg.model.backbone.in_res_hw
     stem_s2d = cfg.model.backbone.stem_s2d
-    require_fused_path(model.cfg)
-    params = backbone_kernel_params(model)
+    params = (backbone_kernel_params(model)
+              if fused_path_supported(model.cfg) else None)
 
     @torch.inference_mode()
     def eval_step(lstm_states: LstmStates, ev_repr: torch.Tensor,
@@ -173,8 +176,8 @@ def make_eval_step(model: RVTDetector, cfg: ExperimentConfig, *,
         lstm_states = reset_states(lstm_states, is_first_sample)
         ev_seq = pad_ev_repr(ev_repr, in_res, None, stem_s2d)
         ev_seq = ev_seq.transpose(0, 1)
-        feats, final_states = fused_scan_backbone(
-            model, ev_seq, lstm_states, params, plain=plain)
+        feats, final_states = scan_backbone(
+            model, ev_seq, lstm_states, params=params, plain=plain)
         gathered, frame_idx, gval = gather_labeled_frames(feats,
                                                           frame_valid, K)
         preds = model.forward_detect(gathered)
@@ -223,8 +226,17 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
     ``with_detections`` also returns (dets, det_valid, frame_idx, gval):
     the eval step's postprocess of this forward's decoded predictions,
     computed without gradients. ``plain=True`` runs the kernels' plain
-    PyTorch versions."""
-    require_fused_path(model.cfg, "train")
+    PyTorch versions.
+
+    A config with a dropout rate above 0 raises here: the JAX package's
+    train step passes its modules no 'dropout' rng, and flax raises."""
+    rates = dropout_rates(model.cfg)
+    if rates:
+        raise NotImplementedError(
+            f"dropout in training ({rates}): the JAX package's train step "
+            "passes no 'dropout' rng to its backbone scan, so its modules "
+            "raise (flax InvalidRngError); the port's train step does the "
+            "same")
     grid_np, stride_np = head_grid(cfg)
     dev = next(model.parameters()).device
     grid = torch.from_numpy(grid_np).to(dev)
@@ -249,8 +261,9 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
                                     bb.stem_patch_size).transpose(0, 1)
         model.train()  # BatchNorm on batch statistics
         optimizer.zero_grad()
-        feats, final_states = fused_train_scan_backbone(
-            model, ev_seq, lstm_states, token_mask_seq=tm_seq, plain=plain)
+        feats, final_states = scan_backbone(
+            model, ev_seq, lstm_states, tm_seq, deterministic=False,
+            remat=True, plain=plain)
         gathered, frame_idx, gval = gather_labeled_frames(feats, frame_valid,
                                                           K)
         targets, target_mask = gather_labels(labels.float(), label_mask,

@@ -74,8 +74,9 @@ class TrainerConfig:
 class Trainer:
     """Trains ``model`` (by default a new detector with random weights from
     ``seed``, its compute dtype from ``training.precision``) on
-    ``device``. The config must take the port's kernels
-    (``fused_path_supported``)."""
+    ``device``, on the kernels or the modules as ``scan_backbone``
+    routes the config. Dropout rates above 0 raise, as in
+    ``make_train_step``."""
 
     def __init__(self, cfg: ExperimentConfig, trainer_cfg: TrainerConfig,
                  model: Optional[RVTDetector] = None, seed: int = 0,

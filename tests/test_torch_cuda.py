@@ -124,13 +124,27 @@ def test_lstm_scan_kernel(dev, C, xdtype, tbhw):
 
 
 @pytest.mark.parametrize("case", ["uniform", "clustered", "dropped",
-                                  "bin_edges"])
+                                  "bin_edges", "unsorted", "hot_pixel",
+                                  "no_events", "zero_counts", "gen4_ds2",
+                                  "odd_total"])
 def test_stacked_histogram_kernel(dev, case):
     """Integer counts: the kernel equals its plain version exactly,
-    whatever order its atomics ran in."""
+    whatever order its atomics ran in: t in any order, > 65,535 events in
+    one bin (saturates, never wraps), N = 0, counts = 0 and counts > N,
+    the ds2 retarget into gen4's 360x640 half grid, totals that are not
+    a multiple of 16."""
+    from rvt_tpu_torch.inference import ds2_retarget
     from rvt_tpu_torch.ops import voxelization as vx
 
     B, N, bins, H, W = 3, 5000, 10, 30, 37  # 3*2*10*30*37 % 16 = 8: tail
+    if case == "hot_pixel":
+        B, N = 2, 70_000
+    elif case == "no_events":
+        N = 0
+    elif case == "gen4_ds2":
+        B, N, H, W = 2, 200_000, 720, 1280
+    elif case == "odd_total":
+        H, W = 7, 9  # 3*2*10*7*9 % 16 = 4
     g = torch.Generator(device=dev).manual_seed(0)
 
     def ints(lo, hi):
@@ -139,7 +153,7 @@ def test_stacked_histogram_kernel(dev, case):
 
     x, y, p = ints(0, W), ints(0, H), ints(0, 2)
     t = torch.sort(ints(0, 50_000), dim=1).values
-    counts = torch.tensor([N, N - 17, 0], dtype=torch.int32, device=dev)
+    counts = torch.tensor([N, N - 17, 0][:B], dtype=torch.int32, device=dev)
     if case == "clustered":
         x[0], y[0] = 7, 11
     elif case == "dropped":
@@ -150,13 +164,29 @@ def test_stacked_histogram_kernel(dev, case):
         t = (torch.minimum(torch.arange(N, device=dev)[None], spans[:, None])
              + 1000).to(torch.int32)
         counts = (spans + 1).to(torch.int32)
+    elif case == "unsorted":  # the bins span t[0] .. t[counts - 1]
+        t = ints(0, 50_000)
+        counts[2] = N + 5  # more than N counts as N
+    elif case == "hot_pixel":  # lane 0: every event in one bin
+        x[0], y[0], p[0], t[0] = 3, 4, 1, 7
+        counts = torch.tensor([N, N + 9], dtype=torch.int32, device=dev)
+    elif case == "zero_counts":
+        counts.zero_()
+    elif case == "gen4_ds2":
+        x, y = ds2_retarget(x, y, bins, H // 2, W // 2)
+        H, W = H // 2, W // 2
     n = vx.STACKED_HISTOGRAM.launches
     got = vx.stacked_histogram_batched(x, y, p, t, counts, bins, H, W)
     assert vx.STACKED_HISTOGRAM.launches == n + 1
     ref = vx.stacked_histogram_plain(x, y, p, t, counts, bins, H, W)
     assert got.dtype == torch.uint8 and torch.equal(got, ref)
-    if case == "clustered":
+    if case in ("clustered", "hot_pixel"):
         assert int(got[0].max()) == 255
+    if case in ("no_events", "zero_counts"):
+        assert int(got.max()) == 0
+    # the workspace's counts are zero again: a second call agrees
+    again = vx.stacked_histogram_batched(x, y, p, t, counts, bins, H, W)
+    assert torch.equal(again, ref)
 
 
 def _rel_close(got, ref, tol):

@@ -1,16 +1,21 @@
-"""The port runs a config on its kernels only where the JAX package runs
-it on its own (``fused_path_supported``: the gate of
-``rvt_tpu/models/detector.py:_fused_scan_supported`` and of
-``RVTStage._whole_stage_fused``); elsewhere the JAX package takes its XLA
-module path (erf-gelu, LayerScale not folded), which the port has not
-ported, and every entry point of the port raises ``NotImplementedError``
-before any stage runs. gen1 tiny at (64, 80) on the CPU."""
+"""How the port routes a config, as the JAX package does: the window
+scans run on the kernels only for configs ``fused_path_supported``
+passes (the gate of ``rvt_tpu/models/detector.py:_fused_scan_supported``)
+and, per stage, at geometries inside the JAX kernels' envelopes
+(``stage_routes``); every other config runs the module path
+(``models/layers.py``), serving a ``fused_kernels`` config in bf16 with
+the blocks on the kernels where the JAX modules put them, and a stage
+outside the envelope runs the module pair (and K4 where JAX serves its
+kernel). Every entry point runs each case. gen1 tiny at (64, 80) on the
+CPU; the test names of the cases that raised before the module path was
+ported are kept."""
 from dataclasses import replace
 
 import pytest
 import torch
 
 import rvt_tpu_torch.models.detector as det
+import rvt_tpu_torch.models.layers as tl
 from rvt_tpu.config import preset as j_preset
 from rvt_tpu.models import RVTDetector as JRVTDetector
 from rvt_tpu.models.detector import _fused_scan_supported
@@ -42,13 +47,15 @@ def _run_entry(name, model, cfg):
     ev = torch.randint(0, 4, (T, B, H, W, 20)).float()
     fv = torch.ones(B, T, dtype=torch.bool)
     first = torch.ones(B, dtype=torch.bool)
+    params = (det.backbone_kernel_params(model)
+              if det.fused_path_supported(model.cfg) else None)
     if name == "fused_scan_backbone":
-        det.fused_scan_backbone(model, ev, states,
-                                det.backbone_kernel_params(model))
+        det.fused_scan_backbone(model, ev, states, params)
     elif name == "fused_train_scan_backbone":
         det.fused_train_scan_backbone(model, ev, states)
     elif name == "forward":
-        model(ev[0], states, det.backbone_kernel_params(model))
+        with torch.no_grad():
+            model(ev[0], states, params)
     elif name == "make_eval_step":
         make_eval_step(model, cfg)(states, ev.transpose(0, 1), fv, first)
     elif name == "make_train_step":
@@ -72,16 +79,36 @@ ENTRIES = ("fused_scan_backbone", "fused_train_scan_backbone", "forward",
            "make_eval_step", "make_train_step", "make_raw_inference_step")
 
 
+class _Calls(list):
+    """The kernel calls, and ``pairs``: the module attention blocks run."""
+    pairs: list
+
+
+STAGE_FNS = ("fused_stage_scan", "split_stage_scan_train",
+             "fused_stage_step_train")
+
+
 @pytest.fixture
 def stage_calls(monkeypatch):
-    """Counts the stage functions the backbones run (the kernels' only
-    way in)."""
-    calls = []
-    for fn in ("fused_stage_scan", "split_stage_scan_train",
-               "fused_stage_step_train"):
-        orig = getattr(det, fn)
-        monkeypatch.setattr(det, fn, lambda *a, _o=orig, _n=fn, **k: (
+    """Counts the calls into the kernels: the stage functions the
+    backbones run, K4 at T = 1 on the off-envelope stages
+    ("fused_conv_lstm"), and the modules' own kernel routes
+    ("layers.fused_attention_pair", "layers.fused_conv_lstm"); and, under
+    "pairs", the module attention pairs that ran (outside the list)."""
+    calls = _Calls()
+    for mod, fn, name in ([(det, f, f) for f in STAGE_FNS]
+                          + [(det, "fused_conv_lstm", "fused_conv_lstm")]
+                          + [(tl, f, "layers." + f) for f in (
+                              "fused_attention_pair", "fused_conv_lstm")]):
+        orig = getattr(mod, fn)
+        monkeypatch.setattr(mod, fn, lambda *a, _o=orig, _n=name, **k: (
             calls.append(_n), _o(*a, **k))[1])
+    pairs = []
+    orig_pair = tl.PartitionAttention.forward
+    monkeypatch.setattr(tl.PartitionAttention, "forward",
+                        lambda self, *a, **k: (pairs.append(self.window),
+                                               orig_pair(self, *a, **k))[1])
+    calls.pairs = pairs
     return calls
 
 
@@ -98,13 +125,17 @@ def _cfg(fused=True):
 @pytest.mark.parametrize("entry", ENTRIES)
 def test_shipped_preset_raises(entry, stage_calls):
     """``preset("gen1", "tiny")`` as it stands (fused_kernels False, f32
-    compute): JAX's make_train_step runs its module path on it."""
+    compute), which JAX's make_train_step runs on its module path: every
+    entry point of the port runs it on the module path, no kernel
+    called (the name is from when the port raised here)."""
     cfg = _cfg(fused=False)
     assert not det.fused_path_supported(cfg.model)
+    for path in ("serve", "train", "train_per_step"):
+        assert det.stage_routes(cfg.model, path) == ["modules"] * 4
     model = det.init_detector(cfg.model, device="cpu")
-    with pytest.raises(NotImplementedError, match="XLA module path"):
-        _run_entry(entry, model, cfg)
+    _run_entry(entry, model, cfg)
     assert stage_calls == []
+    assert len(stage_calls.pairs) >= 8  # window and grid, 4 stages
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -149,17 +180,30 @@ VARIANTS = [("fused_kernels", False), ("compute_dtype", "float32"),
                          ids=[f for f, _ in VARIANTS])
 def test_each_gate_field(field, value, stage_calls):
     """One field off the shipped variant: the JAX gate and the port's
-    agree, and the port raises (the containers already refuse the block
-    and LSTM variants they do not hold; the rest reach the gate)."""
+    agree, and the eval entry runs on the module path, the blocks on the
+    kernels where the JAX modules put them when serving a
+    ``fused_kernels`` config in bf16 (a pair of the shipped variant at a
+    geometry in the envelope on K1-K3, a 1x1 cell without dropout on K4).
+    A dropout rate above 0 refuses the train step, as JAX's train step
+    raises without a 'dropout' rng."""
     mcfg = _with(_cfg().model, field, value)
     assert _fused_scan_supported(JRVTDetector(
         cfg=_with(_j_fused(), field, value))) is False
     assert det.fused_path_supported(mcfg) is False
+    assert det.stage_routes(mcfg) == ["modules"] * 4
     cfg = replace(_cfg(), model=mcfg)
-    with pytest.raises(NotImplementedError):
-        model = det.init_detector(mcfg, device="cpu")
-        _run_entry("make_train_step", model, cfg)
-    assert stage_calls == []
+    model = det.init_detector(mcfg, device="cpu")
+    _run_entry("make_eval_step", model, cfg)
+    kernels = det.kernels_serve(mcfg, True)
+    pairs = sum(mcfg.backbone.num_blocks) * T * (
+        kernels and tl.attention_variant_shipped(mcfg.backbone.attention))
+    cells = 4 * T * (kernels and tl.lstm_variant_shipped(mcfg.backbone.lstm))
+    assert stage_calls.count("layers.fused_attention_pair") == pairs
+    assert stage_calls.count("layers.fused_conv_lstm") == cells
+    assert len(stage_calls) == pairs + cells
+    if field in ("drop_path", "drop_mlp", "drop_cell_update"):
+        with pytest.raises(NotImplementedError, match=field):
+            _run_entry("make_train_step", model, cfg)
 
 
 def test_shipped_gate_agrees_with_jax():
@@ -213,16 +257,33 @@ def _off_envelope_cfg():
 
 @pytest.mark.parametrize("entry", ENTRIES)
 def test_off_envelope_geometry_raises(entry, stage_calls):
-    """A geometry override that JAX routes to its XLA modules: each entry
-    point raises before any stage runs, naming the stage."""
+    """A geometry override that JAX routes to its XLA modules at stages 1
+    and 2: there the port runs the module pair, then on the serving
+    paths the cell on K4 at T = 1 (``rvt_tpu/models/detector.py:345-370``)
+    and on the training paths the module cell under checkpoint
+    (``:487-520``); stages 3 and 4 run the kernels (the name is from when
+    the port raised here)."""
     from rvt_tpu.ops.fused_attention import pair_fusion_mode
     from rvt_tpu.ops.fused_train import train_stage_mode
 
     cfg = _off_envelope_cfg()
     assert det.fused_path_supported(cfg.model)
-    assert pair_fusion_mode(64, 80, 32, (8, 5)) is None
-    assert train_stage_mode(64, 80, 32, (8, 5), scan=True) is None
+    geo = det.stage_geometries(cfg.model)
+    assert [pair_fusion_mode(*g, (8, 5)) is None for g in geo] == [
+        True, True, False, False]
+    assert [train_stage_mode(*g, (8, 5), scan=True) is None
+            for g in geo] == [True, True, False, False]
+    train = entry in ("fused_train_scan_backbone", "make_train_step")
+    assert det.stage_routes(cfg.model, "train" if train else "serve") == (
+        ["modules" if train else "modules+K4"] * 2 + ["kernels"] * 2)
     model = det.init_detector(cfg.model, device="cpu")
-    with pytest.raises(NotImplementedError, match="64x80x32"):
-        _run_entry(entry, model, cfg)
-    assert stage_calls == []
+    _run_entry(entry, model, cfg)
+    if train:
+        assert stage_calls == ["split_stage_scan_train"] * 2
+    else:
+        assert sorted(stage_calls) == sorted(
+            ["fused_conv_lstm"] * 2 * T + ["fused_stage_scan"] * 2)
+    # window and grid of the module pair at stages 1 and 2 (the train
+    # step's backward recomputes them under checkpoint)
+    assert len(stage_calls.pairs) == 2 * 2 * T * (
+        2 if entry == "make_train_step" else 1)

@@ -176,22 +176,67 @@ def test_per_step_backbone_matches_jax():
     check_grads(case)
 
 
-def test_per_step_backbone_raises_outside_the_envelope():
+def test_per_step_backbone_raises_outside_the_envelope(monkeypatch):
     """gen4 stage 1 (96x160x64): JAX trains it per step on its XLA
-    modules, so the port's per-step path raises before any work."""
+    modules, and the port routes it to its modules per step (over the
+    window both take the kernels). At a reduced geometry, gen1 tiny with
+    both packages' per-step bound ``_SPLIT_MIN`` set just below stage 1's
+    elements (as the JAX package's tests move its envelope), JAX's
+    ``train_stage_mode`` and the port's routing agree that stage 1 leaves
+    the kernels per step: the per-step backbone runs it on the module
+    pair and cell, forward and backward under checkpoint, with finite
+    gradients, and row 7 once per step at the other stages (the name is
+    from when the port raised here)."""
     from dataclasses import replace
 
+    import rvt_tpu_torch.models.detector as det
+    import rvt_tpu_torch.models.layers as tl
     from rvt_tpu_torch.config import preset
-    from rvt_tpu_torch.models.detector import (fused_train_scan_backbone,
-                                               init_detector)
+    from rvt_tpu_torch.models.backbone import zero_states
 
     cfg = preset("gen4", "base")
     cfg = replace(cfg.model, compute_dtype="bfloat16", backbone=replace(
         cfg.model.backbone, fused_kernels=True))
-    model = init_detector(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="96x160x64"):
-        fused_train_scan_backbone(model, torch.zeros(1, 1, 4, 4, 20), (),
-                                  per_step=True)
+    assert det.stage_routes(cfg, "train_per_step") == (
+        ["modules"] + ["kernels"] * 3)
+    assert det.stage_routes(cfg, "train") == ["kernels"] * 4
+
+    cfg = preset("gen1", "tiny", resolution_hw=(64, 80))
+    cfg = replace(cfg.model, compute_dtype="bfloat16", backbone=replace(
+        cfg.model.backbone, fused_kernels=True))
+    geo = det.stage_geometries(cfg)
+    part = tuple(cfg.backbone.attention.partition_size)
+    bound = geo[0][0] * geo[0][1] * geo[0][2] - 1
+    monkeypatch.setattr(tft, "_SPLIT_MIN", bound)
+    monkeypatch.setattr(jft, "_SPLIT_MIN", bound)
+    assert [jft.train_stage_mode(*g, part, scan=False) is None
+            for g in geo] == [True, False, False, False]
+    assert det.stage_routes(cfg, "train_per_step") == (
+        ["modules"] + ["kernels"] * 3)
+    calls, pairs = [], []
+    orig = det.fused_stage_step_train
+    monkeypatch.setattr(det, "fused_stage_step_train", lambda *a, **k: (
+        calls.append(a[1].shape), orig(*a, **k))[1])
+    orig_pair = tl.MaxVitAttentionPair.forward
+    monkeypatch.setattr(tl.MaxVitAttentionPair, "forward",
+                        lambda self, *a, **k: (pairs.append(a[0].shape),
+                                               orig_pair(self, *a, **k))[1])
+    model = det.init_detector(cfg, device="cpu").train()
+    T_, B_ = 2, 1
+    ev = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 4, (T_, B_) + tuple(cfg.backbone.in_res_hw) + (20,))).float()
+    feats, states = det.fused_train_scan_backbone(
+        model, ev, zero_states(cfg.backbone, B_, device="cpu"),
+        per_step=True)
+    assert len(calls) == 3 * T_ and len(pairs) == T_
+    assert all(tuple(p[1:]) == geo[0] for p in pairs)
+    loss = sum(f.float().sum() for f in feats) + sum(
+        h.sum() + c.sum() for h, c in states)
+    loss.backward()
+    assert len(pairs) == 2 * T_  # recomputed in the backward
+    w = model.backbone.stages[0].att_blocks[0].att_grid.mlp.net[0][0].weight
+    assert w.grad is not None and bool(torch.isfinite(w.grad).all())
+    assert float(w.grad.abs().sum()) > 0
 
 
 def test_masked_per_step_backbone_matches_whole_window():

@@ -20,6 +20,7 @@ from rvt_tpu.models.detector import model_input_hw_c
 from rvt_tpu_torch.config import preset
 from rvt_tpu_torch.data.prefetch import PrefetchIterator
 from rvt_tpu_torch.data.types import Batch
+from rvt_tpu_torch.models import detector as det
 from rvt_tpu_torch.models.backbone import zero_states
 from rvt_tpu_torch.models.detector import init_detector
 from rvt_tpu_torch.training.optimizer import make_optimizer
@@ -181,10 +182,22 @@ def test_fit_refusals(tmp_path):
         Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path),
                                    train_viz_dir=str(tmp_path)),
                 device="cpu")
-    # the config must take the kernels (the shipped preset does not)
-    with pytest.raises(NotImplementedError, match="XLA module path"):
-        make_trainer(preset("gen1", "tiny", resolution_hw=(64, 80)),
-                     tmp_path)
+    # the shipped preset (fused_kernels off) trains on the module path,
+    # in the bf16 that training.precision asks for; dropout refuses as in
+    # JAX's train step
+    shipped = preset("gen1", "tiny", resolution_hw=(64, 80),
+                     sequence_length=2, max_labels_per_frame=4,
+                     max_labeled_frames=2)
+    st = make_trainer(shipped, tmp_path / "shipped", max_steps=1)
+    assert st.model.cfg.compute_dtype == "bfloat16"
+    assert det.stage_routes(st.model.cfg, "train") == ["modules"] * 4
+    st.fit(batches(shipped, 1))
+    assert np.isfinite(read_log(tmp_path / "shipped")[-1]["train/loss"])
+    drop = replace(shipped, model=replace(shipped.model, backbone=replace(
+        shipped.model.backbone, lstm=replace(
+            shipped.model.backbone.lstm, drop_cell_update=0.1))))
+    with pytest.raises(NotImplementedError, match="drop_cell_update"):
+        make_trainer(drop, tmp_path / "drop")
     trainer = make_trainer(cfg, tmp_path)
     # a window with more labelled frames than max_labeled_frames
     b = next(batches(cfg, 1))

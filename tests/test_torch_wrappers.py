@@ -115,6 +115,81 @@ def test_wrappers_reject_what_the_kernels_do_not_take(fake_cuda):
     assert fake_cuda == []
 
 
+def test_stacked_histogram_workspace_and_plan(fake_cuda):
+    """The voxelizer's launch: the plan of ``histogram_plan`` and the
+    per-device workspace (the bucket kernel's (offset, count) table and
+    its 16-bit chunk array) kept from call to call and grown only when a
+    call needs more; no scratch the size of the output."""
+    ev = [torch.zeros(2, 100, dtype=torch.int32) for _ in range(4)]
+    counts = torch.full((2,), 90, dtype=torch.int32)
+    vx._HIST_WS.clear()
+    for _ in range(2):
+        vx.stacked_histogram_batched(*ev, counts, 10, 24, 32)
+    (_, a1), (_, a2) = _FakeLib.launches
+    # the same workspace both calls
+    assert [a.value for a in a1[5:7]] == [a.value for a in a2[5:7]]
+    plan = vx.histogram_plan(2, 100, 10, 24, 32)
+    assert a1[8:] == (2, 100, 10, 24, 32, 255, plan.tile_bins, plan.tiles,
+                      plan.span, plan.event_blocks, 0)
+    table, chunk = vx._HIST_WS[-1]
+    assert [a1[5].value, a1[6].value] == [table.data_ptr(), chunk.data_ptr()]
+    assert table.dtype == torch.int32 and chunk.element_size() == 2
+    assert table.numel() >= 2 * 2 * plan.table_entries
+    assert chunk.numel() >= 2 * plan.chunk_entries >= 200
+    # at the raw cell's shape the workspace needs less than the uint8
+    # output itself (the old design's int32 scratch was 4x the output)
+    g1 = vx.histogram_plan(8, 32768, 10, 240, 304)
+    assert 8 * (8 * g1.table_entries + 2 * g1.chunk_entries) < g1.total
+    big = [torch.zeros(2, 300_000, dtype=torch.int32) for _ in range(4)]
+    vx.stacked_histogram_batched(*big, counts, 10, 720, 1280)
+    bplan = vx.histogram_plan(2, 300_000, 10, 720, 1280)
+    table, chunk = vx._HIST_WS[-1]
+    assert table.numel() >= 2 * 2 * bplan.table_entries
+    assert chunk.numel() >= 2 * bplan.chunk_entries >= 600_000
+
+
+def test_plain_histogram_takes_no_events():
+    """The plain version (the card's reference) with N = 0 and with
+    counts = 0: all zeros."""
+    ev = [torch.zeros(2, 0, dtype=torch.int32) for _ in range(4)]
+    out = vx.stacked_histogram_plain(*ev, torch.full((2,), 3, dtype=torch.int32),
+                                     10, 7, 9)
+    assert out.shape == (2, 20, 7, 9) and int(out.max()) == 0
+    ev = [torch.ones(2, 5, dtype=torch.int32) for _ in range(4)]
+    out = vx.stacked_histogram_plain(*ev, torch.zeros(2, dtype=torch.int32),
+                                     10, 7, 9)
+    assert int(out.max()) == 0
+
+
+@pytest.mark.parametrize("shape", [(8, 32768, 10, 240, 304),
+                                   (8, 32768, 10, 360, 640),
+                                   (2, 100, 10, 720, 1280),
+                                   (3, 0, 10, 7, 9), (1, 5, 1, 1, 1)])
+def test_histogram_plan_tiles_the_output_once(shape):
+    """The tiles cover the flat output once, each within a quarter of an
+    SM's shared memory, 16-byte aligned, in-tile indices in 16 bits; a
+    lane's events touch at most ``span`` tiles; the bucket blocks hold
+    every event."""
+    B, N, bins, H, W = shape
+    plan = vx.histogram_plan(B, N, bins, H, W)
+    plane = 2 * bins * H * W
+    assert plan.total == B * plane
+    assert plan.tile_bins % 16 == 0 and plan.tile_bins <= 2 ** 16
+    # 16-bit counters (or 32-bit ones for half a tile): 48 KB, four
+    # blocks in an SM's 228 KB
+    assert 4 * (plan.tile_bins * 2 + 1024) <= 228 * 1024
+    assert (plan.tiles - 1) * plan.tile_bins < plan.total <= (
+        plan.tiles * plan.tile_bins)
+    for b in range(B):
+        first = b * plane // plan.tile_bins
+        last = ((b + 1) * plane - 1) // plan.tile_bins
+        assert last - first + 1 <= plan.span <= vx.HIST_MAX_SPAN
+    assert plan.event_blocks * vx.HIST_EVENTS_PER_BLOCK >= N
+    assert plan.event_blocks >= 1 and plan.launches == 2
+    assert plan.chunk_entries >= N
+    assert plan.table_entries == plan.event_blocks * plan.span
+
+
 def test_train_wrappers_launch_once_and_count(fake_cuda):
     """The training kernels' wrappers: one launch each (plus the in-order
     sum of their partials, ``rvt_sum_parts``, after K2's gelu backward, K5,

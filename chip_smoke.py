@@ -102,9 +102,34 @@ Phases, each of which raises (exit code != 0) when it fails:
      train steps (ms per step, peak memory); then the module path on the
      card against the same path on the CPU at gen1 tiny (64, 80), T = 2,
      f32 (states and head outputs within 1e-4 of max|ref|);
+ 13. (run after phase 12) the validation path: ``run_streaming_eval``
+     over ``EvalStreamScheduler`` windows (B = 8, T = 21) of ten
+     in-memory recordings of 40-100 frames (uint8 histograms from a numpy
+     seed, three 32x32 boxes on every 5th frame; lanes that restart
+     mid-run, padded fill windows): on the kernels config that
+     ``cli.validate --serve_fused`` builds (gen1 RVT-B, bf16, s2d stem)
+     with phase 4's weights at confidence threshold 1e-4 (NMS sees
+     candidates), K1-K4 launched the eval step's count per window x
+     windows, six finite stats, equal bit for bit to the same windows fed
+     by hand (make_eval_step, iter_batch_detections, PropheseeEvaluator),
+     each part of a window timed (read+stack, s2d, H2D copy, eval step,
+     postprocess with its candidates and Jacobi rounds, conversion; the
+     protocol at the end), the idle share of a profiled window, loop
+     frames/s; the model saved as an upstream Lightning .ckpt and loaded
+     by ``cli.validate.load_model``, the same metrics bit for bit; the
+     Trainer (gen1 RVT-B on the train kernels, 2 steps) validating every
+     step over the same windows, with train panels: each validation's
+     detections and metrics equal to a fresh loop's on its step's
+     weights, the two steps' detections different, the best slot
+     restored by ``load_model`` to its metrics bit for bit; the shipped
+     preset's loop (f32, modules) over 1 timed window; the loop at gen1
+     tiny (64, 80), T = 5, f32 on the card against the CPU: detections
+     frame by frame (counts equal, boxes and scores within 1e-4 of
+     max|ref|) and the six stats within 1e-4;
  11. check that the calls each kernel was timed at per step are the
      launches its paths made per step; print the kernels line (per
-     kernel: launches by path, and ms, plain, bound and library summed
+     kernel: launches by path, the validation loop's among them, and ms,
+     plain, bound and library summed
      over one step of each path it serves, and by path), after one line
      per K4 and per K8 call shape (path, stage, launches, ms beside
      cuDNN's LSTM forward or backward, and the launch plan of the
@@ -2386,6 +2411,450 @@ def run_shipped_preset():
     return dict(fps=fps, ms=times[1], peak=peak)
 
 
+VAL_LENGTHS = (100, 84, 80, 63, 60, 63, 42, 40, 42, 45)
+# The random head scores every anchor within 1 % of its prior, 1e-4 (the
+# obj and class biases' 0.01 each): at 2e-4 NMS would see no candidate.
+# At 1e-4 about half of the anchors of a frame enter NMS.
+VAL_CONF = 1e-4
+
+
+# Phase 13's label boxes (x, y, w, h, class): 32x32 boxes on the stride-32
+# cells where the random head's largest boxes lie (centred on the cells'
+# corners), so that some detections match and the stats are not all zero
+VAL_BOXES = ((16.0, 16.0, 32.0, 32.0, 0), (112.0, 80.0, 32.0, 32.0, 1),
+             (208.0, 144.0, 32.0, 32.0, 0))
+TINY_BOXES = ((16.0, 16.0, 32.0, 32.0, 0), (48.0, 16.0, 32.0, 32.0, 0),
+              (24.0, 28.0, 32.0, 32.0, 1))
+
+
+def memory_recordings(lengths, boxes, hw=(240, 304), seed=0,
+                      max_labels=48):
+    """Phase 13's recordings, one per length: a ``Recording`` whose uint8
+    stacked histograms [n, 20, H, W] come from a numpy seed (values in
+    [0, 8)) and whose labels are ``boxes`` on every 5th frame, stamped
+    50 ms apart from 1 s. Nothing is read from disk: the card's machine
+    has no h5py."""
+    import numpy as np
+
+    from rvt_tpu_torch.data.labels import LabelStore
+    from rvt_tpu_torch.data.sequence import Recording
+
+    H, W = hw
+
+    class MemoryRecording(Recording):
+        def __init__(self, rec_seed, n):
+            rng = np.random.RandomState(rec_seed)
+            self.path, self.max_labels = None, max_labels
+            self.prefer_raw_chunks, self._h5, self._data = False, None, None
+            self.ev = rng.randint(0, 8, size=(n, 20, H, W), dtype=np.uint8)
+            self.num_ev_repr, self.ev_shape = n, (20, H, W)
+            self.ev_dtype = self.ev.dtype
+            labelled = np.arange(LABEL_EVERY - 1, n, LABEL_EVERY)
+            self.objframe_idx_2_repr_idx = labelled
+            self.repr_idx_2_objframe_idx = {int(r): i
+                                            for i, r in enumerate(labelled)}
+            rows = [(1e6 + 5e4 * r, *b, 1.0) for r in labelled for b in boxes]
+            self.label_store = LabelStore(
+                np.asarray(rows, np.float32),
+                np.arange(0, len(rows), len(boxes)), input_size_hw=hw)
+
+        def read_ev_repr(self, start, end):
+            assert 0 <= start < end <= self.num_ev_repr
+            return self.ev[start:end]
+
+    return [MemoryRecording(seed + i, n) for i, n in enumerate(lengths)]
+
+
+def with_conf(cfg, conf):
+    from dataclasses import replace
+
+    return replace(cfg, model=replace(cfg.model, postprocess=replace(
+        cfg.model.postprocess, confidence_threshold=conf)))
+
+
+class first_window_timer:
+    """Wraps a batch iterable; ``start`` is the host time (after a
+    synchronize) at which the loop asks for its second window, i.e.
+    after the first window's step: the loop's time from there on is the
+    timed part, the first window its warm-up."""
+
+    def __init__(self, batches):
+        self.batches, self.start = batches, None
+
+    def __iter__(self):
+        import torch
+
+        for i, b in enumerate(self.batches):
+            if i == 1:
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                self.start = time.perf_counter()
+            yield b
+
+
+class recorded_evaluator:
+    """Within the block, keep the PropheseeEvaluator each
+    ``run_streaming_eval`` makes (its per-frame buffers)."""
+
+    def __enter__(self):
+        from rvt_tpu_torch.training import evaluator_loop as el
+
+        self.el, self.real, made = el, el.PropheseeEvaluator, []
+        self.made = made
+
+        class Recorded(self.real):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                made.append(self)
+
+        el.PropheseeEvaluator = Recorded
+        return made
+
+    def __exit__(self, *exc):
+        self.el.PropheseeEvaluator = self.real
+
+
+def canonical_rows(p):
+    """Detection rows by box corner and size rounded to the pixel: the
+    order of rows whose scores tie within rounding is not the protocol's."""
+    import numpy as np
+
+    key = np.round(np.stack([p["x"], p["y"], p["w"], p["h"]])).astype(int)
+    return p[np.lexsort(key[::-1])]
+
+
+def same_buffers(a, b) -> bool:
+    """Two evaluators hold the same frames bit for bit."""
+    import numpy as np
+
+    return (len(a._labels) == len(b._labels)
+            and len(a._predictions) == len(b._predictions)
+            and all(np.array_equal(x, y) for x, y in zip(
+                a._labels + a._predictions, b._labels + b._predictions)))
+
+
+def same_detections(got, ref, what):
+    """Per-frame detections of two evaluators: counts equal, boxes and
+    scores within 1e-4 of max|ref| (after ``canonical_rows``). Returns
+    (frames, detections, max relative error)."""
+    import numpy as np
+
+    if len(got._predictions) != len(ref._predictions):
+        fail(f"{what}: {len(got._predictions)} frames vs "
+             f"{len(ref._predictions)}")
+    worst, n = 0.0, 0
+    for i, (a, b) in enumerate(zip(got._predictions, ref._predictions)):
+        if len(a) != len(b):
+            fail(f"{what}: frame {i} has {len(a)} detections vs {len(b)}")
+        a, b = canonical_rows(a), canonical_rows(b)
+        if not (np.array_equal(a["class_id"], b["class_id"])
+                and np.array_equal(a["t"], b["t"])):
+            fail(f"{what}: frame {i}: classes or times differ")
+        for f in ("x", "y", "w", "h", "class_confidence"):
+            ref_f = b[f].astype(np.float64)
+            scale = max(np.abs(ref_f).max(initial=0.0), 1e-6)
+            err = np.abs(a[f] - ref_f).max(initial=0.0) / scale
+            worst = max(worst, err)
+            if err > 1e-4:
+                fail(f"{what}: frame {i}: {f} differs by {err:.3e} of "
+                     "max|ref|")
+        n += len(a)
+    return len(got._predictions), n, worst
+
+
+def eval_window_parts(step, cfg, batch, states, evaluator, parts):
+    """One window fed by hand as ``run_streaming_eval`` feeds it, each part
+    timed into ``parts`` (ms): the host s2d transform, the pageable H2D
+    copy (synchronised), the eval step until it returns (postprocess
+    included: NMS reads a flag on the host every round), the wait for its
+    outputs' host copy (what the loop's one-window lag can hide) and the
+    conversion to protocol arrays. Returns the step's output."""
+    import numpy as np
+    import torch
+
+    from rvt_tpu_torch.ops.s2d import host_space_to_depth
+    from rvt_tpu_torch.training.evaluator_loop import (fetch_outputs,
+                                                       iter_batch_detections)
+
+    def to_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    t0 = time.perf_counter()
+    ev = batch.ev_repr
+    if cfg.model.backbone.stem_s2d:
+        ev = host_space_to_depth(ev, cfg.model.backbone.in_res_hw)
+    t1 = time.perf_counter()
+    args = [to_dev(a) for a in (ev, batch.frame_valid,
+                                batch.is_first_sample)]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = step(states, *args)
+    t3 = time.perf_counter()
+    arrays = fetch_outputs((out.dets, out.det_valid, out.frame_idx,
+                            out.gval), torch.device("cuda"))()
+    t4 = time.perf_counter()
+    frames = list(iter_batch_detections(batch, *arrays))
+    if frames:
+        evaluator.add_labels([f[2] for f in frames])
+        evaluator.add_predictions([f[3] for f in frames])
+    t5 = time.perf_counter()
+    for k, a, b in (("s2d", t0, t1), ("H2D copy", t1, t2),
+                    ("eval step", t2, t3), ("output wait", t3, t4),
+                    ("conversion", t4, t5)):
+        parts.setdefault(k, []).append((b - a) * 1e3)
+    return out
+
+
+def run_validation_path(eval_counts):
+    """Phase 13: the validation path (``run_streaming_eval`` over
+    ``EvalStreamScheduler`` windows of in-memory recordings), with
+    ``eval_counts`` the eval step's launches over phase 4's windows.
+    Returns (numbers for the summary line, the loop's launches by
+    kernel)."""
+    import copy
+    import tempfile
+    from dataclasses import replace
+    from pathlib import Path
+
+    import torch
+
+    from rvt_tpu_torch.cli.validate import load_model, serve_fused_config
+    from rvt_tpu_torch.config import preset
+    from rvt_tpu_torch.data.sequence import StreamView
+    from rvt_tpu_torch.data.streaming import EvalStreamScheduler
+    from rvt_tpu_torch.evaluation.prophesee import PropheseeEvaluator
+    from rvt_tpu_torch.models import detector as det
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.ops import boxes
+    from rvt_tpu_torch.ops.fused_attention import (GEMM_BF16, LN_ROWS,
+                                                   PARTITION_ATTENTION)
+    from rvt_tpu_torch.ops.fused_scan import LSTM_SCAN
+    from rvt_tpu_torch.training.evaluator_loop import run_streaming_eval
+    from rvt_tpu_torch.training.step import _postprocess_window, make_eval_step
+    from rvt_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    keys = {"AP", "AP_50", "AP_75", "AP_S", "AP_M", "AP_L"}
+    res = {}
+    # 1. the loop on the kernels at full width, timed after its first window
+    cfg = with_conf(serve_fused_config(preset("gen1", "base")), VAL_CONF)
+    model = gen1_base_model(cfg)
+    t0 = time.perf_counter()
+    views = [StreamView(r, SEQ_LEN)
+             for r in memory_recordings(VAL_LENGTHS, VAL_BOXES)]
+    log(f"validation data: {len(views)} in-memory recordings of "
+        f"{VAL_LENGTHS} frames made in {time.perf_counter() - t0:.1f} s")
+    sched = EvalStreamScheduler(views, BATCH)
+    n_win = len(sched)
+    plans = list(sched.plan_batches())
+    fills = sum(p.window_idx < 0 for b in plans for p in b)
+    restarts = sum(p.window_idx == 0 for b in plans[1:] for p in b)
+    if n_win < 5 or not fills or not restarts:
+        fail(f"validation: {n_win} windows, {fills} fill windows, "
+             f"{restarts} mid-run restarts")
+    counters = (LN_ROWS, GEMM_BF16, PARTITION_ATTENTION, LSTM_SCAN)
+    for c in counters:
+        c.reset()
+    timer = first_window_timer(sched)
+    metrics = run_streaming_eval(model, cfg, timer, BATCH)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - timer.start
+    counts = {c.name: c.launches for c in counters}
+    want = {k: v // WINDOWS * n_win for k, v in eval_counts.items()
+            if k in counts}
+    log(f"validation loop: {n_win} windows of {BATCH} x {SEQ_LEN} "
+        f"({fills} padded fill windows, {restarts} lanes restarting "
+        f"mid-run), launches {counts} (the eval step's per window x "
+        f"windows: {want}); metrics {metrics}")
+    if counts != want:
+        fail("validation: the loop's kernel launches are not the eval "
+             "step's per window x windows")
+    if metrics is None or set(metrics) != keys or not all(
+            math.isfinite(v) for v in metrics.values()):
+        fail(f"validation: bad metrics {metrics}")
+    res["loop_fps"] = BATCH * SEQ_LEN * (n_win - 1) / loop_s
+
+    # the same windows fed by hand, each part timed
+    items, read_ms = [], []
+    it = iter(EvalStreamScheduler(views, BATCH))
+    while True:
+        t0 = time.perf_counter()
+        b = next(it, None)
+        if b is None:
+            break
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+        items.append(b)
+    step = make_eval_step(model, cfg)
+    evaluator = PropheseeEvaluator("gen1", False)
+    states = zero_states(cfg.model.backbone, BATCH, device="cuda")
+    parts, cand, kept, rounds, calls, pp_ms = {}, [], [], 0, 0, []
+    scores = []
+    for b in items:
+        out = eval_window_parts(step, cfg, b, states, evaluator, parts)
+        states = out.states
+        boxes.NMS_STATS.update(calls=0, rounds=0)
+        t0 = time.perf_counter()
+        _postprocess_window(out.preds, out.frame_idx, out.gval, cfg)
+        torch.cuda.synchronize()
+        pp_ms.append((time.perf_counter() - t0) * 1e3)
+        rounds += boxes.NMS_STATS["rounds"]
+        calls += boxes.NMS_STATS["calls"]
+        p = out.preds.float()
+        score = torch.sigmoid(p[..., 4]) * torch.sigmoid(p[..., 5:]).amax(-1)
+        n = (score >= VAL_CONF).sum(-1)[out.gval.reshape(-1)]
+        cand += n.tolist()
+        scores.append(score[out.gval.reshape(-1)].flatten())
+        kept += out.det_valid.sum(-1)[out.gval].tolist()
+    t0 = time.perf_counter()
+    twin = evaluator.evaluate_buffer(img_height=240, img_width=304)
+    proto_s = time.perf_counter() - t0
+    if twin != metrics:
+        fail(f"validation: the loop's metrics {metrics} differ from the "
+             f"same windows fed by hand {twin}")
+    log(f"  the same {n_win} windows fed by hand (make_eval_step, "
+        "iter_batch_detections, PropheseeEvaluator): the metrics bit for "
+        "bit")
+    parts["read+stack"] = read_ms
+    parts["postprocess (rerun alone)"] = pp_ms
+    per = {k: sum(v[1:]) / len(v[1:]) for k, v in parts.items()}
+    res["parts"] = per
+    res["protocol_s"] = proto_s
+    res["candidates"] = (min(cand), sum(cand) / len(cand), max(cand),
+                         int(out.preds.shape[1]))
+    res["rounds"] = rounds / max(calls, 1)
+    log("  ms per window (after the first): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
+        + f"; evaluate_buffer at the end {proto_s * 1e3:.1f} ms over "
+        f"{len(evaluator._labels)} labelled frames; {CARD}")
+    scores = torch.cat(scores)
+    q = torch.quantile(scores, torch.tensor([0.0, 0.01, 0.5, 0.99, 1.0],
+                                            device=scores.device))
+    log("  scores (obj x class) of the labelled frames' anchors: min, 1 %, "
+        "50 %, 99 %, max " + ", ".join(f"{v:.4e}" for v in q.tolist())
+        + f"; {int((scores >= 2e-4).sum())} of {scores.numel()} at >= 2e-4")
+    log(f"  NMS: {min(cand)}-{max(cand)} candidates per labelled frame "
+        f"(mean {res['candidates'][1]:.1f} of {res['candidates'][3]} "
+        f"anchors, threshold {VAL_CONF:g}), {res['rounds']:.1f} Jacobi "
+        f"rounds a call, each read on the host; {min(kept)}-{max(kept)} "
+        f"detections kept a frame (max_detections "
+        f"{cfg.model.postprocess.max_detections})")
+    profile_window(lambda: eval_window_parts(step, cfg, items[1], states,
+                                             PropheseeEvaluator("gen1"),
+                                             {}),
+                   "validation window (s2d, H2D, step, conversion)")
+    log(f"validation loop: {res['loop_fps']:.1f} frames/s over {n_win - 1} "
+        f"windows after the first (read, stack, s2d, H2D, step, NMS, "
+        f"conversion and the protocol included); {CARD}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_val_") as tmp:
+        # 2. an upstream-layout Lightning checkpoint, loaded by the CLI's
+        # loader into a fresh model
+        ckpt = Path(tmp) / "rvt-b.ckpt"
+        torch.save({"state_dict": {"mdl." + k: v for k, v in
+                                   model.state_dict().items()}}, ckpt)
+        got = run_streaming_eval(load_model(ckpt, cfg, "cuda"), cfg,
+                                 iter(items), BATCH)
+        if got != metrics:
+            fail(f"validation: the .ckpt round trip gives {got}")
+        log("  .ckpt round trip (load_torch_checkpoint into a fresh model):"
+            " the metrics bit for bit")
+        del model, step
+
+        # 3. the Trainer validating every step, its evaluators' buffers
+        # kept: each validation's detections equal a fresh loop's on that
+        # step's weights, and the two steps' differ
+        tcfg = with_conf(gen1_base_train_cfg(), VAL_CONF)
+        train_items = [replace(b, token_mask=None)
+                       for b in trainer_batches(tcfg, 2)]
+        snaps, seen = [], []
+
+        def eval_fn(m):
+            snaps.append({k: v.detach().clone()
+                          for k, v in m.state_dict().items()})
+            seen.append(run_streaming_eval(m, tcfg, iter(items), BATCH))
+            return seen[-1]
+
+        trainer = Trainer(tcfg, TrainerConfig(
+            max_steps=2, log_every_n_steps=1, ckpt_every_n_steps=100,
+            val_every_n_steps=1, gradflow_every_n_steps=0,
+            detection_metrics_every_n_steps=2, detection_metrics_n_batches=1,
+            prefetch_depth=2, ckpt_dir=f"{tmp}/run",
+            train_viz_dir=f"{tmp}/viz"), model=gen1_base_model(tcfg))
+        with recorded_evaluator() as made:
+            trainer.fit(iter(train_items), eval_fn=eval_fn)
+            for i, snap in enumerate(snaps):
+                fresh = det.RVTDetector(tcfg.model)
+                fresh.load_state_dict(snap, strict=True)
+                got = run_streaming_eval(fresh.cuda().eval(), tcfg,
+                                         iter(items), BATCH)
+                if got != seen[i] or not same_buffers(made[i],
+                                                      made[2 + i]):
+                    fail(f"trainer validation {i + 1}: {seen[i]}, a fresh "
+                         f"loop on that step's weights {got}")
+        if len(seen) != 2 or same_buffers(made[0], made[1]):
+            fail("trainer validation: the two steps' detections are the "
+                 "same")
+        best = trainer.ckpt.best_step()
+        got = run_streaming_eval(load_model(f"{tmp}/run", tcfg, "cuda"),
+                                 tcfg, iter(items), BATCH)
+        panels = sorted(Path(f"{tmp}/viz").glob("step_*.png"))
+        log(f"  trainer: validations at steps 1 and 2 {seen}; best slot "
+            f"{best}; {len(panels)} train panels")
+        if best not in (1, 2) or got != seen[best - 1] or not panels:
+            fail(f"trainer validation: best slot {best} gives {got}, "
+                 f"{len(panels)} panels")
+        log("  each validation's detections and metrics equal a fresh "
+            "loop's on its step's weights, the two steps' detections "
+            "differ; cli.validate's loader restores the best slot to its "
+            "metrics bit for bit")
+        del trainer, fresh
+
+    # 4. the shipped preset (f32, modules) over one timed window
+    shipped = preset("gen1", "base")
+    timer = first_window_timer(items[:2])
+    m = run_streaming_eval(gen1_base_model(shipped), shipped, timer, BATCH)
+    torch.cuda.synchronize()
+    res["shipped_fps"] = BATCH * SEQ_LEN / (time.perf_counter() - timer.start)
+    if m is None or set(m) != keys or not all(math.isfinite(v)
+                                              for v in m.values()):
+        fail(f"shipped preset validation: bad metrics {m}")
+    log(f"shipped preset validation loop (f32, modules): "
+        f"{res['shipped_fps']:.1f} frames/s over 1 window after 1; {CARD}")
+    torch.cuda.empty_cache()
+
+    # the loop on the card against the CPU at gen1 tiny, f32; every anchor
+    # enters NMS (threshold 1e-6) and class 1's biases sit 1 below class
+    # 0's, so that no class decision is a near-tie of two 0.01 priors
+    tiny = with_conf(preset("gen1", "tiny", resolution_hw=(64, 80),
+                            sequence_length=5), 1e-6)
+    cpu_model = det.init_detector(tiny.model, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in cpu_model.named_parameters():
+            if name.endswith(".gamma"):
+                p.normal_(0.0, 0.1, generator=gen)
+            elif name.startswith("yolox_head.cls_preds") and name.endswith(
+                    "bias"):
+                p[1:] -= 1.0
+    gpu_model = copy.deepcopy(cpu_model).cuda()
+    tviews = [StreamView(r, 5) for r in memory_recordings(
+        (23, 17, 12, 30), TINY_BOXES, hw=(64, 80), seed=100)]
+    with recorded_evaluator() as made:
+        ref = run_streaming_eval(cpu_model, tiny,
+                                 iter(EvalStreamScheduler(tviews, 2)), 2,
+                                 device="cpu")
+        got = run_streaming_eval(gpu_model, tiny,
+                                 iter(EvalStreamScheduler(tviews, 2)), 2)
+    frames, dets, err = same_detections(made[1], made[0], "card vs CPU")
+    worst = max(abs(got[k] - ref[k]) for k in keys)
+    log(f"  card vs CPU, gen1 tiny f32 loop: {frames} labelled frames, "
+        f"{dets} detections, boxes and scores within {err:.2e} of "
+        f"max|ref| (tolerance 1e-4); stats {got}, max |diff| {worst:.2e} "
+        "(tolerance 1e-4)")
+    if worst > 1e-4:
+        fail("card vs CPU: the loop's stats differ")
+    return res, counts
+
+
 # the kernels of csrc/ln_rows.cu and csrc/train_reduce.cu, whose template
 # instances the profile lists apart
 PROFILE_FAMILIES = {"ln_rows": ("ln_rows_kernel", "ln_rows_wide_kernel"),
@@ -2486,6 +2955,8 @@ def main() -> int:
     sm_ms, _ = run_small_train_path()
     torch.cuda.empty_cache()
     sh = run_shipped_preset()
+    torch.cuda.empty_cache()
+    val, val_counts = run_validation_path(counts)
     # the calls each record timed per step must be the launches the path
     # made per step (eval: 4 windows; raw: 1 + 21 calls; train: 1 + 5;
     # per-step train: one forward and backward; trainer: 4 + 1 + 1)
@@ -2497,7 +2968,8 @@ def main() -> int:
                    "raw step": raw_counts.get(name, 0),
                    "train step": t_counts.get(name, 0),
                    "per-step train": s_counts.get(name, 0),
-                   "trainer": tr_counts.get(name, 0)}
+                   "trainer": tr_counts.get(name, 0),
+                   "validate": val_counts.get(name, 0)}
         rec.d["launches"] = sum(by_path.values())
         rec.d["launches_by_path"] = by_path
         for path, q in rec.paths.items():
@@ -2512,6 +2984,8 @@ def main() -> int:
         f"{tr_fps:.1f} frames/s; gen1 RVT-S train step {sm_ms:.2f} ms; "
         f"shipped gen1 RVT-B (f32, modules) eval {sh['fps']:.1f} frames/s, "
         f"train {sh['ms']:.2f} ms per step, peak {sh['peak']:.2f} GiB; "
+        f"validation loop {val['loop_fps']:.1f} frames/s (the eval step "
+        f"{fps:.1f}), shipped preset {val['shipped_fps']:.1f}; "
         f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": [r.d for r in recs.values()]}))
     print(json.dumps({"ok": True, "device": {

@@ -56,6 +56,11 @@ def pairwise_iou_cxcywh(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / torch.where(union != 0, union, torch.ones_like(union))
 
 
+# Jacobi rounds of ``_greedy_nms_mask`` (each one reads its flag on the
+# host), summed over calls; read by the chip check's eval breakdown
+NMS_STATS = {"calls": 0, "rounds": 0}
+
+
 def _greedy_nms_mask(boxes: torch.Tensor, valid: torch.Tensor,
                      iou_threshold: float) -> torch.Tensor:
     """Greedy NMS keep mask [B, K] over score-sorted boxes [B, K, 4].
@@ -78,6 +83,8 @@ def _greedy_nms_mask(boxes: torch.Tensor, valid: torch.Tensor,
     while bool(torch.any(keep != prev)) and it < K:
         prev, keep = keep, f(keep)
         it += 1
+    NMS_STATS["calls"] += 1
+    NMS_STATS["rounds"] += it + 1
     return keep
 
 

@@ -35,6 +35,23 @@ def host_space_to_depth(ev: np.ndarray, target_hw: Tuple[int, int]) -> np.ndarra
     return np.ascontiguousarray(x.reshape(*lead, Hp, Wp, BLOCK * BLOCK * C))
 
 
+def host_depth_to_space(ev: np.ndarray, orig_hw: Tuple[int, int],
+                        channels: int) -> np.ndarray:
+    """Inverse of ``host_space_to_depth``: [..., Hp, Wp, 16*C] blocked
+    tensor -> [..., H, W, C] at the original storage resolution (drops the
+    one-block top/left pad and the corner pad). Used to recover renderable
+    frames when the pipeline already emitted s2d-blocked input (train-time
+    viz panels)."""
+    *lead, Hp, Wp, CB = ev.shape
+    C = channels
+    assert CB == BLOCK * BLOCK * C, (CB, C)
+    x = ev.reshape(*lead, Hp, Wp, BLOCK, BLOCK, C)
+    x = np.moveaxis(x, -3, -4)  # [..., Hp, BLOCK, Wp, BLOCK, C]
+    x = x.reshape(*lead, Hp * BLOCK, Wp * BLOCK, C)
+    H, W = orig_hw
+    return x[..., BLOCK:BLOCK + H, BLOCK:BLOCK + W, :]
+
+
 def fold_stem_kernel(w7: torch.Tensor) -> torch.Tensor:
     """[7, 7, C, D] (HWIO) stem kernel -> [2, 2, 16*C, D] blocked kernel.
 

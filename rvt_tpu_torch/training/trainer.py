@@ -6,9 +6,9 @@ Port of ``rvt_tpu/training/trainer.py`` (the reference's Lightning stack:
 around the port's train step on one GPU. Checkpoints are ``torch.save``
 files (``utils/checkpoint.py``), metrics a JSONL stream
 (``utils/logging.py``), published checkpoints a filesystem registry
-(``utils/artifacts.py``). Not ported yet (ROADMAP): data parallelism
-(``dp_size`` other than -1 or 1 raises) and the train-time panels
-(``train_viz_dir`` raises).
+(``utils/artifacts.py``), pred-vs-GT panels of the training batches
+(``utils/visualization.py``). Not ported yet (ROADMAP): data parallelism
+(``dp_size`` other than -1 or 1 raises).
 """
 from __future__ import annotations
 
@@ -28,8 +28,10 @@ from rvt_tpu_torch.data.types import Batch
 from rvt_tpu_torch.evaluation.prophesee import PropheseeEvaluator
 from rvt_tpu_torch.models.backbone import zero_states
 from rvt_tpu_torch.models.detector import RVTDetector, init_detector
-from rvt_tpu_torch.ops.s2d import host_space_to_depth
-from rvt_tpu_torch.training.evaluator_loop import iter_batch_detections
+from rvt_tpu_torch.ops.s2d import host_depth_to_space, host_space_to_depth
+from rvt_tpu_torch.training.evaluator_loop import (_write_panel,
+                                                   iter_batch_detections,
+                                                   labelmap_of)
 from rvt_tpu_torch.training.optimizer import make_optimizer
 from rvt_tpu_torch.training.step import make_train_step
 from rvt_tpu_torch.utils.artifacts import ArtifactRegistry, _file_manifest
@@ -61,9 +63,11 @@ class TrainerConfig:
     # detection_metrics_n_batches steps and log train/AP; 0 disables
     detection_metrics_every_n_steps: int = 0
     detection_metrics_n_batches: int = 4
-    # pred-vs-GT panels of the training batch (reference
-    # DetectionVizCallback): not ported yet, must stay None
+    # pred-vs-GT panels from the training batch at every detection-metric
+    # evaluation (reference DetectionVizCallback on train outputs,
+    # callbacks/detection.py:32-100); None disables
     train_viz_dir: Optional[str] = None
+    train_viz_max_panels: int = 4
     # checkpoint-artifact registry (reference W&B log_model=True,
     # wandb_logger.py:254-320); None disables
     artifact_dir: Optional[str] = None
@@ -85,10 +89,6 @@ class Trainer:
             raise NotImplementedError(
                 "the port's trainer runs on one GPU; data parallelism is "
                 "not ported yet (ROADMAP)")
-        if trainer_cfg.train_viz_dir is not None:
-            raise NotImplementedError(
-                "train_viz_dir: the train-time panels (utils/visualization)"
-                " are not ported yet (ROADMAP)")
         self.cfg = cfg
         self.tcfg = trainer_cfg
         if model is None:
@@ -217,6 +217,26 @@ class Trainer:
             if m:
                 self.logger.log(step, {f"train/{k}": v for k, v in m.items()})
         self._train_evaluator.reset_buffer()
+        if self.tcfg.train_viz_dir is not None:
+            self._write_train_panels(batch, frames, step)
+
+    def _write_train_panels(self, batch: Batch, frames, step: int) -> None:
+        """Panels of the first ``train_viz_max_panels`` labelled frames of
+        the evaluated step's batch (callbacks/detection.py:32-100)."""
+        bb = self.model.cfg.backbone
+        out_dir = Path(self.tcfg.train_viz_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for i, (b, t_step, gt, pred) in enumerate(
+                frames[:self.tcfg.train_viz_max_panels]):
+            ev = batch.ev_repr[b, t_step]
+            if bb.stem_s2d:
+                # the prefetch transform already emitted s2d-blocked
+                # input; invert it to recover the storage-layout frame
+                ev = host_depth_to_space(
+                    ev, tuple(self.cfg.dataset.dataloading_hw),
+                    bb.input_channels)
+            _write_panel(out_dir / f"step_{step:07d}_{i}.png", ev, gt, pred,
+                         labelmap_of(self.cfg))
 
     # -- training loop -------------------------------------------------------
 

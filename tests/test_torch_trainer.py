@@ -178,10 +178,28 @@ def test_fit_refusals(tmp_path):
     with pytest.raises(NotImplementedError, match="one GPU"):
         Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path)), dp_size=2,
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="visualization"):
-        Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path),
-                                   train_viz_dir=str(tmp_path)),
-                device="cpu")
+    # train_viz_dir: panels of the evaluated step's labelled frames, each
+    # as JAX's render_detections draws that frame
+    from PIL import Image
+
+    from rvt_tpu.utils.visualization import LABELMAP_GEN1, render_detections
+
+    vcfg = tiny_cfg(conf=0.0)
+    vt = make_trainer(vcfg, tmp_path / "viz_run", max_steps=2,
+                      log_every_n_steps=10, detection_metrics_every_n_steps=2,
+                      detection_metrics_n_batches=1,
+                      train_viz_dir=str(tmp_path / "viz"))
+    drawn = []
+    write = vt._write_train_panels
+    vt._write_train_panels = lambda *a: (drawn.append(a), write(*a))
+    vt.fit(batches(vcfg, 2))
+    (batch, frames, step), = drawn
+    panels = sorted((tmp_path / "viz").glob("step_*.png"))
+    assert step == 2 and len(panels) == len(frames) == 2
+    for path, (b, t_step, gt, pred) in zip(panels, frames):
+        ref = render_detections(np.moveaxis(batch.ev_repr[b, t_step], -1, 0),
+                                gt, pred, LABELMAP_GEN1)
+        np.testing.assert_array_equal(np.asarray(Image.open(path)), ref)
     # the shipped preset (fused_kernels off) trains on the module path,
     # in the bf16 that training.precision asks for; dropout refuses as in
     # JAX's train step

@@ -126,11 +126,30 @@ Phases, each of which raises (exit code != 0) when it fails:
      tiny (64, 80), T = 5, f32 on the card against the CPU: detections
      frame by frame (counts equal, boxes and scores within 1e-4 of
      max|ref|) and the six stats within 1e-4;
+ 14. (run after phase 13) training from recordings through the training
+     CLI's functions (``cli/train.py``: ``build_train_scheduler``,
+     ``make_eval_fn``, ``--init_ckpt``'s ``load_torch_checkpoint``) over
+     ten in-memory recordings as phase 13 makes them (7 train, 3 val):
+     whether ``native_lib`` loads here (its COCO matcher then against the
+     numpy one); the mixed sampler at gen1, B = 8, T = 21 (4 stream and
+     4 random lanes, augmentation on), 6 batches bit for bit serially and
+     through 2 thread workers, the random lanes reset every batch, a
+     window flipped and one zoomed, the loader's frames/s both ways;
+     ``preset("gen1", "base")`` as the CLI trains it (fused_kernels off,
+     the compute dtype from training.precision) after an upstream .ckpt
+     loaded bit for bit, 3 steps with validation at step 2 and
+     checkpoints at 2 and 3; the train kernels config for 2 steps (K1-K8
+     and train_reduce launched: the "train cli" launches); each timed a
+     step fed by the scheduler (prefetch on) and by the same batches
+     stacked beforehand, the kernels also through 2 thread workers; the
+     serial loader's batch by part; the CLI's first step on the card
+     against the CPU at gen1 tiny, f32, B = 2, T = 5 (loss parts and
+     grad_norm within 1e-4 of their magnitude);
  11. check that the calls each kernel was timed at per step are the
      launches its paths made per step; print the kernels line (per
-     kernel: launches by path, the validation loop's among them, and ms,
-     plain, bound and library summed
-     over one step of each path it serves, and by path), after one line
+     kernel: launches by path, the validation loop's and the train CLI's
+     among them, and ms, plain, bound and library summed over one step
+     of each path it serves, and by path), after one line
      per K4 and per K8 call shape (path, stage, launches, ms beside
      cuDNN's LSTM forward or backward, and the launch plan of the
      recurrent kernel), then the device line last.
@@ -140,6 +159,7 @@ the rvt_tpu_torch package beside it.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -2855,6 +2875,331 @@ def run_validation_path(eval_counts):
     return res, counts
 
 
+CLI_SPLIT = 7  # phase 14: the first 7 recordings train, the last 3 validate
+
+
+def timed_steps(trainer):
+    """Wrap ``trainer._fit_one`` to note the host clock after each step
+    (synchronised) and the seconds its validation took; returns (marks,
+    validation seconds by step)."""
+    import torch
+
+    marks, val_s = [time.perf_counter()], {}
+    fit_one = trainer._fit_one
+
+    def one(batch, eval_fn):
+        def timed_eval(model):
+            t0 = time.perf_counter()
+            out = eval_fn(model)
+            torch.cuda.synchronize()
+            val_s[len(marks)] = time.perf_counter() - t0
+            return out
+
+        out = fit_one(batch, None if eval_fn is None else timed_eval)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return out
+
+    trainer._fit_one = one
+    return marks, val_s
+
+
+def step_ms(marks, val_s):
+    """ms per step after the first, each step's validation taken out."""
+    steps = [(marks[i + 1] - marks[i] - val_s.get(i + 1, 0.0)) * 1e3
+             for i in range(1, len(marks) - 1)]
+    return sum(steps) / len(steps)
+
+
+def native_matcher_check():
+    """Whether ``rvt_tpu_torch.native_lib`` loads the in-repo library on
+    this machine; when it does, its COCO matcher against the numpy one
+    on random scenes (the same metrics)."""
+    import numpy as np
+
+    from rvt_tpu_torch import native_lib
+    from rvt_tpu_torch.evaluation import coco
+
+    loaded = native_lib.get_lib() is not None
+    log(f"native_lib: {'loaded' if loaded else 'not loaded'} "
+        f"({native_lib._LIB_PATH.name}); the COCO matcher runs "
+        f"{'natively' if loaded else 'in numpy'}")
+    if not loaded:
+        return False
+    rng = np.random.RandomState(0)
+    gts, dts = [], []
+    for _ in range(40):
+        n, m = rng.randint(1, 6), rng.randint(0, 12)
+        g = np.concatenate([rng.uniform(0, 200, (n, 2)),
+                            rng.uniform(8, 90, (n, 2)),
+                            rng.randint(0, 2, (n, 1))], 1)
+        d = np.concatenate([rng.uniform(0, 200, (m, 2)),
+                            rng.uniform(8, 90, (m, 2)),
+                            rng.randint(0, 2, (m, 1)),
+                            rng.uniform(0.1, 1, (m, 1))], 1)
+        k = min(n, m)
+        d[:k, :4] = g[:k, :4] + rng.normal(0, 2, (k, 4))
+        d[:k, 4] = g[:k, 4]
+        gts.append(g)
+        dts.append(d)
+    native = coco.evaluate_coco_map(gts, dts, num_classes=2)
+    real = native_lib.coco_match_image
+    native_lib.coco_match_image = lambda *a, **k: None
+    try:
+        numpy_ = coco.evaluate_coco_map(gts, dts, num_classes=2)
+    finally:
+        native_lib.coco_match_image = real
+    if native != numpy_:
+        fail(f"native_lib: the native COCO matcher gives {native}, the "
+             f"numpy one {numpy_}")
+    log(f"  native and numpy matchers: the same metrics (AP "
+        f"{native['AP']:.4f}) over 40 random images")
+    return True
+
+
+def run_train_cli_path(dev="cuda", hw=(240, 304), size="base"):
+    """Phase 14: training from recordings through the training CLI's own
+    functions (``cli/train.py``: ``build_train_scheduler``,
+    ``make_eval_fn``, ``--init_ckpt``'s loader) over phase 13's in-memory
+    recordings (10 at ``hw``: 7 train, 3 val). The mixed sampler at B =
+    8, T = 21 (4 stream lanes, 4 random lanes, augmentation on): 6
+    batches equal serially and through 2 thread workers, random lanes
+    reset every batch, a window flipped and one zoomed, the loader's
+    frames/s. Then ``preset("gen1", size)`` as the CLI trains it, 3 steps
+    with validation at step 2 and checkpoints, after an upstream .ckpt
+    loaded bit for bit; the train kernels config for 2 steps (K1-K8 and
+    train_reduce launched); each fed by the scheduler (prefetch on) and
+    by the same batches stacked beforehand. Last, the CLI's first step
+    on the card against the CPU at gen1 tiny, f32. Returns (numbers for
+    the summary line, the kernels run's launches)."""
+    import copy
+    import tempfile
+    from dataclasses import replace
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from rvt_tpu_torch.cli.train import build_train_scheduler, make_eval_fn
+    from rvt_tpu_torch.config import preset
+    from rvt_tpu_torch.convert.torch_ckpt import load_torch_checkpoint
+    from rvt_tpu_torch.data.random_access import split_batch_size
+    from rvt_tpu_torch.data.sequence import StreamView
+    from rvt_tpu_torch.data.streaming import _stack
+    from rvt_tpu_torch.models.detector import init_detector, stage_routes
+    from rvt_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    res = {"native": native_matcher_check()}
+    frames = BATCH * SEQ_LEN
+
+    def batch_size(cfg, b=BATCH):  # what --batch_size sets
+        return replace(cfg, batch_size=replace(cfg.batch_size, train=b,
+                                               eval=b))
+
+    t0 = time.perf_counter()
+    recs = memory_recordings(VAL_LENGTHS, VAL_BOXES, hw=hw, seed=200)
+    train_recs, val_recs = recs[:CLI_SPLIT], recs[CLI_SPLIT:]
+    shipped = batch_size(preset("gen1", size))
+    n_stream, n_random = split_batch_size(BATCH)
+    if shipped.dataset.train_sampling != "mixed":
+        fail(f"train cli: gen1 samples {shipped.dataset.train_sampling!r}")
+
+    def scheduler(workers=0):
+        return build_train_scheduler(shipped, train_recs, seed=0,
+                                     num_workers=workers)
+
+    # 1. the batches: serial against 2 thread workers, timed
+    n = 6
+    got = {}
+    for workers in (0, 2):
+        it = iter(scheduler(workers))
+        t1 = time.perf_counter()
+        got[workers] = [next(it) for _ in range(n)]
+        got[f"{workers}_s"] = time.perf_counter() - t1
+        if hasattr(it, "close"):
+            it.close()
+    for i, (a, b) in enumerate(zip(got[0], got[2])):
+        for f in ("ev_repr", "labels", "label_mask", "frame_valid",
+                  "is_first_sample", "is_padded"):
+            if not (getattr(a, f) == getattr(b, f)).all():
+                fail(f"train cli: batch {i}'s {f} differs serially and "
+                     "through 2 thread workers")
+    plans = [p for ps in itertools.islice(scheduler().plan_batches(), n)
+             for p in ps]
+    flips = sum(bool(p.aug_state and p.aug_state.h_flip) for p in plans)
+    zooms = sum(bool(p.aug_state and (p.aug_state.zoom_in_factor
+                                      or p.aug_state.zoom_out))
+                for p in plans)
+    resets = [int(b.is_first_sample.sum()) for b in got[0]]
+    log(f"train cli data: {len(train_recs)} train + {len(val_recs)} val "
+        f"in-memory recordings of {VAL_LENGTHS} frames at {hw}; mixed "
+        f"sampler {n_stream} stream + {n_random} random lanes, B = {BATCH}, "
+        f"T = {SEQ_LEN}; {n} batches equal bit for bit serially and through "
+        f"2 thread workers; {flips} of {len(plans)} windows flipped, {zooms} "
+        f"zoomed; lanes starting a sample per batch {resets}")
+    if not all(b.is_first_sample[n_stream:].all() for b in got[0]):
+        fail("train cli: a random lane carried its state")
+    if not flips or not zooms:
+        fail(f"train cli: {flips} windows flipped, {zooms} zoomed")
+    res["loader_fps"] = (n * frames / got["0_s"], n * frames / got["2_s"])
+    log(f"train loader: {res['loader_fps'][0]:.1f} frames/s serially, "
+        f"{res['loader_fps'][1]:.1f} with 2 thread workers ({n} batches of "
+        f"{frames} frames: sample, read, augment, stack); {CARD}")
+    items = got[0]
+    del got
+    # the serial loader's batch by part: the windows' reads alone, then
+    # read + augment (fetch), the stack, and the channel-last copy that
+    # the Trainer makes of each batch before its H2D copy
+    sched, parts = scheduler(), {}
+    for plans in itertools.islice(sched.plan_batches(), n):
+        t1 = time.perf_counter()
+        for p in plans:
+            view = (sched.random.views[p.stream_idx] if p.source
+                    else sched.stream.streams[p.stream_idx])
+            view[p.window_idx]
+        t2 = time.perf_counter()
+        samples = [sched.fetch(p) for p in plans]
+        t3 = time.perf_counter()
+        batch = _stack(samples)
+        t4 = time.perf_counter()
+        np.ascontiguousarray(batch.ev_repr)
+        t5 = time.perf_counter()
+        for k, v in (("read", t2 - t1), ("read+augment", t3 - t2),
+                     ("stack", t4 - t3),
+                     ("contiguous copy (the Trainer's)", t5 - t4)):
+            parts.setdefault(k, []).append(v * 1e3)
+    res["loader_parts"] = {k: sum(v) / len(v) for k, v in parts.items()}
+    log("  ms a batch, serially: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in res["loader_parts"].items())
+        + f"; {CARD}")
+
+    def trainer_cfg(tmp, name, steps, **kw):
+        return TrainerConfig(**dict(dict(
+            max_steps=steps, log_every_n_steps=1, ckpt_every_n_steps=100,
+            gradflow_every_n_steps=0, detection_metrics_every_n_steps=0,
+            ckpt_dir=f"{tmp}/{name}"), **kw))
+
+    def fit_timed(trainer, batches, eval_fn=None):
+        marks, val_s = timed_steps(trainer)
+        last = trainer.fit(batches, eval_fn=eval_fn)
+        if not all(math.isfinite(v) for v in last.values()):
+            fail(f"train cli: non-finite metrics {last}")
+        return step_ms(marks, val_s), last, val_s
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        # 2. the shipped preset as the CLI trains it: its Trainer takes
+        # the compute dtype from training.precision, as JAX's does
+        compute = ("bfloat16" if shipped.training.precision
+                   in ("bf16", "bfloat16") else "float32")
+        ckpt = Path(tmp) / "rvt-b.ckpt"
+        src = gen1_base_model(replace(shipped, model=replace(
+            shipped.model, compute_dtype=compute)))
+        torch.save({"state_dict": {"mdl." + k: v for k, v in
+                                   src.state_dict().items()}}, ckpt)
+        val_streams = [StreamView(r, SEQ_LEN) for r in val_recs]
+        eval_fn = make_eval_fn(shipped, val_streams, device=dev)
+        ms = {}
+        for feed in ("scheduler", "stacked"):
+            trainer = Trainer(shipped, trainer_cfg(
+                tmp, f"shipped_{feed}", 3, ckpt_every_n_steps=3,
+                val_every_n_steps=2 if feed == "scheduler" else None),
+                seed=0, device=dev)
+            load_torch_checkpoint(ckpt, trainer.model)  # --init_ckpt
+            sd, ref = trainer.model.state_dict(), src.state_dict()
+            bad = [k for k in ref if not torch.equal(sd[k], ref[k])]
+            if bad or sd.keys() != ref.keys():
+                fail(f"train cli: --init_ckpt loaded {bad[:5]} otherwise")
+            routes = stage_routes(trainer.model.cfg, "train")
+            ms[feed], last, val_s = fit_timed(
+                trainer, iter(scheduler()) if feed == "scheduler"
+                else iter(items), eval_fn if feed == "scheduler" else None)
+            if feed == "scheduler":
+                mgr = trainer.ckpt
+                if (mgr.latest_step() != 3 or mgr.best_step() != 2
+                        or len(val_s) != 1):
+                    fail(f"train cli: checkpoints at {mgr.latest_step()}, "
+                         f"best {mgr.best_step()}, validations {val_s}")
+                log(f"train cli, shipped gen1 RVT-{size[0].upper()} "
+                    f"({compute} compute as training.precision "
+                    f"{shipped.training.precision!r} sets it, routes "
+                    f"{routes}): --init_ckpt bit for bit ({len(ref)} "
+                    f"tensors), 3 steps, validation at step 2 in "
+                    f"{val_s[2]:.2f} s, checkpoints at 2 (best) and 3; "
+                    f"last metrics {last}")
+            del trainer
+            torch.cuda.empty_cache()
+        del src
+        res["shipped_ms"] = (ms["scheduler"], ms["stacked"])
+        log(f"train cli, shipped preset: {ms['scheduler']:.2f} ms a step fed "
+            f"by the scheduler (prefetch 4), {ms['stacked']:.2f} fed by the "
+            f"same batches stacked beforehand (steps 2-3, validation "
+            f"excluded); {CARD}")
+
+        # 3. the train kernels config on the same scheduler, 2 steps; fed
+        # also by 2 thread workers (--num_workers 2)
+        kcfg = batch_size(gen1_base_train_cfg())
+        counters = stage_step_counters()[:-1]
+        feeds = {"scheduler": lambda: iter(scheduler()),
+                 "2 workers": lambda: iter(scheduler(2)),
+                 "stacked": lambda: iter(items)}
+        for feed, batches in feeds.items():
+            trainer = Trainer(kcfg, trainer_cfg(tmp, f"kernels_{len(ms)}",
+                                                2),
+                              model=gen1_base_model(kcfg))
+            if feed == "scheduler":
+                for c in counters:
+                    c.reset()
+            ms[feed], last, _ = fit_timed(trainer, batches())
+            if feed == "scheduler":
+                counts = {c.name: c.launches for c in counters}
+            del trainer
+            torch.cuda.empty_cache()
+        log(f"train cli path (kernels config, 2 steps): launches {counts}")
+        for name, k in counts.items():
+            if k == 0:
+                fail(f"kernel {name} was not launched on the train cli path")
+        res["kernels_ms"] = tuple(ms[f] for f in feeds)
+        log(f"train cli, kernels config: {ms['scheduler']:.2f} ms a step fed "
+            f"by the scheduler (prefetch 4), {ms['2 workers']:.2f} by the "
+            f"scheduler through 2 thread workers, {ms['stacked']:.2f} by the "
+            f"same batches stacked beforehand (step 2); {CARD}")
+
+        # 4. the CLI's first step on the card against the CPU: gen1 tiny,
+        # f32, B = 2, T = 5, the same augmented batch and initial weights
+        tiny = batch_size(preset("gen1", "tiny", resolution_hw=(64, 80),
+                                 sequence_length=5), 2)
+        tiny = replace(tiny, training=replace(tiny.training,
+                                              precision="32"))
+        trecs = memory_recordings((23, 17, 12, 30), TINY_BOXES,
+                                  hw=(64, 80), seed=300)
+        batch = next(iter(build_train_scheduler(tiny, trecs, seed=0)))
+        cpu_model = init_detector(tiny.model, seed=0, device="cpu")
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for name, p in cpu_model.named_parameters():
+                if name.endswith(".gamma"):
+                    p.normal_(0.0, 0.1, generator=gen)
+        metrics = {}
+        for where, model in (("cpu", copy.deepcopy(cpu_model)),
+                             (dev, copy.deepcopy(cpu_model).to(dev))):
+            trainer = Trainer(tiny, trainer_cfg(tmp, f"tiny_{where}", 1,
+                                                prefetch_depth=0),
+                              model=model)
+            metrics[where] = trainer.fit(iter([batch]))
+        ref, got = metrics["cpu"], metrics[dev]
+        keys = sorted(k for k in ref if k != "train/frames_per_s")
+        errs = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30)
+                for k in keys}
+        log(f"  card vs CPU, the CLI's first step at gen1 tiny f32 (B = 2, "
+            f"T = 5, mixed batch, {int(batch.is_first_sample.sum())} lanes "
+            f"starting): " + ", ".join(f"{k} {ref[k]:.6g} ({errs[k]:.1e})"
+                                       for k in keys)
+            + " (relative difference, tolerance 1e-4)")
+        if not keys or any(not e <= 1e-4 for e in errs.values()):
+            fail("train cli: the card's first step disagrees with the CPU")
+    return res, counts
+
+
 # the kernels of csrc/ln_rows.cu and csrc/train_reduce.cu, whose template
 # instances the profile lists apart
 PROFILE_FAMILIES = {"ln_rows": ("ln_rows_kernel", "ln_rows_wide_kernel"),
@@ -2957,6 +3302,8 @@ def main() -> int:
     sh = run_shipped_preset()
     torch.cuda.empty_cache()
     val, val_counts = run_validation_path(counts)
+    torch.cuda.empty_cache()
+    cli, cli_counts = run_train_cli_path()
     # the calls each record timed per step must be the launches the path
     # made per step (eval: 4 windows; raw: 1 + 21 calls; train: 1 + 5;
     # per-step train: one forward and backward; trainer: 4 + 1 + 1)
@@ -2969,7 +3316,8 @@ def main() -> int:
                    "train step": t_counts.get(name, 0),
                    "per-step train": s_counts.get(name, 0),
                    "trainer": tr_counts.get(name, 0),
-                   "validate": val_counts.get(name, 0)}
+                   "validate": val_counts.get(name, 0),
+                   "train cli": cli_counts.get(name, 0)}
         rec.d["launches"] = sum(by_path.values())
         rec.d["launches_by_path"] = by_path
         for path, q in rec.paths.items():
@@ -2985,7 +3333,14 @@ def main() -> int:
         f"shipped gen1 RVT-B (f32, modules) eval {sh['fps']:.1f} frames/s, "
         f"train {sh['ms']:.2f} ms per step, peak {sh['peak']:.2f} GiB; "
         f"validation loop {val['loop_fps']:.1f} frames/s (the eval step "
-        f"{fps:.1f}), shipped preset {val['shipped_fps']:.1f}; "
+        f"{fps:.1f}), shipped preset {val['shipped_fps']:.1f}; train "
+        f"cli: loader {cli['loader_fps'][0]:.1f} frames/s serially, "
+        f"{cli['loader_fps'][1]:.1f} with 2 threads, shipped preset "
+        f"{cli['shipped_ms'][0]:.2f} ms a step from the scheduler, "
+        f"{cli['shipped_ms'][1]:.2f} pre-stacked, kernels "
+        f"{cli['kernels_ms'][0]:.2f}, {cli['kernels_ms'][1]:.2f} with 2 "
+        f"workers, {cli['kernels_ms'][2]:.2f} pre-stacked, "
+        f"native_lib {'loaded' if cli['native'] else 'not loaded'}; "
         f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": [r.d for r in recs.values()]}))
     print(json.dumps({"ok": True, "device": {

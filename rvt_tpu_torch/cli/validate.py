@@ -90,7 +90,7 @@ def main(argv=None) -> None:
     model = load_model(args.checkpoint, cfg, args.device)
 
     split = "test" if args.use_test_set else "val"
-    streams = build_streams(args.data_dir, split, cfg, train=False)
+    streams = build_streams(args.data_dir, split, cfg)
     sched = EvalStreamScheduler(streams, args.batch_size)
     if args.num_workers:
         from rvt_tpu_torch.data.loader import ParallelBatchLoader

@@ -1,5 +1,6 @@
 """Clean-room COCO bbox mAP evaluator in pure numpy (a copy of
-``rvt_tpu.evaluation.coco`` without its native fast path).
+``rvt_tpu.evaluation.coco``; its per-image matcher takes the native C++
+fast path of ``rvt_tpu_torch.native_lib`` when the library loads).
 
 pycocotools is not available in this environment, so this implements the
 COCOeval 'bbox' protocol directly (same algorithm as the evaluator the
@@ -65,6 +66,15 @@ def _match_img(ious: np.ndarray, gt_ignore: np.ndarray,
     """
     D, G = ious.shape
     T = len(IOU_THRS)
+
+    # fast path: native greedy matcher (C++ equivalent of detectron2's
+    # COCOeval_opt; see native/rvt_native.cpp)
+    from rvt_tpu_torch import native_lib
+
+    native = native_lib.coco_match_image(ious, gt_ignore, IOU_THRS,
+                                         dt_out_of_range) if D else None
+    if native is not None:
+        return native
 
     dt_m = np.full((T, D), -1, np.int64)
     gt_m = np.full((T, G), -1, np.int64)

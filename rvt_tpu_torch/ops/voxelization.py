@@ -16,10 +16,15 @@ counts when its index is below its lane's ``counts`` and 0 <= x < W,
 0 <= y < H, p in {0, 1}; every other event is dropped. (The JAX package's
 XLA ``stacked_histogram`` row-aliases an x that overflows into the next
 row instead; the two agree on in-range events.)
+
+``repair_time_monotonicity`` and ``mixed_density_stack`` are JAX's
+functions of the same names in eager PyTorch: its TPU kernel covers the
+stacked histogram only, and these are XLA ops there.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -182,3 +187,54 @@ def stacked_histogram_batched(x: torch.Tensor, y: torch.Tensor,
     check(err, "stacked_histogram")
     STACKED_HISTOGRAM.launches += 1
     return out
+
+
+def repair_time_monotonicity(t: torch.Tensor) -> torch.Tensor:
+    """Running max over event timestamps along the first axis (the numba
+    loop at the upstream ``preprocess_dataset.py:163-172``; JAX's
+    ``associative_scan`` of ``maximum``)."""
+    return torch.cummax(t, dim=0).values
+
+
+def mixed_density_stack(x: torch.Tensor, y: torch.Tensor, pol: torch.Tensor,
+                        t: torch.Tensor, num_events, bins: int, height: int,
+                        width: int, count_cutoff: int = 127) -> torch.Tensor:
+    """MixedDensityEventStack (upstream ``representations.py:130-218``) on
+    padded events: x, y, pol, t [N] int (sorted by t), ``num_events``
+    valid leading events. Log2-spaced time bins, polarity +/-1 summed in
+    int32, a cumulative sum over bins, clipped to +/-count_cutoff.
+    Returns [bins, H, W] int8.
+
+    The same f32 steps in the same order as
+    ``rvt_tpu/ops/voxelization.py:mixed_density_stack``: t_norm's
+    division, the clip, the log over a 0-d f32 tensor (a Python float
+    divisor lets CUDA multiply by its reciprocal instead), so an event on
+    a bin edge lands in the same bin. An index past either end drops its
+    event after a negative one wraps once, as JAX's ``mode="drop"``
+    scatter does."""
+    N = x.shape[0]
+    dev = x.device
+    if N == 0:
+        return torch.zeros((bins, height, width), dtype=torch.int8,
+                           device=dev)
+    num_events = torch.as_tensor(num_events, device=dev)
+    valid = torch.arange(N, device=dev) < num_events
+    total = bins * height * width
+    t0 = t[0]
+    t1 = t[num_events.clamp(min=1) - 1]
+    denom = torch.clamp(t1 - t0, min=1).float()
+    t_norm = torch.clamp((t - t0).float() / denom, 1e-6, 1 - 1e-6)
+    log_half = torch.tensor(math.log(0.5), dtype=torch.float32, device=dev)
+    bin_float = torch.clamp(bins - torch.log(t_norm) / log_half, min=0.0)
+    t_idx = torch.clamp(torch.floor(bin_float).to(torch.int32),
+                        max=bins - 1)
+    flat = x.long() + width * y.long() + height * width * t_idx.long()
+    flat = torch.where(valid, flat, total)
+    flat = torch.where(flat < 0, flat + total, flat)
+    keep = (flat >= 0) & (flat < total)
+    values = torch.where(valid & keep, pol.int() * 2 - 1, 0).to(torch.int32)
+    rep = torch.zeros(total + 1, dtype=torch.int32, device=dev)
+    rep.index_add_(0, torch.where(keep, flat, total), values)
+    rep = torch.cumsum(rep[:total].reshape(bins, height, width), dim=0,
+                       dtype=torch.int32)
+    return torch.clamp(rep, -count_cutoff, count_cutoff).to(torch.int8)

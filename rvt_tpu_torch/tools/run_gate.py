@@ -105,7 +105,7 @@ def run_gate(ckpt: Path, data_dir: Path, dataset: str, size: str,
         cfg = serve_fused_config(cfg)
     model = load_model(ckpt, cfg, device)
 
-    streams = build_streams(data_dir, split, cfg, train=False)
+    streams = build_streams(data_dir, split, cfg)
     sched = EvalStreamScheduler(streams, batch_size)
     metrics = run_streaming_eval(model, cfg, iter(sched), batch_size,
                                  device=device)

@@ -1,15 +1,16 @@
 """The port's Prophesee protocol (rvt_tpu_torch.evaluation: prophesee.py
-and the numpy COCO matcher of coco.py) against the JAX package's, which
-matches through its native library when it loads and through the same
-numpy matcher when it does not: all six stats, equal, over random GT and
-detection sets (empty frames, a class without GT, tied scores, boxes the
-size filter drops), gen1 and gen4 with ``downsample_by_2``; and the
-buffers' serialisation round trip."""
+and the COCO matcher of coco.py) against the JAX package's, each matching
+through its native library (the same in-repo file) and, with the
+libraries switched off, through their numpy matchers: all six stats,
+equal, over random GT and detection sets (empty frames, a class without
+GT, tied scores, boxes the size filter drops), gen1 and gen4 with
+``downsample_by_2``; and the buffers' serialisation round trip."""
 import numpy as np
 import pytest
 
 from rvt_tpu import native_lib
 from rvt_tpu.evaluation.prophesee import PropheseeEvaluator as JEvaluator
+from rvt_tpu_torch import native_lib as t_native_lib
 from rvt_tpu_torch.evaluation.prophesee import (BBOX_DTYPE,
                                                 PropheseeEvaluator)
 
@@ -70,11 +71,12 @@ def _evaluate(cls, dataset, ds2, gts, preds):
 @pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
 @pytest.mark.parametrize("dataset,ds2,seed", CASES)
 def test_protocol_equals_jax(monkeypatch, dataset, ds2, seed, native):
-    if native:
-        assert native_lib.get_lib() is not None
-    else:
-        monkeypatch.setattr(native_lib, "coco_match_image",
-                            lambda *a, **k: None)
+    for lib in (native_lib, t_native_lib):
+        if native:
+            assert lib.get_lib() is not None
+        else:
+            monkeypatch.setattr(lib, "coco_match_image",
+                                lambda *a, **k: None)
     gts, preds = _frames(seed, dataset, ds2)
     got = _evaluate(PropheseeEvaluator, dataset, ds2, gts, preds)
     want = _evaluate(JEvaluator, dataset, ds2, gts, preds)

@@ -20,7 +20,13 @@ Phases, each of which raises (exit code != 0) when it fails:
      lane with out-of-range and past-counts events, on t out of order,
      100,000 events in one bin, N = 0, counts = 0 and a total that is not
      a multiple of 16, with its event and device time at gen1, gen4 ds2
-     and the clustered lane beside each bound and its launches a call.
+     and the clustered lane beside each bound and its launches a call;
+     and nms_keep (NMS's keep mask, the kernel that lets the steps be
+     captured) with keep masks identical to its plain version's on the
+     eval and raw steps' calls, on 48 dense frames of 1,680 anchors with
+     577-676 candidates (class-aware and class-agnostic), a chain of 1,024
+     candidates of depth 1,024, boxes exactly at the IoU threshold, and 0
+     and 1 candidates, timed beside its bound.
      Prints the error
      beside its tolerance and the kernel's, plain version's and one
      library call's times (CUDA events; K4's yardstick cuDNN's
@@ -40,7 +46,10 @@ Phases, each of which raises (exit code != 0) when it fails:
   4. run the port's RVT-B gen1 streaming eval step (bf16, s2d stem,
      B = 8, T = 21, labels on every 5th frame, pre_nms_topk 512) over
      several windows with the LSTM states carried, random weights from a
-     seed; check that every kernel's launch count rose, that the
+     seed (each step here and below as the port runs it on a card: its
+     first call eager, then captured as a CUDA graph and replayed, each
+     replay crediting the kernels' counters with its capture's launches);
+     check that every kernel's launch count rose, that the
      detections are finite, and that one window agrees with the same
      step run through the plain versions; print frames/s and MFU;
   5. run the port's RVT-B gen1 raw-event step (events -> voxelizer ->
@@ -111,10 +120,13 @@ Phases, each of which raises (exit code != 0) when it fails:
      with phase 4's weights at confidence threshold 1e-4 (NMS sees
      candidates), K1-K4 launched the eval step's count per window x
      windows, six finite stats, equal bit for bit to the same windows fed
-     by hand (make_eval_step, iter_batch_detections, PropheseeEvaluator),
-     each part of a window timed (read+stack, s2d, H2D copy, eval step,
-     postprocess with its candidates and Jacobi rounds, conversion; the
-     protocol at the end), the idle share of a profiled window, loop
+     by hand (make_eval_step, the pinned feed, iter_batch_detections,
+     PropheseeEvaluator), each part of a window timed (read+stack, the
+     pinned copy, the layout and s2d on the card, eval step, output wait,
+     conversion; postprocess alone on nms_keep and on the plain route,
+     identical detections, with its candidates and the plain route's
+     Jacobi rounds; the protocol at the end), the idle share of a
+     profiled window, loop
      frames/s; the model saved as an upstream Lightning .ckpt and loaded
      by ``cli.validate.load_model``, the same metrics bit for bit; the
      Trainer (gen1 RVT-B on the train kernels, 2 steps) validating every
@@ -142,9 +154,20 @@ Phases, each of which raises (exit code != 0) when it fails:
      and train_reduce launched: the "train cli" launches); each timed a
      step fed by the scheduler (prefetch on) and by the same batches
      stacked beforehand, the kernels also through 2 thread workers; the
-     serial loader's batch by part; the CLI's first step on the card
+     serial loader's batch by part (the Trainer's pinned feed among
+     them); the CLI's first step on the card
      against the CPU at gen1 tiny, f32, B = 2, T = 5 (loss parts and
      grad_norm within 1e-4 of their magnitude);
+ 15. (run after phase 14) each path's step captured against the same
+     step eager from the same state, in one run: the eval step (4
+     windows), the raw step (1 + 21 calls), the train step (1 + 5 steps;
+     the parameters, BatchNorm buffers, gradients and moments after),
+     the per-step backbone's forward and backward (3 calls) and the
+     Trainer with token masks (4 batches; its state after), every output
+     and state bit for bit (cuDNN's deterministic algorithms); one replay
+     of each under ``torch.cuda.set_sync_debug_mode("error")``; ms a
+     call, frames/s, device busy time and idle share of a profiled call
+     and peak memory, captured beside eager;
  11. check that the calls each kernel was timed at per step are the
      launches its paths made per step; print the kernels line (per
      kernel: launches by path, the validation loop's and the train CLI's
@@ -159,6 +182,7 @@ the rvt_tpu_torch package beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -807,22 +831,17 @@ def check_small_preset_train_kernels(randn):
     log(f"small-preset widths: {n} cases of K8 agree with its plain version")
 
 
-def run_main_path():
-    """Phase 4. Returns (frames/s, MFU %, launch counts by kernel)."""
+def eval_cell():
+    """Phase 4's cell: (cfg, model, a window of s2d-blocked events on the
+    card, frame_valid, is_first)."""
     from dataclasses import replace
 
     import numpy as np
     import torch
 
     from rvt_tpu_torch.config import preset
-    from rvt_tpu_torch.models.backbone import zero_states
     from rvt_tpu_torch.models.detector import init_detector
-    from rvt_tpu_torch.ops.fused_attention import (GEMM_BF16, LN_ROWS,
-                                                   PARTITION_ATTENTION)
-    from rvt_tpu_torch.ops.fused_scan import LSTM_SCAN
     from rvt_tpu_torch.ops.s2d import host_space_to_depth
-    from rvt_tpu_torch.training.step import make_eval_step
-    from rvt_tpu_torch.utils.flops import detector_flops_per_frame
 
     cfg = preset("gen1", "base")
     cfg = replace(cfg, model=replace(
@@ -847,13 +866,31 @@ def run_main_path():
         (np.arange(SEQ_LEN) % LABEL_EVERY == LABEL_EVERY - 1)[None].repeat(
             BATCH, 0)).cuda()
     is_first = torch.zeros(BATCH, dtype=torch.bool, device="cuda")
+    return cfg, model, ev, frame_valid, is_first
+
+
+def run_main_path():
+    """Phase 4. Returns (frames/s, MFU %, launch counts by kernel)."""
+    import numpy as np
+    import torch
+
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.ops.boxes import NMS_KEEP
+    from rvt_tpu_torch.ops.fused_attention import (GEMM_BF16, LN_ROWS,
+                                                   PARTITION_ATTENTION)
+    from rvt_tpu_torch.ops.fused_scan import LSTM_SCAN
+    from rvt_tpu_torch.training.step import make_eval_step
+    from rvt_tpu_torch.utils.flops import detector_flops_per_frame
+
+    cfg, model, ev, frame_valid, is_first = eval_cell()
     states = zero_states(cfg.model.backbone, BATCH, device="cuda")
     step = make_eval_step(model, cfg)
-    counters = (LN_ROWS, GEMM_BF16, PARTITION_ATTENTION, LSTM_SCAN)
+    counters = (LN_ROWS, GEMM_BF16, PARTITION_ATTENTION, LSTM_SCAN, NMS_KEEP)
 
     for c in counters:
         c.reset()
-    out = step(states, ev, frame_valid, is_first)  # first window: warm-up
+    # first window: the warm-up (eager), then the capture; then replays
+    out = step(states, ev, frame_valid, is_first)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(WINDOWS - 1):
@@ -1041,23 +1078,119 @@ def check_voxelizer():
     return rec
 
 
-def run_raw_path():
-    """Phase 5. Returns (frames/s, MFU %, launch counts by kernel)."""
+NMS_PAIR_OPS = 20  # f32 operations of one IoU test (nms_keep.cu:iou_xyxy)
+
+
+def nms_work(keep, valid):
+    """(bytes, operations) ``nms_keep`` needs for these inputs: boxes,
+    validity and keep once each; 20 f32 operations for each pair the sweep
+    tests (each kept box against the valid boxes after it)."""
+    import torch
+
+    B, K = valid.shape
+    n = valid.sum(-1, keepdim=True)
+    idx = torch.arange(K, device=valid.device)[None]
+    pairs = torch.where(keep & (idx < n), n - 1 - idx, 0).sum()
+    return B * K * (16 + 1 + 1), int(pairs) * NMS_PAIR_OPS
+
+
+def nms_frames(B, K, n_lo, n_hi, gen, *, classes=2, hw=(240, 304)):
+    """B score-sorted frames of K boxes with n_lo..n_hi candidates each:
+    random xyxy boxes of 8-64 pixels, offset by class as postprocess
+    offsets them (``classes`` 1: class-agnostic)."""
+    import torch
+
+    xy = torch.rand(B, K, 2, generator=gen) * torch.tensor(hw[::-1])
+    wh = torch.rand(B, K, 2, generator=gen) * 56 + 8
+    b = torch.cat([xy, xy + wh], -1)
+    cls = torch.randint(0, classes, (B, K, 1), generator=gen).float()
+    b = b + cls * (b.amax() + 1.0)
+    n = torch.randint(n_lo, n_hi + 1, (B, 1), generator=gen)
+    return b.cuda(), (torch.arange(K)[None] < n).cuda()
+
+
+def check_nms_keep():
+    """Phase 3, NMS: ``nms_keep`` against its plain version (the Jacobi
+    fixpoint), identical keep masks, on: the eval and raw steps' calls (48
+    and 8 frames of pre_nms_topk 512, no candidate at threshold 0.1);
+    48 dense frames of gen1's 1,680 anchors with 577-676 candidates,
+    class-aware and class-agnostic (the validation loop's load; phase 13
+    holds the random head's own frames); a frame of 1,024 candidates in a
+    suppression chain of depth 1,024 (above 512, every other box kept);
+    pairs at IoU exactly 1/2 against a threshold of 1/2; 0 and 1
+    candidates. Times the steps' calls and the dense frames (CUDA events;
+    device time of a CUDA graph of 10 calls) beside the bound and the
+    plain version. Returns its Record."""
+    import torch
+
+    from rvt_tpu_torch.ops import boxes as bx
+
+    rec = Record("nms_keep", "rvt_tpu_torch/csrc/nms_keep.cu",
+                 "rvt_tpu/ops/boxes.py:63 (XLA ops in the jitted step; "
+                 "not a TPU kernel)")
+    gen = torch.Generator().manual_seed(7)
+    x = torch.arange(1024.0) * 3
+    chain = torch.stack([x, torch.zeros_like(x), x + 10,
+                         torch.full_like(x, 10)], -1)[None]
+    pair = torch.tensor([[[0.0, 0, 2, 1], [0, 0, 1, 1], [5, 5, 7, 6],
+                          [5, 5, 6, 6.5]]])
+    cases = {
+        "eval step": nms_frames(BATCH * 6, 512, 0, 0, gen) + (0.45,),
+        "raw step": nms_frames(BATCH, 512, 0, 0, gen) + (0.45,),
+        "dense": nms_frames(BATCH * 6, 1680, 577, 676, gen) + (0.45,),
+        "dense agnostic": nms_frames(BATCH * 6, 1680, 577, 676, gen,
+                                     classes=1) + (0.45,),
+        "chain": (chain.cuda(), torch.ones(1, 1024, dtype=torch.bool,
+                                           device="cuda"), 0.45),
+        "at threshold": (pair.cuda(), torch.ones(1, 4, dtype=torch.bool,
+                                                 device="cuda"), 0.5),
+        "0 and 1 candidates": nms_frames(2, 1680, 0, 0, gen)[:1]
+        + (torch.arange(1680, device="cuda")[None] < torch.tensor(
+            [[0], [1]], device="cuda"), 0.45),
+    }
+    for name, (b, v, thr) in cases.items():
+        keep = bx.nms_keep(b, v, thr)
+        ref = bx.nms_keep_plain(b, v, thr)
+        torch.cuda.synchronize()
+        if not torch.equal(keep, ref):
+            fail(f"nms_keep [{name}]: {int((keep != ref).sum())} keep flags "
+                 "differ from the plain version")
+        if name == "chain" and not torch.equal(
+                keep[0], torch.arange(1024, device="cuda") % 2 == 0):
+            fail("nms_keep [chain]: not every other box kept")
+        if name == "at threshold" and not bool(keep.all()):
+            fail("nms_keep [at threshold]: a box at IoU 1/2 suppressed")
+        nbytes, ops = nms_work(ref, v)
+        log(f"  nms_keep[{name}]: {tuple(b.shape[:2])} boxes, "
+            f"{int(v.sum(-1).min())}-{int(v.sum(-1).max())} candidates, "
+            f"{int(ref.sum())} kept, identical to the plain version")
+        if name not in ("eval step", "raw step", "dense"):
+            continue
+        ms = time_ms(lambda: bx.nms_keep(b, v, thr))
+        dms = device_ms_of(lambda: bx.nms_keep(b, v, thr))
+        pms = time_ms(lambda: bx.nms_keep_plain(b, v, thr))
+        if name == "dense":  # the validation loop's load: logged apart
+            b_ms, o_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
+            by = "bytes" if b_ms >= o_ms else "operations"
+            log(f"    per call: kernel {ms:.4f} ms (device {dms:.4f} ms), "
+                f"plain {pms:.4f} ms, library none, bound "
+                f"{max(b_ms, o_ms):.4f} ms ({by}; {ops // NMS_PAIR_OPS} "
+                "pair tests)")
+            continue
+        rec.add(name, 1, 0.0, ms, pms, nbytes, ops, PEAK_F32_FLOPS, None,
+                device_ms=dms)
+    return rec
+
+
+def raw_cell():
+    """Phase 5's cell: (cfg, model, RAW_FRAMES distinct event frames made
+    on the card, is_first)."""
     from dataclasses import replace
 
     import torch
 
     from rvt_tpu_torch.config import preset
-    from rvt_tpu_torch.inference import event_frames, make_raw_inference_step
-    from rvt_tpu_torch.models.backbone import zero_states
-    from rvt_tpu_torch.models.detector import (backbone_kernel_params,
-                                               init_detector)
-    from rvt_tpu_torch.ops import fused_scan as fs
-    from rvt_tpu_torch.ops.fused_attention import (GEMM_BF16, LN_ROWS,
-                                                   PARTITION_ATTENTION)
-    from rvt_tpu_torch.ops.voxelization import STACKED_HISTOGRAM
-    from rvt_tpu_torch.training.step import reset_states
-    from rvt_tpu_torch.utils.flops import detector_flops_per_frame
+    from rvt_tpu_torch.models.detector import init_detector
 
     cfg = preset("gen1", "base")
     cfg = replace(cfg, model=replace(
@@ -1084,11 +1217,30 @@ def run_raw_path():
     frames = [(ints(W), ints(H), ints(2),
                torch.sort(ints(50_000), dim=1).values, counts)
               for _ in range(RAW_FRAMES)]
-    is_first = torch.zeros(BATCH, dtype=torch.bool, device="cuda")
+    return cfg, model, frames, torch.zeros(BATCH, dtype=torch.bool,
+                                           device="cuda")
+
+
+def run_raw_path():
+    """Phase 5. Returns (frames/s, MFU %, launch counts by kernel)."""
+    import torch
+
+    from rvt_tpu_torch.inference import event_frames, make_raw_inference_step
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.models.detector import backbone_kernel_params
+    from rvt_tpu_torch.ops import fused_scan as fs
+    from rvt_tpu_torch.ops.boxes import NMS_KEEP
+    from rvt_tpu_torch.ops.fused_attention import (GEMM_BF16, LN_ROWS,
+                                                   PARTITION_ATTENTION)
+    from rvt_tpu_torch.ops.voxelization import STACKED_HISTOGRAM
+    from rvt_tpu_torch.training.step import reset_states
+    from rvt_tpu_torch.utils.flops import detector_flops_per_frame
+
+    cfg, model, frames, is_first = raw_cell()
     states = zero_states(cfg.model.backbone, BATCH, device="cuda")
     step = make_raw_inference_step(model, cfg)
     counters = (LN_ROWS, GEMM_BF16, PARTITION_ATTENTION, fs.LSTM_SCAN,
-                STACKED_HISTOGRAM)
+                STACKED_HISTOGRAM, NMS_KEEP)
 
     for c in counters:
         c.reset()
@@ -1798,6 +1950,7 @@ def hold_train_step_vs_plain(model, opt, cfg, states, batch, step, label):
 
     import torch
 
+    from rvt_tpu_torch.training import graphs
     from rvt_tpu_torch.training import step as step_mod
     from rvt_tpu_torch.training.step import make_train_step
 
@@ -1811,6 +1964,8 @@ def hold_train_step_vs_plain(model, opt, cfg, states, batch, step, label):
     # differences with random weights: SimOTA's picks flip, and with the
     # picks held the step's grad_norm still moved by 12 % (H100, this
     # cell) where a 1e-3 move of one stem weight moved it by 4 %.
+    # The kernel step runs eagerly: its captured graph would not see the
+    # shared features.
     pmodel, popt = copy.deepcopy((model, opt))
     kept = {}
     scan = step_mod.scan_backbone
@@ -1818,7 +1973,8 @@ def hold_train_step_vs_plain(model, opt, cfg, states, batch, step, label):
     try:
         st_p, m_p = make_train_step(pmodel, cfg, popt, plain=True)(states,
                                                                   *batch)
-        st_k, m_k = step(states, *batch)
+        with graphs.eager():
+            st_k, m_k = step(states, *batch)
     finally:
         step_mod.scan_backbone = scan
     for i, (fk, fp) in enumerate(zip(kept["own"], kept["first"])):
@@ -2151,9 +2307,12 @@ def run_trainer_path():
 
     from rvt_tpu_torch.training.trainer import Trainer, TrainerConfig
 
+    from rvt_tpu_torch.ops.boxes import NMS_KEEP
+
     cfg = gen1_base_train_cfg(enable_masking=True)
     items = trainer_batches(cfg)
-    counters = stage_step_counters()[:-1]
+    # NMS: the detection variant's
+    counters = stage_step_counters()[:-1] + (NMS_KEEP,)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
         tcfg = TrainerConfig(
             max_steps=4, log_every_n_steps=1, ckpt_every_n_steps=2,
@@ -2582,33 +2741,29 @@ def same_detections(got, ref, what):
     return len(got._predictions), n, worst
 
 
-def eval_window_parts(step, cfg, batch, states, evaluator, parts):
+def eval_window_parts(step, cfg, batch, states, evaluator, parts, feed):
     """One window fed by hand as ``run_streaming_eval`` feeds it, each part
-    timed into ``parts`` (ms): the host s2d transform, the pageable H2D
-    copy (synchronised), the eval step until it returns (postprocess
-    included: NMS reads a flag on the host every round), the wait for its
-    outputs' host copy (what the loop's one-window lag can hide) and the
-    conversion to protocol arrays. Returns the step's output."""
-    import numpy as np
+    timed on the host clock into ``parts`` (ms): the stored layout's copy
+    into a pinned slot of ``feed`` with its H2D issued ("pinned copy"),
+    the channel-last permute and s2d issued on the card ("card layout"),
+    the eval step until it returns (a replay: the host only issues), the
+    wait for its outputs' host copy (which takes the card's whole window:
+    H2D, layout, step) and the conversion to protocol arrays. Returns the
+    step's output."""
     import torch
 
-    from rvt_tpu_torch.ops.s2d import host_space_to_depth
     from rvt_tpu_torch.training.evaluator_loop import (fetch_outputs,
                                                        iter_batch_detections)
+    from rvt_tpu_torch.training.feed import stored_layout, window_input
 
-    def to_dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
-
+    bb = cfg.model.backbone
     t0 = time.perf_counter()
-    ev = batch.ev_repr
-    if cfg.model.backbone.stem_s2d:
-        ev = host_space_to_depth(ev, cfg.model.backbone.in_res_hw)
+    ev, stored = stored_layout(batch.ev_repr)
+    ev, fv, first = feed([ev, batch.frame_valid, batch.is_first_sample])
     t1 = time.perf_counter()
-    args = [to_dev(a) for a in (ev, batch.frame_valid,
-                                batch.is_first_sample)]
-    torch.cuda.synchronize()
+    x = window_input(ev, stored, bb.in_res_hw, bb.stem_s2d)
     t2 = time.perf_counter()
-    out = step(states, *args)
+    out = step(states, x, fv, first)
     t3 = time.perf_counter()
     arrays = fetch_outputs((out.dets, out.det_valid, out.frame_idx,
                             out.gval), torch.device("cuda"))()
@@ -2618,7 +2773,7 @@ def eval_window_parts(step, cfg, batch, states, evaluator, parts):
         evaluator.add_labels([f[2] for f in frames])
         evaluator.add_predictions([f[3] for f in frames])
     t5 = time.perf_counter()
-    for k, a, b in (("s2d", t0, t1), ("H2D copy", t1, t2),
+    for k, a, b in (("pinned copy", t0, t1), ("card layout", t1, t2),
                     ("eval step", t2, t3), ("output wait", t3, t4),
                     ("conversion", t4, t5)):
         parts.setdefault(k, []).append((b - a) * 1e3)
@@ -2650,6 +2805,7 @@ def run_validation_path(eval_counts):
                                                    PARTITION_ATTENTION)
     from rvt_tpu_torch.ops.fused_scan import LSTM_SCAN
     from rvt_tpu_torch.training.evaluator_loop import run_streaming_eval
+    from rvt_tpu_torch.training.feed import PinnedFeed
     from rvt_tpu_torch.training.step import _postprocess_window, make_eval_step
     from rvt_tpu_torch.training.trainer import Trainer, TrainerConfig
 
@@ -2671,7 +2827,8 @@ def run_validation_path(eval_counts):
     if n_win < 5 or not fills or not restarts:
         fail(f"validation: {n_win} windows, {fills} fill windows, "
              f"{restarts} mid-run restarts")
-    counters = (LN_ROWS, GEMM_BF16, PARTITION_ATTENTION, LSTM_SCAN)
+    counters = (LN_ROWS, GEMM_BF16, PARTITION_ATTENTION, LSTM_SCAN,
+                boxes.NMS_KEEP)
     for c in counters:
         c.reset()
     timer = first_window_timer(sched)
@@ -2707,15 +2864,26 @@ def run_validation_path(eval_counts):
     evaluator = PropheseeEvaluator("gen1", False)
     states = zero_states(cfg.model.backbone, BATCH, device="cuda")
     parts, cand, kept, rounds, calls, pp_ms = {}, [], [], 0, 0, []
-    scores = []
+    scores, pp_plain_ms, feed = [], [], PinnedFeed("cuda")
     for b in items:
-        out = eval_window_parts(step, cfg, b, states, evaluator, parts)
+        out = eval_window_parts(step, cfg, b, states, evaluator, parts, feed)
         states = out.states
-        boxes.NMS_STATS.update(calls=0, rounds=0)
+        # the window's NMS alone: nms_keep, then the plain route (Jacobi,
+        # a host read a round), identical detections
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _postprocess_window(out.preds, out.frame_idx, out.gval, cfg)
+        dk = _postprocess_window(out.preds, out.frame_idx, out.gval, cfg)
         torch.cuda.synchronize()
         pp_ms.append((time.perf_counter() - t0) * 1e3)
+        boxes.NMS_STATS.update(calls=0, rounds=0)
+        t0 = time.perf_counter()
+        dp = _postprocess_window(out.preds, out.frame_idx, out.gval, cfg,
+                                 plain=True)
+        torch.cuda.synchronize()
+        pp_plain_ms.append((time.perf_counter() - t0) * 1e3)
+        if not all(torch.equal(x, y) for x, y in zip(dk, dp)):
+            fail("validation: nms_keep's detections on the random head's "
+                 "frames differ from the plain route's")
         rounds += boxes.NMS_STATS["rounds"]
         calls += boxes.NMS_STATS["calls"]
         p = out.preds.float()
@@ -2733,8 +2901,37 @@ def run_validation_path(eval_counts):
     log(f"  the same {n_win} windows fed by hand (make_eval_step, "
         "iter_batch_detections, PropheseeEvaluator): the metrics bit for "
         "bit")
+    # the loop eagerly and captured over the windows read beforehand,
+    # each timed after its first window (the captured loop's warm-up and
+    # capture): the same metrics
+    from rvt_tpu_torch.training import graphs
+
+    res["loop_fps_read"], peaks = {}, {}
+    for mode in ("eager", "captured"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        timer = first_window_timer(items)
+        with (graphs.eager() if mode == "eager"
+              else contextlib.nullcontext()):
+            again = run_streaming_eval(model, cfg, timer, BATCH)
+        torch.cuda.synchronize()
+        res["loop_fps_read"][mode] = (BATCH * SEQ_LEN * (n_win - 1)
+                                      / (time.perf_counter() - timer.start))
+        peaks[mode] = peak_memory()
+        if again != metrics:
+            fail(f"validation: the loop {mode} gives {again}")
+    log("  the loop over the windows read beforehand (feed, step, NMS, "
+        "conversion, the protocol): captured "
+        f"{res['loop_fps_read']['captured']:.1f} frames/s, eager "
+        f"{res['loop_fps_read']['eager']:.1f}, the same metrics; peak "
+        "allocated / reserved GiB: captured "
+        f"{peaks['captured']['peak_gib']:.2f} / "
+        f"{peaks['captured']['reserved_gib']:.2f}, eager "
+        f"{peaks['eager']['peak_gib']:.2f} / "
+        f"{peaks['eager']['reserved_gib']:.2f}; {CARD}")
     parts["read+stack"] = read_ms
     parts["postprocess (rerun alone)"] = pp_ms
+    parts["postprocess, plain route"] = pp_plain_ms
     per = {k: sum(v[1:]) / len(v[1:]) for k, v in parts.items()}
     res["parts"] = per
     res["protocol_s"] = proto_s
@@ -2753,14 +2950,18 @@ def run_validation_path(eval_counts):
         + f"; {int((scores >= 2e-4).sum())} of {scores.numel()} at >= 2e-4")
     log(f"  NMS: {min(cand)}-{max(cand)} candidates per labelled frame "
         f"(mean {res['candidates'][1]:.1f} of {res['candidates'][3]} "
-        f"anchors, threshold {VAL_CONF:g}), {res['rounds']:.1f} Jacobi "
-        f"rounds a call, each read on the host; {min(kept)}-{max(kept)} "
-        f"detections kept a frame (max_detections "
-        f"{cfg.model.postprocess.max_detections})")
-    profile_window(lambda: eval_window_parts(step, cfg, items[1], states,
-                                             PropheseeEvaluator("gen1"),
-                                             {}),
-                   "validation window (s2d, H2D, step, conversion)")
+        f"anchors, threshold {VAL_CONF:g}); nms_keep's detections equal "
+        f"the plain route's bit for bit in every window (the plain route: "
+        f"{res['rounds']:.1f} Jacobi rounds a call, each read on the "
+        f"host); {min(kept)}-{max(kept)} detections kept a frame "
+        f"(max_detections {cfg.model.postprocess.max_detections})")
+    for mode in ("captured", "eager"):
+        with (graphs.eager() if mode == "eager"
+              else contextlib.nullcontext()):
+            profile_window(lambda: eval_window_parts(
+                step, cfg, items[1], states, PropheseeEvaluator("gen1"), {},
+                feed), f"validation window, {mode} (pinned copy, H2D, "
+                "layout and s2d on the card, step, conversion)")
     log(f"validation loop: {res['loop_fps']:.1f} frames/s over {n_win - 1} "
         f"windows after the first (read, stack, s2d, H2D, step, NMS, "
         f"conversion and the protocol included); {CARD}")
@@ -3048,9 +3249,11 @@ def run_train_cli_path(dev="cuda", hw=(240, 304), size="base"):
     items = got[0]
     del got
     # the serial loader's batch by part: the windows' reads alone, then
-    # read + augment (fetch), the stack, and the channel-last copy that
-    # the Trainer makes of each batch before its H2D copy
-    sched, parts = scheduler(), {}
+    # read + augment (fetch), the stack, and the Trainer's feed of the
+    # window (its stored layout into a pinned slot, the H2D; synchronised)
+    from rvt_tpu_torch.training.feed import PinnedFeed, stored_layout
+
+    sched, parts, feed = scheduler(), {}, PinnedFeed("cuda")
     for plans in itertools.islice(sched.plan_batches(), n):
         t1 = time.perf_counter()
         for p in plans:
@@ -3062,11 +3265,12 @@ def run_train_cli_path(dev="cuda", hw=(240, 304), size="base"):
         t3 = time.perf_counter()
         batch = _stack(samples)
         t4 = time.perf_counter()
-        np.ascontiguousarray(batch.ev_repr)
+        feed([stored_layout(batch.ev_repr)[0]])
+        torch.cuda.synchronize()
         t5 = time.perf_counter()
         for k, v in (("read", t2 - t1), ("read+augment", t3 - t2),
                      ("stack", t4 - t3),
-                     ("contiguous copy (the Trainer's)", t5 - t4)):
+                     ("pinned copy + H2D (the Trainer's feed)", t5 - t4)):
             parts.setdefault(k, []).append(v * 1e3)
     res["loader_parts"] = {k: sum(v) / len(v) for k, v in parts.items()}
     log("  ms a batch, serially: " + ", ".join(
@@ -3141,15 +3345,25 @@ def run_train_cli_path(dev="cuda", hw=(240, 304), size="base"):
         counters = stage_step_counters()[:-1]
         feeds = {"scheduler": lambda: iter(scheduler()),
                  "2 workers": lambda: iter(scheduler(2)),
-                 "stacked": lambda: iter(items)}
+                 "stacked": lambda: iter(items),
+                 "scheduler, eager": lambda: iter(scheduler()),
+                 "stacked, eager": lambda: iter(items)}
+        from rvt_tpu_torch.training import graphs
+
+        peaks = {}
         for feed, batches in feeds.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
             trainer = Trainer(kcfg, trainer_cfg(tmp, f"kernels_{len(ms)}",
                                                 2),
                               model=gen1_base_model(kcfg))
             if feed == "scheduler":
                 for c in counters:
                     c.reset()
-            ms[feed], last, _ = fit_timed(trainer, batches())
+            with (graphs.eager() if feed.endswith("eager")
+                  else contextlib.nullcontext()):
+                ms[feed], last, _ = fit_timed(trainer, batches())
+            peaks[feed] = peak_memory()
             if feed == "scheduler":
                 counts = {c.name: c.launches for c in counters}
             del trainer
@@ -3162,7 +3376,14 @@ def run_train_cli_path(dev="cuda", hw=(240, 304), size="base"):
         log(f"train cli, kernels config: {ms['scheduler']:.2f} ms a step fed "
             f"by the scheduler (prefetch 4), {ms['2 workers']:.2f} by the "
             f"scheduler through 2 thread workers, {ms['stacked']:.2f} by the "
-            f"same batches stacked beforehand (step 2); {CARD}")
+            f"same batches stacked beforehand (step 2, captured); eager "
+            f"steps: {ms['scheduler, eager']:.2f} fed by the scheduler, "
+            f"{ms['stacked, eager']:.2f} pre-stacked; peak allocated / "
+            "reserved GiB fed by the scheduler: captured "
+            f"{peaks['scheduler']['peak_gib']:.2f} / "
+            f"{peaks['scheduler']['reserved_gib']:.2f}, eager "
+            f"{peaks['scheduler, eager']['peak_gib']:.2f} / "
+            f"{peaks['scheduler, eager']['reserved_gib']:.2f}; {CARD}")
 
         # 4. the CLI's first step on the card against the CPU: gen1 tiny,
         # f32, B = 2, T = 5, the same augmented batch and initial weights
@@ -3200,6 +3421,290 @@ def run_train_cli_path(dev="cuda", hw=(240, 304), size="base"):
     return res, counts
 
 
+def same_leaves(a, b, what):
+    """Every tensor leaf of two output trees equal bit for bit; returns
+    how many there are."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    bad = [i for i, (x, y) in enumerate(zip(la, lb))
+           if isinstance(x, torch.Tensor) and not torch.equal(x, y)]
+    if len(la) != len(lb) or bad:
+        fail(f"{what}: captured differs from eager ({len(bad)} of "
+             f"{len(la)} tensors, the first at leaf {bad[:1]})")
+    return sum(isinstance(x, torch.Tensor) for x in la)
+
+
+def same_training_state(ma, oa, mb, ob, what):
+    """Parameters, BatchNorm buffers, gradients and moments of two models
+    and optimizers, bit for bit; returns how many tensors."""
+    import torch
+
+    sa, sb = ma.state_dict(), mb.state_dict()
+    pairs = [(f"{n}", sa[n], sb[n]) for n in sa]
+    pairs += [(f"grad {n}", p.grad, q.grad) for (n, p), q in zip(
+        ma.named_parameters(), mb.parameters())]
+    pairs += [(f"moment {i}", x, y) for i, (x, y) in enumerate(zip(
+        oa.mu + oa.nu, ob.mu + ob.nu))]
+    bad = [n for n, x, y in pairs if (x is None) != (y is None) or (
+        x is not None and not torch.equal(x, y))]
+    if bad or oa.count != ob.count:
+        fail(f"{what}: captured state differs from eager ({len(bad)} "
+             f"tensors: {bad[:4]}; counts {oa.count}, {ob.count})")
+    return len(pairs)
+
+
+def without_syncs(fn):
+    """``fn()`` with every device synchronisation an error
+    (``torch.cuda.set_sync_debug_mode``): no host read is left."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def peak_memory():
+    """Peak device memory since the last reset: allocated to tensors, and
+    reserved by the allocator (a graph's private pool keeps its freed
+    intermediates reserved, where an eager step returns them)."""
+    import torch
+
+    return dict(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30)
+
+
+def eager_and_captured(name, make, args_of, n, frames):
+    """Phase 15's comparison for one path: ``make()`` a fresh step (its
+    state made afresh from the same seed), ``n`` calls with the states
+    carried (``args_of(previous output or None)``), eagerly and captured
+    (the first call a warm-up, then the capture, then replays). Requires
+    every output of every call bit for bit, one replay without a device
+    synchronisation, and returns, for each mode, the ms a call after the
+    first, frames/s, the profile of one more call (wall ms, device busy
+    ms, idle share), peak GiB, and the steps' (eager, captured) objects."""
+    import torch
+
+    from rvt_tpu_torch.training import graphs
+
+    res, outs, objs = {}, {}, {}
+    for mode in ("eager", "captured"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = make()
+        ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            got = [step(*args_of(None))]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n - 1):
+                got.append(step(*args_of(got[-1])))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / (n - 1)
+            # the same calls in both modes (a train step's state moves)
+            if mode == "captured":
+                without_syncs(lambda: step(*args_of(got[-1])))
+            else:
+                step(*args_of(got[-1]))
+            prof = profile_window(lambda: step(*args_of(got[-1])),
+                                  f"{name} call ({mode})", top=6)
+        res[mode] = dict(ms=ms, fps=frames / ms * 1e3, wall_ms=prof[0],
+                         busy_ms=prof[1], idle=prof[2], **peak_memory())
+        outs[mode], objs[mode] = got, step
+    k = same_leaves(outs["captured"], outs["eager"], name)
+    log(f"  {name}: {n} calls, {k} output tensors bit for bit, captured "
+        "vs eager; a replay made no device synchronisation")
+    return res, objs
+
+
+def run_captured_path():
+    """Phase 15: each path's step captured as a CUDA graph against the same
+    step eager (``graphs.eager()``), from the same state, in one run: the
+    eval step (4 windows), the raw step (1 + 21 calls), the train step
+    (1 + 5 steps; then the parameters, BatchNorm buffers, gradients and
+    moments), the per-step backbone's forward and backward (3 calls) and
+    the Trainer with token masks (4 batches; its state after), all bit for
+    bit, under cuDNN's deterministic algorithms (two eager steps would
+    otherwise differ in its backward-filter sums); one replay of each
+    without a device synchronisation. Prints ms a call, frames/s, the
+    device busy time and idle share of one profiled call, and peak
+    memory, captured beside eager. Returns {path: {mode: numbers}}."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from rvt_tpu_torch.inference import make_raw_inference_step
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.models.detector import fused_train_scan_backbone
+    from rvt_tpu_torch.training import graphs
+    from rvt_tpu_torch.training.optimizer import make_optimizer
+    from rvt_tpu_torch.training.step import (make_eval_step, make_train_step,
+                                             pad_ev_repr)
+    from rvt_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        # eval: phase 4's cell
+        cfg, model, ev, fv, first = eval_cell()
+        bb = cfg.model.backbone
+
+        def eval_args(prev):
+            st = (zero_states(bb, BATCH, device="cuda") if prev is None
+                  else prev.states)
+            return st, ev, fv, first
+
+        out["eval"], _ = eager_and_captured(
+            "eval step", lambda: make_eval_step(model, cfg), eval_args,
+            WINDOWS, BATCH * SEQ_LEN)
+        del model, ev
+        # raw: phase 5's cell
+        cfg, model, frames, first = raw_cell()
+        bb = cfg.model.backbone
+        calls = iter(range(10 ** 9))
+
+        def raw_args(prev):
+            st = (zero_states(bb, BATCH, device="cuda") if prev is None
+                  else prev[0])
+            return (st, *frames[next(calls) % RAW_FRAMES], first)
+
+        def make_raw():
+            nonlocal calls
+            calls = iter(range(10 ** 9))
+            return make_raw_inference_step(model, cfg)
+
+        out["raw"], _ = eager_and_captured("raw step", make_raw, raw_args,
+                                           1 + RAW_CALLS, BATCH)
+        del model, frames
+        # train: phase 7's cell, each mode from a copy of one state
+        cfg = gen1_base_train_cfg()
+        bb = cfg.model.backbone
+        base = gen1_base_model(cfg)
+        batch = train_batch(cfg, "cuda")
+        made = []
+
+        def make_train():
+            m = copy.deepcopy(base)
+            made.append((m, make_optimizer(m.parameters(), cfg.training)))
+            return make_train_step(m, cfg, made[-1][1])
+
+        def train_args(prev):
+            st = (zero_states(bb, BATCH, device="cuda") if prev is None
+                  else prev[0])
+            return (st, *batch)
+
+        out["train"], _ = eager_and_captured(
+            "train step", make_train, train_args, 1 + TRAIN_STEPS,
+            BATCH * SEQ_LEN)
+        (me, oe), (mc, oc) = made
+        n = same_training_state(mc, oc, me, oe, "train step")
+        log(f"  train step: after {1 + TRAIN_STEPS} + 2 steps, {n} tensors "
+            "(parameters, BatchNorm buffers, gradients, moments) bit for "
+            "bit, captured vs eager")
+        del base, made, me, oe, mc, oc
+        # per-step backbone: phase 8's forward and backward, captured
+        model = gen1_base_model(cfg)
+        ev_seq = pad_ev_repr(batch[0], bb.in_res_hw, torch.float32
+                             ).transpose(0, 1)
+        with torch.no_grad():
+            _, st0 = fused_train_scan_backbone(
+                model, ev_seq, zero_states(bb, BATCH, device="cuda"))
+        params = [p for n, p in model.named_parameters()
+                  if n.startswith("backbone.")]
+        g = torch.Generator(device="cuda").manual_seed(6)
+        weights = []
+
+        def backbone_fb(ev_seq, states):
+            model.zero_grad(set_to_none=True)
+            feats, final = fused_train_scan_backbone(model, ev_seq, states,
+                                                     per_step=True)
+            outs = list(feats) + [t for hc in final for t in hc]
+            if not weights:
+                weights.extend(torch.randn(o.shape, generator=g,
+                                           device="cuda") for o in outs)
+            loss = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+            loss.backward()
+            return ([o.detach() for o in outs],
+                    [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params])
+
+        out["per-step backbone"], _ = eager_and_captured(
+            "per-step backbone forward and backward",
+            lambda: graphs.CapturedStep(backbone_fb),
+            lambda prev: (ev_seq, st0), 3, BATCH * SEQ_LEN)
+        del model, ev_seq, st0
+        # the Trainer with token masks, 4 batches, one state each mode
+        cfg = gen1_base_train_cfg(enable_masking=True)
+        items = trainer_batches(cfg)
+        trainers, tr = {}, {}
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_graphs_") as tmp:
+            for mode in ("eager", "captured"):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                trainer = Trainer(cfg, TrainerConfig(
+                    max_steps=4, log_every_n_steps=1, ckpt_every_n_steps=100,
+                    gradflow_every_n_steps=0,
+                    detection_metrics_every_n_steps=0, prefetch_depth=2,
+                    ckpt_dir=f"{tmp}/{mode}"), model=gen1_base_model(cfg))
+                ctx = (graphs.eager() if mode == "eager"
+                       else contextlib.nullcontext())
+                with ctx:
+                    trainer.fit(iter(items[:1]))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    last = trainer.fit(iter(items[1:]))
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3 / 3
+                tr[mode] = dict(ms=ms, fps=BATCH * SEQ_LEN / ms * 1e3,
+                                last=last, **peak_memory())
+                trainers[mode] = trainer
+            n = same_training_state(
+                trainers["captured"].model, trainers["captured"].optimizer,
+                trainers["eager"].model, trainers["eager"].optimizer,
+                "trainer")
+            lc, le = (tr[m].pop("last") for m in ("captured", "eager"))
+            keys = [k for k in le if k != "train/frames_per_s"]
+            if not keys or any(lc[k] != le[k] for k in keys):
+                fail("trainer: the last step's metrics differ, captured vs "
+                     "eager")
+            log(f"  trainer: 4 batches with token masks, {n} tensors of "
+                "state and the last step's metrics bit for bit, captured "
+                "vs eager")
+            args = (zero_states(cfg.model.backbone, BATCH, device="cuda"),
+                    *trainers["captured"]._to_device(items[0]))
+            without_syncs(lambda: trainers["captured"].train_step(*args))
+            # one more step of each, profiled (the state compared above)
+            for mode in ("eager", "captured"):
+                with (graphs.eager() if mode == "eager"
+                      else contextlib.nullcontext()):
+                    prof = profile_window(
+                        lambda: trainers[mode].train_step(*args),
+                        f"trainer step ({mode}, masked)", top=6)
+                tr[mode].update(wall_ms=prof[0], busy_ms=prof[1],
+                                idle=prof[2])
+        out["trainer"] = tr
+        del trainers
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for path, r in out.items():
+        e, c = r["eager"], r["captured"]
+        log(f"captured vs eager, {path}: {c['ms']:.2f} vs {e['ms']:.2f} ms a "
+            f"call ({c['fps']:.1f} vs {e['fps']:.1f} frames/s), "
+            + (f"device busy {c['busy_ms']:.2f} vs {e['busy_ms']:.2f} ms, "
+               f"idle share {c['idle']:.3f} vs {e['idle']:.3f}, "
+               if "busy_ms" in c else "")
+            + f"peak allocated {c['peak_gib']:.2f} vs {e['peak_gib']:.2f} "
+            f"GiB, reserved {c['reserved_gib']:.2f} vs {e['reserved_gib']:.2f}"
+            f" GiB; {CARD}")
+    return out
+
+
 # the kernels of csrc/ln_rows.cu and csrc/train_reduce.cu, whose template
 # instances the profile lists apart
 PROFILE_FAMILIES = {"ln_rows": ("ln_rows_kernel", "ln_rows_wide_kernel"),
@@ -3208,7 +3713,8 @@ PROFILE_FAMILIES = {"ln_rows": ("ln_rows_kernel", "ln_rows_wide_kernel"),
 
 def profile_window(fn, what, top=14):
     """Device time of one call of ``fn`` by kernel name (torch.profiler),
-    and the device's idle share of the call's wall time."""
+    and the device's idle share of the call's wall time. Returns (wall ms,
+    device busy ms, idle share)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3246,6 +3752,7 @@ def profile_window(fn, what, top=14):
         f"(profiled, so inflated); largest:")
     for key, us, n in host[:8]:
         log(f"  {us / 1e3:9.3f} ms host  x{n:<4d} {key[:90]}")
+    return wall_us / 1e3, busy / 1e3, 1 - busy / wall_us
 
 
 def main() -> int:
@@ -3286,6 +3793,7 @@ def main() -> int:
     check_gemm_edges()
     check_attention_lstm_edges()
     recs["stacked_histogram"] = check_voxelizer()
+    recs["nms_keep"] = check_nms_keep()
     check_train_kernels(recs)
     log(f"LSTM yardstick dtypes: {LSTM_LIB}")
     fps, mfu, counts = run_main_path()
@@ -3304,6 +3812,8 @@ def main() -> int:
     val, val_counts = run_validation_path(counts)
     torch.cuda.empty_cache()
     cli, cli_counts = run_train_cli_path()
+    torch.cuda.empty_cache()
+    cap = run_captured_path()
     # the calls each record timed per step must be the launches the path
     # made per step (eval: 4 windows; raw: 1 + 21 calls; train: 1 + 5;
     # per-step train: one forward and backward; trainer: 4 + 1 + 1)
@@ -3341,7 +3851,10 @@ def main() -> int:
         f"{cli['kernels_ms'][0]:.2f}, {cli['kernels_ms'][1]:.2f} with 2 "
         f"workers, {cli['kernels_ms'][2]:.2f} pre-stacked, "
         f"native_lib {'loaded' if cli['native'] else 'not loaded'}; "
-        f"{time.perf_counter() - t_start:.0f} s")
+        "captured vs eager ms a call: " + ", ".join(
+            f"{k} {v['captured']['ms']:.2f} vs {v['eager']['ms']:.2f}"
+            for k, v in cap.items())
+        + f"; {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": [r.d for r in recs.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

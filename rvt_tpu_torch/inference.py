@@ -30,6 +30,7 @@ from rvt_tpu_torch.models.detector import (RVTDetector,
                                            fused_path_supported)
 from rvt_tpu_torch.ops.boxes import postprocess
 from rvt_tpu_torch.ops.voxelization import stacked_histogram_batched
+from rvt_tpu_torch.training.graphs import CapturedStep
 from rvt_tpu_torch.training.step import reset_states
 
 BINS = 10  # stacked_histogram_dt=50_nbins=10 (dataset presets)
@@ -88,14 +89,16 @@ def make_raw_inference_step(model: RVTDetector, cfg: ExperimentConfig, *,
     int32 valid events per lane; one event frame per lane per call, the
     recurrent states carried. For a config on the kernels their weights
     are prepared here, once: a later change to the model's parameters
-    needs a new step.
+    needs a new step. On a card the step is a ``CapturedStep``: the
+    voxelizer (its plan depends on the shapes alone), the detector and
+    NMS, one CUDA graph.
 
     ``ds2_direct`` (configs with ``downsample_by_factor_2``, gen4):
     voxelize the odd-coordinate events straight into the half-resolution
     grid (``ds2_retarget``), bit-identical to voxelizing the full sensor
     and downsampling (``False``). ``plain=True`` runs every kernel's plain
     PyTorch version (the reference the chip check holds the kernels
-    against)."""
+    against), eagerly."""
     if cfg.model.backbone.stem_s2d:
         raise ValueError("the raw pipeline emits HWC frames; use "
                          "stem_s2d=False")
@@ -117,7 +120,8 @@ def make_raw_inference_step(model: RVTDetector, cfg: ExperimentConfig, *,
                           dim=-1)
         dets, valid = postprocess(infer, num_classes,
                                   pp.confidence_threshold, pp.nms_threshold,
-                                  pp.pre_nms_topk, pp.max_detections)
+                                  pp.pre_nms_topk, pp.max_detections,
+                                  plain=plain)
         return new_states, dets, valid
 
-    return step
+    return step if plain else CapturedStep(step)

@@ -20,7 +20,9 @@ backbone over a [T, B, ...] window and routes as the JAX package's does
 - every other config and call (the shipped presets among them: f32,
   ``fused_kernels`` off) runs the modules of ``models/layers.py`` a step
   at a time (``RVTDetector.forward_backbone``), each step under
-  ``torch.utils.checkpoint`` when training, as ``jax.checkpoint`` does.
+  ``torch.utils.checkpoint`` when training, as ``jax.checkpoint`` does
+  (without saving the RNG state: a train step draws no random numbers,
+  and saving it would break the step's CUDA graph capture).
 
 ``RVTDetector.forward`` is one time step (the JAX module's ``__call__``).
 """
@@ -479,7 +481,8 @@ def _module_stage_train(stage, x_seq, ds_s, ds_b, eps, ln: bool, h0, c0):
     hT, cT = h0, c0
     hs = []
     for t in range(x_seq.shape[0]):
-        hT, cT = checkpoint(step, x_seq[t], hT, cT, use_reentrant=False)
+        hT, cT = checkpoint(step, x_seq[t], hT, cT, use_reentrant=False,
+                            preserve_rng_state=False)
         hs.append(hT.to(bf16))
     return torch.stack(hs), hT, cT
 
@@ -529,7 +532,8 @@ def scan_backbone(model: RVTDetector, ev_seq: torch.Tensor,
         tm = None if token_mask_seq is None else token_mask_seq[t]
         if remat:
             f, states = checkpoint(step, ev_seq[t], states, tm,
-                                   use_reentrant=False)
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
         else:
             f, states = step(ev_seq[t], states, tm)
         outs.append(f)

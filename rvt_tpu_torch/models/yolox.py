@@ -200,6 +200,7 @@ class YoloXHead(nn.Module):
         super().__init__()
         self.num_classes = cfg.num_classes
         self.strides = tuple(strides)
+        self._grids = {}  # (feature sizes, device) -> (grid, strides)
         hidden = int(256 * in_channels[-1] / 1024)
         act, dw = cfg.act, cfg.depthwise
         prior = float(-np.log((1 - 0.01) / 0.01))
@@ -222,6 +223,18 @@ class YoloXHead(nn.Module):
             for p in list(self.cls_preds) + list(self.obj_preds):
                 p.bias.fill_(prior)
 
+    def _grid(self, hw, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The anchors' grid and strides on ``device``, made once a feature
+        size (a step captured as a CUDA graph copies nothing from the
+        host), outside inference mode, so that training may use them."""
+        key = (tuple(hw), device)
+        if key not in self._grids:
+            grid, stride = make_grids_and_strides(hw, self.strides)
+            with torch.inference_mode(False):
+                self._grids[key] = (torch.from_numpy(grid).to(device),
+                                    torch.from_numpy(stride).to(device))
+        return self._grids[key]
+
     def forward(self, features: Sequence[torch.Tensor], dtype):
         outputs, hw = [], []
         for k, x in enumerate(features):
@@ -240,9 +253,7 @@ class YoloXHead(nn.Module):
             out = torch.cat([reg_out, obj_out, cls_out], dim=1)
             outputs.append(out.permute(0, 2, 3, 1).reshape(B, H * W, -1))
         out = torch.cat(outputs, dim=1)
-        grid, stride = make_grids_and_strides(hw, self.strides)
-        grid = torch.from_numpy(grid).to(out.device)
-        stride = torch.from_numpy(stride).to(out.device)
+        grid, stride = self._grid(hw, out.device)
         reg = out[..., :4].float()
         xy = (reg[..., :2] + grid) * stride
         wh = torch.exp(reg[..., 2:4]) * stride

@@ -1,11 +1,17 @@
 """Box utilities and the static-shape, on-device NMS postprocess.
 
 Port of ``rvt_tpu/ops/boxes.py``: confidence filter, top-k pre-selection,
-class-aware greedy NMS and final top-k, all in PyTorch on the model's
-device with fixed output shapes ([B, max_detections, 7] + a validity
-mask). Semantics match torchvision's ``batched_nms``: boxes in descending
-score order, suppressed when the IoU with an already-kept same-class box
-is strictly above the threshold.
+class-aware greedy NMS and final top-k, all on the model's device with
+fixed output shapes ([B, max_detections, 7] + a validity mask).
+Semantics match torchvision's ``batched_nms``: boxes in descending score
+order, suppressed when the IoU with an already-kept same-class box is
+strictly above the threshold.
+
+On a card the keep mask is the hand-written kernel ``csrc/nms_keep.cu``
+(``nms_keep``), which bounds its work by each frame's valid count on the
+device, so no step reads the device from the host. Its plain version,
+on the CPU and with ``plain=True``, is the JAX package's Jacobi fixpoint
+with its 512-candidate branch, which read flags on the host.
 
 ``jax.lax.top_k`` breaks ties by the lower index; ``torch.topk`` does not
 promise an order, so the port selects with a stable descending sort.
@@ -15,6 +21,15 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from rvt_tpu_torch.ops import kernels
+from rvt_tpu_torch.ops.kernels import (Counter, check, check_operands, need,
+                                       ptr, stream_ptr)
+
+NMS_KEEP = Counter("nms_keep")
+# boxes a frame ``csrc/nms_keep.cu`` takes: its alive flags (one byte a
+# box) fit the 48 KB of shared memory a block gets without an attribute
+NMS_MAX_BOXES = 48 * 1024 - 64
 
 
 def cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
@@ -56,13 +71,13 @@ def pairwise_iou_cxcywh(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / torch.where(union != 0, union, torch.ones_like(union))
 
 
-# Jacobi rounds of ``_greedy_nms_mask`` (each one reads its flag on the
+# Jacobi rounds of ``nms_keep_plain`` (each one reads its flag on the
 # host), summed over calls; read by the chip check's eval breakdown
 NMS_STATS = {"calls": 0, "rounds": 0}
 
 
-def _greedy_nms_mask(boxes: torch.Tensor, valid: torch.Tensor,
-                     iou_threshold: float) -> torch.Tensor:
+def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,
+                   iou_threshold: float) -> torch.Tensor:
     """Greedy NMS keep mask [B, K] over score-sorted boxes [B, K, 4].
 
     Greedy keep is the unique fixpoint of
@@ -88,6 +103,30 @@ def _greedy_nms_mask(boxes: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
+def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
+             *, plain: bool = False) -> torch.Tensor:
+    """``nms_keep_plain``'s mask: on a CUDA tensor the kernel
+    ``csrc/nms_keep.cu`` (one block a frame, a greedy sweep up to the last
+    valid box, no host read), else the plain version. boxes [B, K, 4] f32
+    (score-sorted, class-offset), valid [B, K] bool; the threshold is
+    rounded to f32 as the plain version's comparison rounds it."""
+    if plain or not boxes.is_cuda:
+        return nms_keep_plain(boxes, valid, iou_threshold)
+    B, K = valid.shape
+    check_operands("nms_keep", boxes, valid)
+    need(boxes.dtype == torch.float32 and tuple(boxes.shape) == (B, K, 4)
+         and valid.dtype == torch.bool and K <= NMS_MAX_BOXES,
+         f"nms_keep: boxes f32 [B, K, 4], valid bool [B, K], K <= "
+         f"{NMS_MAX_BOXES}")
+    keep = torch.empty_like(valid)
+    err = kernels.lib("nms_keep").rvt_nms_keep(
+        ptr(boxes), ptr(valid), ptr(keep), B, K, iou_threshold,
+        stream_ptr(boxes))
+    check(err, "nms_keep")
+    NMS_KEEP.launches += 1
+    return keep
+
+
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``jax.lax.top_k`` along the last axis: descending, ties by index."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
@@ -103,7 +142,7 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _postprocess_k(pred: torch.Tensor, k: int, num_classes: int,
                    conf_thre: float, nms_thre: float, max_detections: int,
-                   class_agnostic: bool):
+                   class_agnostic: bool, plain: bool):
     B = pred.shape[0]
     boxes = cxcywh_to_xyxy(pred[..., :4])
     obj = pred[..., 4]
@@ -129,7 +168,7 @@ def _postprocess_k(pred: torch.Tensor, k: int, num_classes: int,
         offset = top_cls * (max_coord[:, None] + 1.0)
         nms_boxes = top_boxes + offset[..., None]
 
-    keep = _greedy_nms_mask(nms_boxes, top_valid, nms_thre)
+    keep = nms_keep(nms_boxes, top_valid, nms_thre, plain=plain)
 
     kept_score = torch.where(keep, top_score, torch.full_like(top_score,
                                                               float("-inf")))
@@ -154,25 +193,28 @@ def _postprocess_k(pred: torch.Tensor, k: int, num_classes: int,
 def postprocess(prediction: torch.Tensor, num_classes: int,
                 conf_thre: float = 0.7, nms_thre: float = 0.45,
                 pre_nms_topk: int = 1000, max_detections: int = 300,
-                class_agnostic: bool = False
+                class_agnostic: bool = False, *, plain: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched confidence filter + class-aware NMS on device.
 
     prediction: [B, A, 5+C] decoded cxcywh boxes, obj prob, class probs.
     ``pre_nms_topk > 0``: only the top-k boxes by score enter NMS.
-    ``pre_nms_topk <= 0``: every anchor enters NMS (reference semantics);
-    the batch takes the top-512 candidate set whenever no lane has more
-    than 512 boxes above the threshold, which is exactly the all-anchor
-    result (boxes never kept never suppress), and the full set otherwise.
+    ``pre_nms_topk <= 0``: every anchor enters NMS (reference semantics).
+    On a card (not ``plain``) all A anchors are sorted and ``nms_keep``
+    stops at each frame's valid count; the plain version takes the
+    top-512 candidate set whenever no lane has more than 512 boxes above
+    the threshold, which is exactly the all-anchor result (boxes never
+    kept never suppress), and the full set otherwise (a host read).
 
     Returns (detections [B, max_detections, 7] ordered (x1, y1, x2, y2,
     obj_conf, class_conf, class_id), valid [B, max_detections])."""
     A = prediction.shape[1]
-    args = (num_classes, conf_thre, nms_thre, max_detections, class_agnostic)
+    args = (num_classes, conf_thre, nms_thre, max_detections, class_agnostic,
+            plain)
     if pre_nms_topk > 0:
         return _postprocess_k(prediction, min(pre_nms_topk, A), *args)
     fast_k = min(512, A)
-    if fast_k == A:
+    if fast_k == A or (prediction.is_cuda and not plain):
         return _postprocess_k(prediction, A, *args)
     obj = prediction[..., 4]
     class_conf = prediction[..., 5:5 + num_classes].amax(dim=-1)

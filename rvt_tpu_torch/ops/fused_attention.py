@@ -605,12 +605,16 @@ def reduce_plan(M: int, N: int, itemsize: int = 4) -> ReducePlan:
 def _reduce_workspace(like: torch.Tensor, floats: int):
     """The device's ``train_reduce`` workspace: the tickets, one int a
     column tile, zeroed once here and reset by each finishing block; and
-    room for ``floats`` f32 partials, grown when a call needs more. Kept
-    from call to call: the port launches on one stream, so one launch's
-    partials are read before the next launch writes them."""
+    room for ``floats`` f32 partials, grown when a call needs more, the
+    old partials retired (``kernels.retire``: a captured graph may still
+    write them). Kept from call to call: the port launches on one stream,
+    and every captured step replays on it, so one launch's partials are
+    read before the next launch writes them."""
     dev = like.get_device()
     ws = _WORKSPACE.get(dev)
     if ws is None or ws[1].numel() < floats:
+        if ws is not None:
+            kernels.retire(ws[1])
         tickets = ws[0] if ws is not None else torch.zeros(
             _RED_TICKETS, dtype=torch.int32, device=like.device)
         ws = _WORKSPACE[dev] = (tickets, torch.empty(

@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("ln_rows", "gemm_bf16", "partition_attention", "lstm_scan",
            "stacked_histogram", "ln_rows_bwd", "gemm_bf16_wgrad",
-           "partition_attention_bwd", "lstm_scan_bwd", "train_reduce")
+           "partition_attention_bwd", "lstm_scan_bwd", "train_reduce",
+           "nms_keep")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -67,9 +68,11 @@ SIGNATURES = {
         "rvt_colsum": (_P, _I, _P, _L, _L) + _REDUCE_PLAN + (_P, _P, _P),
         "rvt_ls_bwd": (_P, _P, _P, _P, _P, _L, _I) + _REDUCE_PLAN
         + (_P, _P, _P)},
+    "nms_keep": {"rvt_nms_keep": (_P, _P, _P, _I, _I, _F, _P)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+COUNTERS: List["Counter"] = []
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -193,13 +196,28 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"CUDA launch of {what} failed: error {err}")
 
 
+# Workspaces replaced by larger ones: a captured graph may still write
+# them, so they stay allocated while the process lives
+_RETIRED: List[torch.Tensor] = []
+
+
+def retire(*tensors) -> None:
+    """Keep a replaced workspace allocated for good: a CUDA graph captured
+    with it holds its address and writes it at every replay, so freeing it
+    would let the allocator hand that memory to another tensor."""
+    _RETIRED.extend(t for t in tensors if isinstance(t, torch.Tensor))
+
+
 class Counter:
     """Launch count of one kernel: each wrapper adds one where it launches
-    its kernel and nowhere else."""
+    its kernel and nowhere else. A captured step (``training/graphs.py``)
+    credits each counter, at every replay, with the launches its capture
+    counted. Every counter made is listed in ``COUNTERS``."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+        COUNTERS.append(self)
 
     def reset(self) -> None:
         self.launches = 0

@@ -3,7 +3,8 @@
 
 The 7x7 stride-4 stem over 20 channels is re-expressed as a 2x2 stride-1
 conv over 4x4-space-to-depth-blocked input (contraction depth 16*C). The
-blocking runs on the host as a uint8 re-layout; the model folds its
+blocking is a uint8 re-layout, on the host or on the card
+(``device_space_to_depth``); the model folds its
 stored 7x7 kernel into the equivalent 2x2 kernel (exact).
 
 Derivation: output(i,j) = sum_{u,v} x[4i+u-3, 4j+v-3] w[u,v]. With block
@@ -33,6 +34,22 @@ def host_space_to_depth(ev: np.ndarray, target_hw: Tuple[int, int]) -> np.ndarra
     x = x.reshape(*lead, Hp, BLOCK, Wp, BLOCK, C)
     x = np.moveaxis(x, -4, -3)  # [..., Hp, Wp, BLOCK, BLOCK, C]
     return np.ascontiguousarray(x.reshape(*lead, Hp, Wp, BLOCK * BLOCK * C))
+
+
+def device_space_to_depth(ev: torch.Tensor,
+                          target_hw: Tuple[int, int]) -> torch.Tensor:
+    """``host_space_to_depth`` on the tensor's device (the torch twin of
+    ``rvt_tpu/ops/s2d.py:device_space_to_depth``): the same pad, reshape
+    and channel order; returns a contiguous tensor."""
+    *lead, H, W, C = ev.shape
+    th, tw = target_hw
+    if th % BLOCK or tw % BLOCK:
+        raise ValueError(f"target {target_hw} is not a multiple of {BLOCK}")
+    x = torch.nn.functional.pad(ev, (0, 0, BLOCK, tw - W, BLOCK, th - H))
+    Hp, Wp = (th + BLOCK) // BLOCK, (tw + BLOCK) // BLOCK
+    x = x.reshape(*lead, Hp, BLOCK, Wp, BLOCK, C)
+    x = x.movedim(-4, -3)  # [..., Hp, Wp, BLOCK, BLOCK, C]
+    return x.reshape(*lead, Hp, Wp, BLOCK * BLOCK * C)
 
 
 def host_depth_to_space(ev: np.ndarray, orig_hw: Tuple[int, int],

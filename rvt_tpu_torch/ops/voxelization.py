@@ -85,13 +85,17 @@ _HIST_WS: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 def _hist_workspace(like: torch.Tensor, table: int, chunk: int):
     """The device's voxelizer workspace: the bucket kernel's (offset,
     count) table, int32 [2 * table], and its chunk array of 16-bit in-tile
-    indices, [chunk]; grown when a call needs more. Every entry a call
-    reads, it wrote first: nothing to reset. The port launches on one
-    stream, so one call's chunk is read before the next call writes it."""
+    indices, [chunk]; grown when a call needs more, the old one retired
+    (``kernels.retire``: a captured graph may still write it). Every entry
+    a call reads, it wrote first: nothing to reset. The port launches on
+    one stream, and every captured step replays on it, so one call's chunk
+    is read before the next call writes it."""
     dev = like.get_device()
     ws = _HIST_WS.get(dev)
     if ws is None or ws[0].numel() < 2 * table or ws[1].numel() < chunk:
         old_t, old_c = (ws[0].numel(), ws[1].numel()) if ws else (0, 0)
+        if ws is not None:
+            kernels.retire(*ws)
         ws = _HIST_WS[dev] = (
             torch.empty(max(2 * table, old_t, 1 << 14), dtype=torch.int32,
                         device=like.device),

@@ -24,7 +24,8 @@ from rvt_tpu_torch.evaluation.prophesee import (PropheseeEvaluator,
                                                 labels_to_structured)
 from rvt_tpu_torch.models.backbone import zero_states
 from rvt_tpu_torch.models.detector import RVTDetector
-from rvt_tpu_torch.ops.s2d import host_space_to_depth
+from rvt_tpu_torch.training.feed import (PinnedFeed, stored_layout,
+                                         window_input)
 from rvt_tpu_torch.training.step import make_eval_step
 from rvt_tpu_torch.utils.visualization import (LABELMAP_GEN1,
                                                LABELMAP_GEN4_SHORT,
@@ -102,7 +103,9 @@ def run_streaming_eval(model: RVTDetector, cfg: ExperimentConfig,
 
     Returns the Prophesee COCO metrics dict or None if no labels were
     seen. The eval step is made here, from the weights the model has now
-    (the kernels' weights are prepared once per call).
+    (the kernels' weights are prepared once per call). Each window reaches
+    the card through the pinned feed (``training/feed.py``) in its stored
+    layout and is laid out (and s2d-blocked) there.
 
     viz_dir: if set, writes a pred-vs-GT panel PNG for every viz_every-th
     labelled frame (reference DetectionVizCallback image grids,
@@ -117,6 +120,8 @@ def run_streaming_eval(model: RVTDetector, cfg: ExperimentConfig,
                                    cfg.dataset.downsample_by_factor_2)
     states = zero_states(cfg.model.backbone, batch_size, device=model_dev)
     stem_s2d = model.cfg.backbone.stem_s2d
+    in_res = cfg.model.backbone.in_res_hw
+    feed = PinnedFeed(model_dev)
     if viz_dir is not None:
         from pathlib import Path
 
@@ -124,9 +129,6 @@ def run_streaming_eval(model: RVTDetector, cfg: ExperimentConfig,
         viz_dir.mkdir(parents=True, exist_ok=True)
         labelmap = labelmap_of(cfg)
     frames_seen = 0
-
-    def to_dev(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(model_dev)
 
     def consume(batch: Batch, fetch) -> None:
         """Convert one window's step outputs to protocol arrays (host)."""
@@ -157,11 +159,11 @@ def run_streaming_eval(model: RVTDetector, cfg: ExperimentConfig,
             raise ValueError(
                 f"window has {n_lab} labelled frames > max_labeled_frames="
                 f"{K}; raise DatasetConfig.max_labeled_frames")
-        ev = batch.ev_repr
-        if stem_s2d:
-            ev = host_space_to_depth(ev, cfg.model.backbone.in_res_hw)
-        out = eval_step(states, to_dev(ev), to_dev(batch.frame_valid),
-                        to_dev(batch.is_first_sample))
+        ev, stored = stored_layout(batch.ev_repr)
+        ev, frame_valid, is_first = feed(
+            [ev, batch.frame_valid, batch.is_first_sample])
+        out = eval_step(states, window_input(ev, stored, in_res, stem_s2d),
+                        frame_valid, is_first)
         states = out.states
         fetch = fetch_outputs(
             (out.dets, out.det_valid, out.frame_idx, out.gval), model_dev)

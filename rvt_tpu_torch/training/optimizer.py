@@ -7,7 +7,9 @@ schedule of two linear segments (upstream ``modules/detection.py:
 arithmetic, op by op:
 
   * clip: when ||g|| >= max_norm, g = (g / ||g||) * max_norm (optax scales
-    only then; ``clip_grad_norm_`` would add 1e-6);
+    only then; ``clip_grad_norm_`` would add 1e-6), computed on the device
+    as g / d * m with d, m = ||g||, max_norm when clipping and 1, 1
+    otherwise (both exact then);
   * Adam: mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu, each divided by
     1 - b^(count+1) in f32; u = mu_hat / (sqrt(nu_hat) + eps), eps = 1e-8
     outside the root; decoupled weight decay u += wd * p;
@@ -15,7 +17,13 @@ arithmetic, op by op:
     (max_lr / div_factor).
 
 The moments are f32 tensors beside the parameters; the update runs as
-``torch._foreach_*`` ops over all of them. The optimizer is not a TPU
+``torch._foreach_*`` ops over all of them. The learning rate and the two
+bias corrections are computed on the host in f32, as optax's schedule
+computes them, and reach the device before each step as one small
+stream-ordered copy (``load_scalars``); ``update`` reads them there and
+reads nothing back, so a train step can be captured as a CUDA graph. The
+gradients stay in the same tensors from step to step (``zero_grad``
+zeroes them in place) for the same reason. The optimizer is not a TPU
 kernel in the JAX package and is not one here.
 """
 from __future__ import annotations
@@ -61,7 +69,8 @@ class OneCycleAdamW:
     """Global-norm clip + AdamW + OneCycle over ``params`` (f32). ``step``
     reads each parameter's ``.grad`` (None counts as zero), leaves it
     unchanged, updates the parameters in place and returns the norm of the
-    raw gradients (the ``grad_norm`` metric)."""
+    raw gradients (the ``grad_norm`` metric): ``load_scalars`` on the
+    host, then ``update`` on the device."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  cfg: TrainingConfig):
@@ -74,6 +83,12 @@ class OneCycleAdamW:
         self.nu = [torch.zeros_like(p, dtype=torch.float32)
                    for p in self.params]
         self.count = 0
+        dev = self.params[0].device if self.params else torch.device("cpu")
+        # this step's bias corrections 1 - b1^n, 1 - b2^n and -lr(count)
+        self.scalars = torch.zeros(3, dtype=torch.float32, device=dev)
+        self._max_norm = torch.tensor(self.max_norm, dtype=torch.float32,
+                                      device=dev)
+        self._grads = None  # what zero_grad sets as each .grad
 
     def state_dict(self) -> dict:
         """The moments and the step count (what a checkpoint keeps)."""
@@ -92,19 +107,43 @@ class OneCycleAdamW:
         self.count = int(state["count"])
 
     def zero_grad(self) -> None:
-        for p in self.params:
-            p.grad = None
+        """Zero the gradients in place: the optimizer owns one tensor a
+        parameter (made on first use) and sets it as ``.grad`` again if it
+        was replaced, so that a captured step writes memory that stays
+        allocated from step to step."""
+        if self._grads is None:
+            self._grads = [torch.zeros_like(p) for p in self.params]
+        for p, g in zip(self.params, self._grads):
+            if p.grad is not g:
+                p.grad = g
+        torch._foreach_zero_(self._grads)
+
+    def load_scalars(self) -> None:
+        """Host side of a step: count it and copy its learning rate and
+        bias corrections, computed in f32 as optax does, to the device
+        (from pinned memory on a card: ordered on the stream, no wait)."""
+        n = self.count + 1
+        host = torch.tensor(
+            [np.float32(1) - np.float32(B1) ** np.float32(n),
+             np.float32(1) - np.float32(B2) ** np.float32(n),
+             -self.schedule(self.count)], dtype=torch.float32)
+        if self.scalars.is_cuda:
+            host = host.pin_memory()
+        self.scalars.copy_(host, non_blocking=True)
+        self.count = n
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
+    def update(self) -> torch.Tensor:
+        """Device side of a step: clip, AdamW, the parameters in place,
+        from ``scalars``; returns the raw gradients' norm. No host read."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         norms = torch._foreach_norm(grads)
         g_norm = torch.linalg.vector_norm(torch.stack(norms))
-        # one host read per step: the clip's branch and the metric
-        if float(g_norm) >= self.max_norm:
-            grads = torch._foreach_div(grads, g_norm)
-            torch._foreach_mul_(grads, self.max_norm)
+        clip = g_norm >= self._max_norm
+        one = torch.ones_like(g_norm)
+        grads = torch._foreach_div(grads, torch.where(clip, g_norm, one))
+        torch._foreach_mul_(grads, torch.where(clip, self._max_norm, one))
         t = torch._foreach_mul(grads, 1.0 - B1)
         torch._foreach_mul_(self.mu, B1)
         torch._foreach_add_(self.mu, t)
@@ -112,9 +151,7 @@ class OneCycleAdamW:
         torch._foreach_mul_(t, 1.0 - B2)
         torch._foreach_mul_(self.nu, B2)
         torch._foreach_add_(self.nu, t)
-        n = self.count + 1
-        bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(n))
-        bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(n))
+        bc1, bc2, neg_lr = self.scalars.unbind()
         mu_hat = torch._foreach_div(self.mu, bc1)
         nu_hat = torch._foreach_div(self.nu, bc2)
         torch._foreach_sqrt_(nu_hat)
@@ -123,10 +160,13 @@ class OneCycleAdamW:
         if self.weight_decay:
             torch._foreach_add_(upd, torch._foreach_mul(self.params,
                                                         self.weight_decay))
-        torch._foreach_mul_(upd, -self.schedule(self.count))
+        torch._foreach_mul_(upd, neg_lr)
         torch._foreach_add_(self.params, upd)
-        self.count = n
         return g_norm
+
+    def step(self) -> torch.Tensor:
+        self.load_scalars()
+        return self.update()
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter],

@@ -13,6 +13,10 @@ and per-parameter gradient and weight magnitudes (``with_param_metrics``).
 The eval step: the same scan without gradients, then sigmoid and the
 on-device confidence filter + NMS (``_val_test_step_impl``,
 modules/detection.py:208-280, stream mode).
+
+On a card both steps are captured CUDA graphs (``training/graphs.py``,
+the port's ``jax.jit``), captured on their first call per signature; the
+step bodies read nothing back from the device.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from rvt_tpu_torch.models.detector import (RVTDetector,
 from rvt_tpu_torch.models.yolox import make_grids_and_strides
 from rvt_tpu_torch.ops.boxes import postprocess
 from rvt_tpu_torch.ops.s2d import s2d_input_hw
+from rvt_tpu_torch.training.graphs import CapturedStep
 from rvt_tpu_torch.training.losses import yolox_loss
 from rvt_tpu_torch.training.optimizer import OneCycleAdamW, make_optimizer
 
@@ -135,7 +140,8 @@ def pad_ev_repr(ev: torch.Tensor, target_hw: Tuple[int, int], dtype,
 
 
 def _postprocess_window(preds: torch.Tensor, frame_idx: torch.Tensor,
-                        gval: torch.Tensor, cfg: ExperimentConfig):
+                        gval: torch.Tensor, cfg: ExperimentConfig,
+                        plain: bool = False):
     """Sigmoid, confidence filter and NMS of the head's decoded predictions
     [B*K, A, 5+C] of a window; returns (dets [B, K, max_detections, 7],
     det_valid [B, K, max_detections], masked by the frames' validity)."""
@@ -144,7 +150,7 @@ def _postprocess_window(preds: torch.Tensor, frame_idx: torch.Tensor,
                       dim=-1)
     dets, det_valid = postprocess(
         infer, cfg.model.head.num_classes, pp.confidence_threshold,
-        pp.nms_threshold, pp.pre_nms_topk, pp.max_detections)
+        pp.nms_threshold, pp.pre_nms_topk, pp.max_detections, plain=plain)
     B, K = frame_idx.shape
     dets = dets.reshape(B, K, *dets.shape[1:])
     return dets, det_valid.reshape(B, K, -1) & gval[..., None]
@@ -159,9 +165,11 @@ def make_eval_step(model: RVTDetector, cfg: ExperimentConfig, *,
     its storage dtype (uint8); the stem conv casts it. The backbone runs
     as ``scan_backbone`` routes it; for a config on the kernels their
     weights are prepared here, once: a later change to the model's
-    parameters needs a new step.
+    parameters needs a new step. On a card the step is a
+    ``CapturedStep``: the whole window, from the state reset through NMS,
+    one CUDA graph.
     ``plain=True`` runs the kernels' plain PyTorch versions (the
-    reference the chip check holds the kernels against)."""
+    reference the chip check holds the kernels against), eagerly."""
     K = cfg.dataset.max_labeled_frames
     in_res = cfg.model.backbone.in_res_hw
     stem_s2d = cfg.model.backbone.stem_s2d
@@ -181,11 +189,12 @@ def make_eval_step(model: RVTDetector, cfg: ExperimentConfig, *,
         gathered, frame_idx, gval = gather_labeled_frames(feats,
                                                           frame_valid, K)
         preds = model.forward_detect(gathered)
-        dets, det_valid = _postprocess_window(preds, frame_idx, gval, cfg)
+        dets, det_valid = _postprocess_window(preds, frame_idx, gval, cfg,
+                                              plain)
         return EvalOutput(final_states, dets, det_valid, frame_idx, gval,
                           preds)
 
-    return eval_step
+    return eval_step if plain else CapturedStep(eval_step)
 
 
 class TrainState(NamedTuple):
@@ -206,7 +215,7 @@ def init_train_state(cfg: ExperimentConfig, seed: int = 0,
 def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
                     optimizer: OneCycleAdamW, *, plain: bool = False,
                     with_detections: bool = False,
-                    with_param_metrics: bool = False):
+                    with_param_metrics: bool = False, graph_pool=None):
     """One TBPTT window on the model's device.
 
     ``train_step(lstm_states, ev_repr [B, T, H, W, C], labels [B, T, M, 7],
@@ -226,7 +235,15 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
     ``with_detections`` also returns (dets, det_valid, frame_idx, gval):
     the eval step's postprocess of this forward's decoded predictions,
     computed without gradients. ``plain=True`` runs the kernels' plain
-    PyTorch versions.
+    PyTorch versions, eagerly.
+
+    On a card the step is a ``CapturedStep``: zero-grad, forward, loss,
+    backward, clip, AdamW and the BatchNorm updates, one CUDA graph; the
+    optimizer's scalars reach the device before each replay. The
+    gradients keep their tensors across steps (``zero_grad`` zeroes them
+    in place). ``graph_pool`` is a memory pool
+    (``torch.cuda.graph_pool_handle()``) its graphs share with other
+    steps' that never run at the same time, the Trainer's variants.
 
     A config with a dropout rate above 0 raises here: the JAX package's
     train step passes its modules no 'dropout' rng, and flax raises."""
@@ -278,7 +295,7 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
                 metrics[f"gradflow/{name}"] = (
                     p.grad.abs().mean() if p.grad is not None
                     else torch.zeros((), device=p.device))
-        metrics["grad_norm"] = optimizer.step()
+        metrics["grad_norm"] = optimizer.update()
         if with_param_metrics:
             with torch.no_grad():
                 for name, p in model.named_parameters():
@@ -288,7 +305,9 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
             return states, metrics
         with torch.no_grad():
             dets, det_valid = _postprocess_window(preds, frame_idx, gval,
-                                                  cfg)
+                                                  cfg, plain)
         return states, metrics, (dets, det_valid, frame_idx, gval)
 
-    return train_step
+    step = CapturedStep(train_step, before=optimizer.load_scalars,
+                        pool=graph_pool)
+    return step.run_eager if plain else step

@@ -7,8 +7,11 @@ around the port's train step on one GPU. Checkpoints are ``torch.save``
 files (``utils/checkpoint.py``), metrics a JSONL stream
 (``utils/logging.py``), published checkpoints a filesystem registry
 (``utils/artifacts.py``), pred-vs-GT panels of the training batches
-(``utils/visualization.py``). Not ported yet (ROADMAP): data parallelism
-(``dp_size`` other than -1 or 1 raises).
+(``utils/visualization.py``). On a card the train step and its variants
+are captured CUDA graphs sharing one memory pool, and each batch reaches
+the card through the pinned feed (``training/feed.py``) in its stored
+layout, laid out (and s2d-blocked) there. Not ported yet (ROADMAP): data
+parallelism (``dp_size`` other than -1 or 1 raises).
 """
 from __future__ import annotations
 
@@ -18,7 +21,6 @@ from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional
 
-import numpy as np
 import torch
 
 from rvt_tpu_torch.config import ExperimentConfig
@@ -28,10 +30,11 @@ from rvt_tpu_torch.data.types import Batch
 from rvt_tpu_torch.evaluation.prophesee import PropheseeEvaluator
 from rvt_tpu_torch.models.backbone import zero_states
 from rvt_tpu_torch.models.detector import RVTDetector, init_detector
-from rvt_tpu_torch.ops.s2d import host_depth_to_space, host_space_to_depth
 from rvt_tpu_torch.training.evaluator_loop import (_write_panel,
                                                    iter_batch_detections,
                                                    labelmap_of)
+from rvt_tpu_torch.training.feed import (PinnedFeed, stored_layout,
+                                         window_input)
 from rvt_tpu_torch.training.optimizer import make_optimizer
 from rvt_tpu_torch.training.step import make_train_step
 from rvt_tpu_torch.utils.artifacts import ArtifactRegistry, _file_manifest
@@ -53,8 +56,8 @@ class TrainerConfig:
     # per-parameter mean-|grad| and mean-|w| logging cadence (reference
     # GradFlowLogCallback, callbacks/gradflow.py:10-51); 0 disables
     gradflow_every_n_steps: int = 5_000
-    # input-pipeline lookahead: a background thread produces batches
-    # (the host s2d stem transform included); 0 disables
+    # input-pipeline lookahead: a background thread produces batches;
+    # 0 disables
     prefetch_depth: int = 4
     # train-time detection metrics (reference
     # train_metrics_config.detection_metrics_every_n_steps,
@@ -99,10 +102,15 @@ class Trainer:
         self.model = model
         self.device = next(model.parameters()).device
         self.optimizer = make_optimizer(model.parameters(), cfg.training)
-        self.train_step = make_train_step(model, cfg, self.optimizer)
         # the variants (with_detections / with_param_metrics) are made on
-        # their cadences, once each
+        # their cadences, once each; on a card their graphs share one
+        # memory pool (they never run at once)
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+        self.train_step = make_train_step(model, cfg, self.optimizer,
+                                          graph_pool=self._pool)
         self._steps = {(False, False): self.train_step}
+        self._feed = PinnedFeed(self.device)
         self.ckpt = CheckpointManager(Path(trainer_cfg.ckpt_dir),
                                       monitor=trainer_cfg.monitor)
         self.artifacts = None
@@ -123,7 +131,8 @@ class Trainer:
         if key not in self._steps:
             self._steps[key] = make_train_step(
                 self.model, self.cfg, self.optimizer,
-                with_detections=use_det, with_param_metrics=use_pm)
+                with_detections=use_det, with_param_metrics=use_pm,
+                graph_pool=self._pool)
         return self._steps[key]
 
     # -- checkpoint/resume ---------------------------------------------------
@@ -223,33 +232,37 @@ class Trainer:
     def _write_train_panels(self, batch: Batch, frames, step: int) -> None:
         """Panels of the first ``train_viz_max_panels`` labelled frames of
         the evaluated step's batch (callbacks/detection.py:32-100)."""
-        bb = self.model.cfg.backbone
         out_dir = Path(self.tcfg.train_viz_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
         for i, (b, t_step, gt, pred) in enumerate(
                 frames[:self.tcfg.train_viz_max_panels]):
-            ev = batch.ev_repr[b, t_step]
-            if bb.stem_s2d:
-                # the prefetch transform already emitted s2d-blocked
-                # input; invert it to recover the storage-layout frame
-                ev = host_depth_to_space(
-                    ev, tuple(self.cfg.dataset.dataloading_hw),
-                    bb.input_channels)
-            _write_panel(out_dir / f"step_{step:07d}_{i}.png", ev, gt, pred,
+            _write_panel(out_dir / f"step_{step:07d}_{i}.png",
+                         batch.ev_repr[b, t_step], gt, pred,
                          labelmap_of(self.cfg))
 
     # -- training loop -------------------------------------------------------
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _to_device(self, batch: Batch):
+        """The step's tensors of ``batch`` through the pinned feed: the
+        window laid out for the model, labels, label mask, frame validity,
+        restarts, then the token mask (None without masking)."""
+        bb = self.model.cfg.backbone
+        if batch.token_mask is not None and not bb.enable_masking:
+            raise ValueError("batch carries a token_mask but the model "
+                             "has enable_masking=False")
+        ev, stored = stored_layout(batch.ev_repr)
+        arrays = [ev, batch.labels, batch.label_mask, batch.frame_valid,
+                  batch.is_first_sample]
+        if batch.token_mask is not None:
+            arrays.append(batch.token_mask)
+        out = self._feed(arrays)
+        out[0] = window_input(out[0], stored, bb.in_res_hw, bb.stem_s2d)
+        if batch.token_mask is None:
+            out.append(self._token_mask(batch))
+        return out
 
     def _token_mask(self, batch: Batch) -> Optional[torch.Tensor]:
         bb = self.model.cfg.backbone
-        if batch.token_mask is not None:
-            if not bb.enable_masking:
-                raise ValueError("batch carries a token_mask but the model "
-                                 "has enable_masking=False")
-            return self._to_device(batch.token_mask)
         if not bb.enable_masking:
             return None
         # an all-False mask: masked and unmasked batches then run the same
@@ -266,17 +279,8 @@ class Trainer:
         """Run up to max_steps TBPTT windows. ``eval_fn(model)`` is called
         every val_every_n_steps and returns metrics (with the monitored
         key) or None. Returns the metrics of the last logged step."""
-        bb = self.model.cfg.backbone
-        transform = None
-        if bb.stem_s2d:
-            def transform(b: Batch) -> Batch:
-                return replace(b, ev_repr=host_space_to_depth(
-                    b.ev_repr, bb.in_res_hw))
         if self.tcfg.prefetch_depth > 0:
-            batches = PrefetchIterator(batches, self.tcfg.prefetch_depth,
-                                       transform=transform)
-        elif transform is not None:
-            batches = map(transform, batches)
+            batches = PrefetchIterator(batches, self.tcfg.prefetch_depth)
 
         self._clock = [time.perf_counter(), 0]  # start, frames done
         last_metrics: Dict[str, float] = {}
@@ -309,9 +313,7 @@ class Trainer:
             self._lstm_states = zero_states(self.model.cfg.backbone,
                                             batch.batch_size,
                                             device=self.device)
-        arrays = [self._to_device(a) for a in (
-            batch.ev_repr, batch.labels, batch.label_mask,
-            batch.frame_valid, batch.is_first_sample)]
+        arrays = self._to_device(batch)
         step = self._host_step + 1
         use_det = evaluate = False
         if tc.detection_metrics_every_n_steps:
@@ -322,8 +324,7 @@ class Trainer:
                                        - n_acc)
         use_pm = bool(tc.gradflow_every_n_steps) and (
             step % tc.gradflow_every_n_steps == 0)
-        out = self._get_step(use_det, use_pm)(
-            self._lstm_states, *arrays, self._token_mask(batch))
+        out = self._get_step(use_det, use_pm)(self._lstm_states, *arrays)
         self._lstm_states, metrics = out[:2]
         if use_det:
             self._consume_train_detections(batch, out[2], evaluate, step)

@@ -601,3 +601,240 @@ def test_stage_step_train_kernels_vs_plain(dev, ds_ln):
             assert not ds_ln and got is None and i in (4, 5)
             continue
         _rel_close(got, ref, 2e-2)
+
+
+def _nms_cases():
+    """(boxes [B, K, 4] xyxy, valid [B, K], threshold): dense random
+    frames of gen1's 1,680 anchors with 1680, 700, 1 and 0 candidates; a
+    chain of 600 boxes each overlapping only its neighbours (depth 600);
+    pairs at IoU exactly 1/2 (kept at 1/2) and 0.4."""
+    g = torch.Generator().manual_seed(0)
+    B, K = 4, 1680
+    xy = torch.rand(B, K, 2, generator=g) * 80
+    wh = torch.rand(B, K, 2, generator=g) * 26 + 4
+    n = torch.tensor([[K], [700], [1], [0]])
+    x = torch.arange(600.0) * 3
+    chain = torch.stack([x, torch.zeros_like(x), x + 10,
+                         torch.full_like(x, 10)], -1)[None]
+    pair = torch.tensor([[[0.0, 0, 2, 1], [0, 0, 1, 1], [5, 5, 7, 6],
+                          [5, 5, 6, 6.5]]])
+    return {"dense": (torch.cat([xy, xy + wh], -1), torch.arange(K) < n,
+                      0.45),
+            "chain": (chain, torch.ones(1, 600, dtype=torch.bool), 0.45),
+            "at_threshold": (pair, torch.ones(1, 4, dtype=torch.bool), 0.5)}
+
+
+@pytest.mark.parametrize("case", ["dense", "chain", "at_threshold"])
+def test_nms_keep_kernel(dev, case):
+    from rvt_tpu_torch.ops import boxes
+
+    b, v, thr = (t.to(dev) if isinstance(t, torch.Tensor) else t
+                 for t in _nms_cases()[case])
+    n = boxes.NMS_KEEP.launches
+    keep = boxes.nms_keep(b, v, thr)
+    assert boxes.NMS_KEEP.launches == n + 1
+    torch.cuda.synchronize()
+    assert torch.equal(keep, boxes.nms_keep_plain(b, v, thr))
+    if case == "chain":
+        assert torch.equal(keep[0], torch.arange(600, device=dev) % 2 == 0)
+    if case == "at_threshold":
+        assert keep.tolist() == [[True, True, True, True]]
+
+
+@pytest.mark.parametrize("agnostic", [False, True])
+def test_postprocess_kernel_route_vs_plain(dev, agnostic):
+    """Every anchor through ``nms_keep`` against the plain route (its
+    512-candidate branch, Jacobi), bit for bit: 600 and 300 candidates."""
+    from rvt_tpu_torch.ops import boxes
+
+    g = torch.Generator().manual_seed(1)
+    B, A, C = 2, 1680, 2
+    pred = torch.zeros(B, A, 5 + C)
+    pred[..., :2] = torch.rand(B, A, 2, generator=g) * 200
+    pred[..., 2:4] = torch.rand(B, A, 2, generator=g) * 36 + 4
+    pred[..., 4] = 0.01
+    pred[..., 5:] = torch.rand(B, A, C, generator=g) * 0.7 + 0.3
+    for b, k in enumerate((600, 300)):
+        pred[b, torch.randperm(A, generator=g)[:k], 4] = 0.9
+    for p in (pred, pred[1:]):
+        p = p.to(dev)
+        got = boxes.postprocess(p, C, 0.1, 0.45, 0, 300, agnostic)
+        ref = boxes.postprocess(p, C, 0.1, 0.45, 0, 300, agnostic,
+                                plain=True)
+        assert all(torch.equal(a, r) for a, r in zip(got, ref))
+
+
+def test_foreach_by_a_device_scalar(dev):
+    """The optimizer divides and multiplies its lists by 0-d CUDA tensors
+    (read on the device, as a captured step must). A product gives the
+    bits of a Python-float factor; a quotient is the true quotient, as on
+    the CPU and in optax (a Python-float divisor lets CUDA multiply by its
+    reciprocal instead)."""
+    xs = [_randn(dev, 1000, dtype=torch.float32, seed=s) for s in range(3)]
+    for v in (0.8999999761581421, 3.7, 1e-3):
+        d = torch.tensor(v, device=dev)
+        for a, x in zip(torch._foreach_mul(xs, d), xs):
+            assert torch.equal(a, x * v)
+        for a, x in zip(torch._foreach_div(xs, d), xs):
+            assert torch.equal(a, (x.cpu() / d.cpu()).to(dev))
+
+
+def _tiny_kernel_cfg(stem_s2d):
+    from dataclasses import replace
+
+    from rvt_tpu_torch.config import preset
+
+    cfg = preset("gen1", "tiny", resolution_hw=(64, 80), sequence_length=3,
+                 max_labels_per_frame=4, max_labeled_frames=2)
+    return replace(cfg, model=replace(
+        cfg.model, compute_dtype="bfloat16",
+        backbone=replace(cfg.model.backbone, fused_kernels=True,
+                         stem_s2d=stem_s2d),
+        postprocess=replace(cfg.model.postprocess, pre_nms_topk=0,
+                            confidence_threshold=1e-4)))
+
+
+def _equal_trees(a, b):
+    from torch.utils import _pytree as pytree
+
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+
+
+def test_captured_steps_equal_eager(dev):
+    """The eval, raw and train steps captured (the first call a warm-up,
+    then replays) against the same steps eager (``graphs.eager()``) from
+    the same state, bit for bit: outputs, and for training the parameters,
+    gradients, moments and BatchNorm buffers; one replay of each under
+    ``set_sync_debug_mode("error")`` (no host read left). cuDNN runs its
+    deterministic algorithms: its default backward-filter ones may add in
+    any order, and two eager steps would differ too."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _captured_steps_equal_eager(dev)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _captured_steps_equal_eager(dev):
+    import copy
+
+    from rvt_tpu_torch.inference import make_raw_inference_step
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.models.detector import init_detector
+    from rvt_tpu_torch.ops.s2d import s2d_input_hw
+    from rvt_tpu_torch.training import graphs
+    from rvt_tpu_torch.training.optimizer import make_optimizer
+    from rvt_tpu_torch.training.step import make_eval_step, make_train_step
+
+    B, T = 2, 3
+    g = torch.Generator(device=dev).manual_seed(0)
+    cfg = _tiny_kernel_cfg(stem_s2d=True)
+    hp, wp = s2d_input_hw(cfg.model.backbone.in_res_hw)
+    ev = torch.randint(0, 4, (B, T, hp, wp, 320), generator=g, device=dev,
+                       dtype=torch.uint8)
+    fv = torch.tensor([[False, True, True]] * B, device=dev)
+    first = torch.tensor([True, False], device=dev)
+    model = init_detector(cfg.model, seed=0, device=dev)
+
+    def run(step, n, *args):
+        states, outs = zero_states(cfg.model.backbone, B, device=dev), []
+        for _ in range(n):
+            out = step(states, *args)
+            states = out[0]
+            outs.append(out)
+        return outs
+
+    step = make_eval_step(model, cfg)
+    with graphs.eager():
+        ref = run(step, 3, ev, fv, first)
+    got = run(step, 3, ev, fv, first)
+    _equal_trees(got, ref)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = step(got[-1].states, ev, fv, first)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(step.graphs) == 1 and again.dets.shape == got[0].dets.shape
+
+    labels = torch.zeros(B, T, 4, 7, device=dev)
+    labels[..., 1:3] = 20.0
+    labels[..., 3:5] = 16.0
+    mask = torch.ones(B, T, 4, dtype=torch.bool, device=dev)
+    models = [model, copy.deepcopy(model)]
+    opts = [make_optimizer(m.parameters(), cfg.training) for m in models]
+    steps = [make_train_step(m, cfg, o) for m, o in zip(models, opts)]
+    got = run(steps[0], 3, ev, labels, mask, fv, first)
+    with graphs.eager():
+        ref = run(steps[1], 3, ev, labels, mask, fv, first)
+    _equal_trees(got, ref)
+    for (na, a), (_, b) in zip(models[0].state_dict().items(),
+                               models[1].state_dict().items()):
+        assert torch.equal(a, b), na
+    for pa, pb in zip(*(m.parameters() for m in models)):
+        assert torch.equal(pa.grad, pb.grad)
+    _equal_trees((opts[0].mu, opts[0].nu), (opts[1].mu, opts[1].nu))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        steps[0](got[-1][0], ev, labels, mask, fv, first)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    raw_cfg = _tiny_kernel_cfg(stem_s2d=False)
+    raw_model = init_detector(raw_cfg.model, seed=0, device=dev)
+    raw = make_raw_inference_step(raw_model, raw_cfg)
+    N = 4096
+    x = torch.randint(0, 80, (B, N), generator=g, device=dev,
+                      dtype=torch.int32)
+    y = torch.randint(0, 64, (B, N), generator=g, device=dev,
+                      dtype=torch.int32)
+    p = torch.randint(0, 2, (B, N), generator=g, device=dev,
+                      dtype=torch.int32)
+    t = torch.sort(torch.randint(0, 50000, (B, N), generator=g, device=dev,
+                                 dtype=torch.int32), dim=1).values
+    counts = torch.tensor([N, N // 2], dtype=torch.int32, device=dev)
+    with graphs.eager():
+        ref = run(raw, 4, x, y, p, t, counts, first)
+    got = run(raw, 4, x, y, p, t, counts, first)
+    _equal_trees(got, ref)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        raw(got[-1][0], x, y, p, t, counts, first)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_capture_survives_the_collector(dev):
+    """A step captured while unreachable steps (held in reference cycles)
+    wait for the cyclic collector: a graph the collector destroys during a
+    capture breaks that capture, so ``CapturedStep`` collects first and
+    holds the collector off until the capture has ended."""
+    import gc
+
+    from rvt_tpu_torch.training import graphs
+
+    def dropped_step():
+        x = torch.zeros(1000, device=dev)
+        step = graphs.CapturedStep(lambda a: (a * 2 + x).sum(0))
+        for _ in range(2):  # the warm-up, then the capture
+            step(torch.ones(1000, device=dev))
+        assert len(step.graphs) == 1
+        step.cycle = step  # only the collector can free it
+
+    old = gc.get_threshold()
+    try:
+        for _ in range(3):
+            dropped_step()
+        gc.set_threshold(1)  # a collection at nearly every allocation
+        step = graphs.CapturedStep(
+            lambda a: [a * float(i) for i in range(200)])
+        a = torch.ones(10, device=dev)
+        step(a)
+        out = step(a)
+    finally:
+        gc.set_threshold(*old)
+    torch.cuda.synchronize()
+    assert len(step.graphs) == 1 and torch.equal(out[3], a * 3)

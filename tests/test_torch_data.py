@@ -284,3 +284,63 @@ def test_depth_to_space_inverts_space_to_depth(hw, target):
     np.testing.assert_array_equal(back, ev)
     np.testing.assert_array_equal(
         back, j_s2d.host_depth_to_space(blocked, hw, 20))
+
+
+# (storage hw, model hw): gen1 tiny, gen1 and gen4 (ds2 half resolution)
+@pytest.mark.parametrize("hw,target", [((64, 80), (64, 96)),
+                                       ((240, 304), (256, 320)),
+                                       ((360, 640), (384, 640))])
+def test_device_space_to_depth_equals_jax_and_host(hw, target):
+    """``device_space_to_depth`` (the validation loop's and the Trainer's
+    s2d on the card) against JAX's and against ``host_space_to_depth``,
+    bit for bit."""
+    import jax.numpy as jnp
+    import torch
+
+    rng = np.random.RandomState(1)
+    ev = rng.randint(0, 255, (1, 2) + hw + (20,)).astype(np.uint8)
+    got = t_s2d.device_space_to_depth(torch.from_numpy(ev), target)
+    assert got.is_contiguous() and got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(),
+                                  t_s2d.host_space_to_depth(ev, target))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(j_s2d.device_space_to_depth(
+            jnp.asarray(ev), target)))
+
+
+@pytest.mark.parametrize("stem_s2d", [False, True])
+def test_feed_inverts_the_stack_view_without_a_copy(stem_s2d):
+    """``_stack`` returns the window as a channel-last view of the stacked
+    [B, T, C, H, W] buffer; the feed takes that buffer back as a view (no
+    host copy), and on the CPU its tensors share the arrays' memory; laid
+    out again (``window_input``), the window equals what the host path
+    made: the contiguous channel-last copy, or its host s2d."""
+    import torch
+
+    from rvt_tpu_torch.training.feed import (PinnedFeed, stored_layout,
+                                             window_input)
+
+    rng = np.random.RandomState(2)
+    T, hw, target = 3, (40, 56), (64, 64)
+    dicts = [dict(ev_repr=rng.randint(0, 9, (T, 20) + hw).astype(np.uint8),
+                  labels=np.zeros((T, 2, 7), np.float32),
+                  label_mask=np.zeros((T, 2), bool),
+                  frame_valid=np.ones(T, bool), is_first_sample=False,
+                  is_padded=np.zeros(T, bool)) for _ in range(2)]
+    batch = t_stream._stack(dicts)
+    stored, is_view = stored_layout(batch.ev_repr)
+    assert is_view and stored.flags.c_contiguous
+    assert stored.base is not None and np.shares_memory(stored,
+                                                        batch.ev_repr)
+    assert stored.shape == (2, T, 20) + hw
+    # an array that is not such a view goes as it is
+    own = np.ascontiguousarray(batch.ev_repr)
+    assert stored_layout(own)[0] is own and not stored_layout(own)[1]
+    ev, fv = PinnedFeed("cpu")([stored, batch.frame_valid])
+    assert np.shares_memory(ev.numpy(), stored)
+    assert torch.equal(fv, torch.from_numpy(batch.frame_valid))
+    got = window_input(ev, True, target, stem_s2d)
+    ref = (t_s2d.host_space_to_depth(batch.ev_repr, target) if stem_s2d
+           else np.ascontiguousarray(batch.ev_repr))
+    assert got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), ref)

@@ -71,3 +71,52 @@ def test_six_steps_match_optax(weight_decay):
                                        err_msg=f"step {step + 1} {k}")
             assert torch.equal(p.grad, torch.from_numpy(grads[k]))
     assert clipped == 1 and topt.count == STEPS
+
+
+def test_device_scalars_clip_and_static_grads():
+    """The step as a captured graph runs it: ``load_scalars`` puts this
+    step's bias corrections and -lr (f32, optax's schedule bit for bit)
+    into a device tensor, ``update`` reads nothing back (the clip is a
+    device-side select), and the gradients keep their tensors
+    (``zero_grad`` zeroes in place). Over 6 steps across the warm-up's
+    end, one of them clipped, the parameters follow ``step``'s exactly;
+    gradients a caller dropped come back as the same tensors."""
+    from tests.test_torch_graphs import forbid_host_reads
+
+    jc, tc = _cfgs(0.05)
+    js = j_schedule(jc)
+    rng = np.random.RandomState(1)
+    init = {k: rng.randn(*s).astype(np.float32) for k, s in SHAPES.items()}
+    a = [torch.nn.Parameter(torch.from_numpy(v.copy()))
+         for v in init.values()]
+    b = [torch.nn.Parameter(torch.from_numpy(v.copy()))
+         for v in init.values()]
+    oa, ob = make_optimizer(a, tc), make_optimizer(b, tc)
+    oa.zero_grad()
+    static = [p.grad for p in a]
+    clipped = 0
+    for step in range(STEPS):
+        scale = 1.0 if step == 2 else 0.02
+        grads = [torch.from_numpy((rng.randn(*s) * scale).astype(
+            np.float32)) for s in SHAPES.values()]
+        if step == 3:  # a caller dropping the gradients
+            for p in a:
+                p.grad = None
+        oa.zero_grad()
+        assert all(p.grad is g and not g.any() for p, g in zip(a, static))
+        for g, src, p in zip(static, grads, b):
+            g.add_(src)
+            p.grad = src
+        oa.load_scalars()
+        n = step + 1
+        want = np.array([np.float32(1) - np.float32(0.9) ** np.float32(n),
+                         np.float32(1) - np.float32(0.999) ** np.float32(n),
+                         -np.float32(js(step))], np.float32)
+        np.testing.assert_array_equal(oa.scalars.numpy(), want)
+        with forbid_host_reads():
+            norm = oa.update()
+        clipped += float(norm) >= tc.gradient_clip_val
+        assert torch.equal(norm, ob.step())
+        for pa, pb in zip(a, b):
+            assert torch.equal(pa, pb), f"step {n}"
+    assert clipped == 1 and oa.count == ob.count == STEPS

@@ -168,6 +168,34 @@ Phases, each of which raises (exit code != 0) when it fails:
      of each under ``torch.cuda.set_sync_debug_mode("error")``; ms a
      call, frames/s, device busy time and idle share of a profiled call
      and peak memory, captured beside eager;
+ 16. (run after phase 15) data parallelism (``rvt_tpu_torch/parallel/``)
+     on the train cell (gen1 RVT-B, the train kernels, B = 8, T = 21):
+     (a) one rank over NCCL in this process, the dp train step captured,
+     bit for bit with the same step without a group over 4 steps (both
+     variants the Trainer runs), timed beside it (ms a step, busy, idle,
+     the NCCL kernels' share); (b) two ranks sharing the card over gloo
+     (eager), 4 lanes each of the global batch: replicas and the
+     ranks' metrics bit for bit after every step; against (a)'s step on
+     the global batch, step 1's loss parts and grad_norm (0.1 relative:
+     SimOTA's picks differ between processes) and the BatchNorm buffers
+     after it (2e-2 of max|ref|), the gradient leaves and the later
+     steps' drift printed beside one process's spread with its lanes
+     rotated; an f32 leg (the shipped preset, TF32 off, 3 steps) held at
+     the f32 tests' tolerances every step, gradient leaves included; (c)
+     ``run_streaming_eval`` on two shards of phase 13's recordings:
+     merged metrics the same on both ranks, bit for bit those of one
+     process scoring the shards' frames in rank order, within 1e-4 of
+     one process over all recordings; (d) a two-rank ``Trainer.fit``,
+     each checkpoint and publish written once; (e)
+     ``dryrun_multichip(2)``; (f) with two cards or more, NCCL ranks one
+     a card, two and every card, 9 steps captured and the same 9 eager
+     (``graphs.eager()``): the replays bit for bit with the eager calls
+     on every step, the captured ranks and the f32 leg held as (b), timed
+     (``run_multi_card_leg``; else a line saying why not). Ranks are
+     processes of ``rvt_tpu_torch.parallel.dryrun`` running this
+     script's ``dp_*`` scenarios, joined with a timeout, in a temporary
+     directory removed after; the dp step's launches a rank are the
+     kernels line's "dp, per rank";
  11. check that the calls each kernel was timed at per step are the
      launches its paths made per step; print the kernels line (per
      kernel: launches by path, the validation loop's and the train CLI's
@@ -1786,16 +1814,16 @@ def check_train_kernels(recs, frames=SEQ_LEN * BATCH, steps=SEQ_LEN,
         f"torch.sum {sp['library_ms']:.4f} ms")
 
 
-def train_batch(cfg, device):
-    """The profile_train.py batch: uint8 events in [0, 8) of [B, T, 240,
-    304, 20] from numpy seed 0; three boxes on every 5th frame."""
+def train_arrays(cfg, B=BATCH, T=SEQ_LEN):
+    """The profile_train.py batch as numpy arrays: uint8 events in [0, 8)
+    of [B, T, H, W, 20] at the dataset's resolution from numpy seed 0;
+    three boxes on every 5th frame; no lane restarting."""
     import numpy as np
-    import torch
 
-    B, T = BATCH, SEQ_LEN
+    H, W = cfg.dataset.dataloading_hw
     M = cfg.dataset.max_labels_per_frame
     rng = np.random.RandomState(0)
-    ev = rng.randint(0, 8, size=(B, T, 240, 304, 20)).astype(np.uint8)
+    ev = rng.randint(0, 8, size=(B, T, H, W, 20)).astype(np.uint8)
     labels = np.zeros((B, T, M, 7), np.float32)
     label_mask = np.zeros((B, T, M), bool)
     for t in range(LABEL_EVERY - 1, T, LABEL_EVERY):
@@ -1803,9 +1831,14 @@ def train_batch(cfg, device):
                             (0, 30.0, 40.0, 25.0, 20.0, 1.0, 1.0),
                             (0, 200.0, 120.0, 50.0, 35.0, 0.0, 1.0)]
         label_mask[:, t, :3] = True
-    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-    return (t(ev), t(labels), t(label_mask), t(label_mask.any(-1)),
-            torch.zeros(B, dtype=torch.bool, device=device))
+    return ev, labels, label_mask, label_mask.any(-1), np.zeros(B, bool)
+
+
+def train_batch(cfg, device):
+    """``train_arrays`` on ``device``."""
+    import torch
+
+    return tuple(torch.from_numpy(a).to(device) for a in train_arrays(cfg))
 
 
 def run_train_path():
@@ -2038,15 +2071,15 @@ def gen1_base_train_cfg(**backbone):
                          **backbone)))
 
 
-def gen1_base_model(cfg, seed=0):
+def gen1_base_model(cfg, seed=0, device="cuda"):
     """Random weights from ``seed``, LayerScale gammas drawn at 0.1 as the
     earlier phases draw them."""
     import torch
 
     from rvt_tpu_torch.models.detector import init_detector
 
-    model = init_detector(cfg.model, seed=seed, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    model = init_detector(cfg.model, seed=seed, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith(".gamma"):
@@ -2239,22 +2272,24 @@ def time_stage_step_train(model, cfg, T):
     return rec
 
 
-def trainer_batches(cfg, n=4):
-    """``n`` Batches of the train cell's shape from numpy seed 0: uint8
-    events in [0, 8), three boxes on every 5th frame stamped past the
-    Prophesee protocol's 0.5 s warm-up, and a token mask of about 20 %
-    True at the stage-1 token grid of the sensor, [B, T, 60, 76]."""
+def trainer_batches(cfg, n=4, B=BATCH, T=SEQ_LEN, masks=True):
+    """``n`` Batches of [B, T] windows at the dataset's resolution (the
+    train cell's shape by default) from numpy seed 0: uint8 events in
+    [0, 8), three boxes on every 5th frame stamped past the Prophesee
+    protocol's 0.5 s warm-up, the first batch restarting every lane, and
+    with ``masks`` a token mask of about 20 % True at the stage-1 token
+    grid of the sensor, [B, T, 60, 76]."""
     import numpy as np
 
     from rvt_tpu_torch.data.types import Batch
 
-    B, T = BATCH, SEQ_LEN
+    H, W = cfg.dataset.dataloading_hw
     M = cfg.dataset.max_labels_per_frame
     ps = cfg.model.backbone.stem_patch_size
     rng = np.random.RandomState(0)
     out = []
     for i in range(n):
-        ev = rng.randint(0, 8, size=(B, T, 240, 304, 20)).astype(np.uint8)
+        ev = rng.randint(0, 8, size=(B, T, H, W, 20)).astype(np.uint8)
         labels = np.zeros((B, T, M, 7), np.float32)
         label_mask = np.zeros((B, T, M), bool)
         for t in range(LABEL_EVERY - 1, T, LABEL_EVERY):
@@ -2268,7 +2303,8 @@ def trainer_batches(cfg, n=4):
             frame_valid=label_mask.any(-1),
             is_first_sample=np.full((B,), i == 0),
             is_padded=np.zeros((B, T), bool),
-            token_mask=rng.rand(B, T, 240 // ps, 304 // ps) < 0.2))
+            token_mask=(rng.rand(B, T, H // ps, W // ps) < 0.2
+                        if masks else None)))
     return out
 
 
@@ -3705,6 +3741,699 @@ def run_captured_path():
     return out
 
 
+DP_STEPS = 4  # phase 16's train steps a run: 1 warm-up call, 3 replays
+F32_STEPS = 3  # the f32 leg's (b), (f)
+
+
+def dp_steps(cfg, base, data, batch, dev, group, steps=DP_STEPS,
+             **variant):
+    """``steps`` train steps (captured on a card) of a copy of ``base`` on
+    ``data`` (the global batch's tensors), the LSTM states carried, in
+    ``group`` (None: no collective). Returns (model, optimizer, step,
+    final states, each call's outputs, the reference the dp ranks are
+    held to: each step's metrics, and the gradients and the state dict
+    after step 1)."""
+    import copy
+
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.training.optimizer import make_optimizer
+    from rvt_tpu_torch.training.step import make_train_step
+
+    model = copy.deepcopy(base)
+    opt = make_optimizer(model.parameters(), cfg.training)
+    step = make_train_step(model, cfg, opt, group=group, **variant)
+    states = zero_states(cfg.model.backbone, batch, device=dev)
+    outs, ref = [], {}
+    for i in range(steps):
+        outs.append(step(states, *data))
+        states = outs[-1][0]
+        if i == 0:
+            ref["grads"] = {n: p.grad.detach().clone()
+                            for n, p in model.named_parameters()}
+            ref["state"] = {k: v.detach().clone()
+                            for k, v in model.state_dict().items()}
+    ref["metrics"] = [{k: float(v) for k, v in o[1].items()} for o in outs]
+    return model, opt, step, states, outs, ref
+
+
+def rotated_lanes_floor(cfg, base, data, batch, dev, ref):
+    """The gradient's own spread: one process's eager step 1 on the
+    global batch with its lanes rotated by half (the same function, its
+    sums in another order) against ``ref``'s step 1. Returns the median
+    and the worst of the leaves' max|err| over their max|ref|."""
+    import torch
+
+    from rvt_tpu_torch.training import graphs
+
+    rotated = [torch.roll(d, batch // 2, 0) for d in data]
+    with graphs.eager():
+        got = dp_steps(cfg, base, rotated, batch, dev, None, 1)[5]
+    rows = sorted(compare_rel_quiet(got["grads"][n], g)
+                  for n, g in ref["grads"].items())
+    return rows[len(rows) // 2], rows[-1]
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """f32 convolutions and matmuls in f32 within this block, not TF32."""
+    import torch
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def dp_f32_leg(dev="cuda", size="base", hw=(240, 304), batch=BATCH,
+               seq_len=SEQ_LEN):
+    """(b) and (f)'s f32 leg: ``preset("gen1", size)`` as it ships (the
+    module path in f32 at the train cell's width), random weights, the
+    train cell's global batch. The train cell's bf16 step is chaotic in
+    its gradient (``rotated_lanes_floor``: one process's step 1 with its
+    lanes rotated moves the leaves by a median of a quarter of their
+    max|ref|, SimOTA's picks flip); in f32 without TF32 (which rounds f32
+    convolutions' inputs to 10 bits) by some 1e-5, so this leg holds the
+    ranks' gradients. Returns the ranks' ``dp_train_steps`` kwargs and
+    the one-rank reference: F32_STEPS eager steps with TF32 off, under
+    the caller's cudnn.deterministic, with its floor."""
+    import torch
+
+    from rvt_tpu_torch.config import preset
+    from rvt_tpu_torch.training import graphs
+
+    cfg = preset("gen1", size, **({} if size == "base" else dict(
+        resolution_hw=hw, sequence_length=seq_len)))
+    base = gen1_base_model(cfg, device=dev)
+    arrays = train_arrays(cfg, batch, seq_len)
+    data = [torch.from_numpy(a).to(dev) for a in arrays]
+    with no_tf32(), graphs.eager():
+        ref = dp_steps(cfg, base, data, batch, dev, None, F32_STEPS)[5]
+        ref["floor"] = rotated_lanes_floor(cfg, base, data, batch, dev, ref)
+    state = {k: v.cpu() for k, v in base.state_dict().items()}
+    return dict(cfg=cfg, state=state, arrays=arrays, steps=F32_STEPS,
+                tf32=False), ref
+
+
+def run_multi_card_leg(cfg=None, base=None, ref=None, f32=None,
+                       timeout=600):
+    """Phase 16 (f): NCCL ranks, one a card: two, and every card when
+    there are more. Each rank runs DP_STEPS + 5 steps on its lanes of the
+    train cell's global batch captured, then the same steps eagerly
+    (``graphs.eager()``) from the same state: the replays must equal the
+    eager calls bit for bit over every step (``same_replays``), and the
+    captured ranks are held as (b) holds the gloo ranks against ``ref``
+    (the one-rank captured step, made here when None) and timed; then
+    the f32 leg's ranks, captured, against its reference (``f32``: the
+    pair ``dp_f32_leg`` returns, made here when None). Standalone on a
+    machine with several cards: import this script, set ``CARD``,
+    ``kernels.build_all()``, then ``run_multi_card_leg()``. Returns
+    ({ranks: ms a step by step, captured}, problems)."""
+    import tempfile
+
+    import torch
+
+    from rvt_tpu_torch.parallel import dryrun
+
+    if cfg is None:
+        cfg = gen1_base_train_cfg()
+        base = gen1_base_model(cfg)
+        data = train_batch(cfg, "cuda")
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True  # as (a)
+        try:
+            ref = dp_steps(cfg, base, data, BATCH, "cuda", None)[5]
+            ref["floor"] = rotated_lanes_floor(cfg, base, data, BATCH,
+                                               "cuda", ref)
+            f32 = dp_f32_leg()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        del data
+    state = {k: v.cpu() for k, v in base.state_dict().items()}
+    kw = dict(cfg=cfg, state=state, arrays=train_arrays(cfg),
+              steps=DP_STEPS + 5)
+    n_cards = torch.cuda.device_count()
+    out, problems = {}, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        for n in sorted({2, n_cards}):
+            label = f"(f) {n} NCCL ranks, one a card"
+            t0 = time.perf_counter()
+            ranks = dryrun.spawn([("chip_smoke:dp_train_steps", kw),
+                                  ("chip_smoke:dp_train_steps",
+                                   dict(kw, eager=True)),
+                                  ("chip_smoke:dp_train_steps", f32[0])],
+                                 n, f"{tmp}/{n}", device="cuda",
+                                 timeout=timeout)
+            captured, eager, exact = zip(*ranks)
+            problems += same_replays(label, captured, eager)
+            problems += hold_dp_ranks(label + ", captured", captured[0],
+                                      captured[1], ref, CELL_TOL)
+            problems += hold_dp_ranks(label + ", f32 leg, captured",
+                                      exact[0], exact[1], f32[1], F32_TOL)
+            out[n] = [sum(x) / n for x in zip(*(r["ms"] for r in captured))]
+            ms_eager = [sum(x) / n for x in zip(*(r["ms"] for r in eager))]
+            log(f"{label}, {BATCH // n} lanes each: ms a step by step (the "
+                f"ranks' mean; the first is the warm-up and capture), "
+                f"captured {[round(x, 2) for x in out[n]]}, eager "
+                f"{[round(x, 2) for x in ms_eager]}; the last 5 "
+                f"{sum(out[n][-5:]) / 5:.2f} vs {sum(ms_eager[-5:]) / 5:.2f}"
+                f" ms ({time.perf_counter() - t0:.1f} s with the ranks' "
+                f"start); {CARD}")
+    return out, problems
+
+
+def same_replays(label, captured, eager):
+    """(f)'s check of the replays: each rank's captured steps against the
+    same steps run eagerly, bit for bit: every step's metrics and the
+    final LSTM states on every rank, and on rank 0 the gradients of step
+    1, the state dict after it and the final state dict. Returns what
+    failed."""
+    import torch
+
+    bad = []
+    for r, (c, e) in enumerate(zip(captured, eager)):
+        steps = [i + 1 for i, (a, b) in enumerate(zip(c["metrics"],
+                                                      e["metrics"]))
+                 if a != b]
+        if steps:
+            bad.append(f"rank {r}: the metrics of steps {steps} differ")
+        if not all(torch.equal(x, y) for hc, he in zip(c["states"],
+                                                       e["states"])
+                   for x, y in zip(hc, he)):
+            bad.append(f"rank {r}: the final LSTM states differ")
+    for what in ("grads", "state_1", "state"):
+        a, b = captured[0][what], eager[0][what]
+        diff = [k for k in a if not torch.equal(a[k], b[k])]
+        if diff:
+            bad.append(f"rank 0: {len(diff)} tensors of {what} differ "
+                       f"({diff[0]} first)")
+    log(f"  {label}: captured vs eager over {len(captured[0]['metrics'])} "
+        f"steps on {len(captured)} ranks, bit for bit: "
+        + ("yes" if not bad else "; ".join(bad)))
+    return [f"{label}, captured vs eager: {b}" for b in bad]
+
+
+def dp_train_cfg(size, hw, seq_len):
+    """Phase 16's train config: the train cell's (gen1 RVT-B on the train
+    kernels) at ``size`` "base"; a CPU rehearsal's smaller preset at
+    ``hw`` and ``seq_len``."""
+    from dataclasses import replace
+
+    from rvt_tpu_torch.config import preset
+
+    if size == "base":
+        return gen1_base_train_cfg()
+    cfg = preset("gen1", size, resolution_hw=hw, sequence_length=seq_len)
+    return replace(cfg, model=replace(
+        cfg.model, compute_dtype="bfloat16",
+        backbone=replace(cfg.model.backbone, fused_kernels=True)))
+
+
+def nccl_ms(fn):
+    """Device ms of one call of ``fn`` in kernels whose name holds
+    "nccl" (torch.profiler), and their count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower()]
+    return sum(r[0] for r in rows) / 1e3, sum(r[1] for r in rows)
+
+
+def dp_side_effects(run):
+    """What a Trainer run wrote: checkpoint steps, the registry's
+    checkpoint versions and aliases, code snapshots, metrics lines."""
+    from pathlib import Path
+
+    from rvt_tpu_torch.utils.artifacts import ArtifactRegistry
+
+    run = Path(run)
+    reg = ArtifactRegistry(run / "registry")
+    return dict(
+        steps=sorted(int(p.name) for p in (run / "steps").iterdir()),
+        versions=[v["step"] for v in reg.versions("checkpoint")],
+        last=reg.aliases("checkpoint").get("last"),
+        code=len(reg.versions("checkpoint-code")),
+        lines=[json.loads(x)["step"] for x in
+               (run / "metrics.jsonl").read_text().splitlines()])
+
+
+def run_dp_path(dev="cuda", size="base", hw=(240, 304), batch=BATCH,
+                seq_len=SEQ_LEN, timeout=600):
+    """Phase 16 (``dp_path_in``) in a temporary directory, removed
+    after."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        return dp_path_in(tmp, dev, size, hw, batch, seq_len, timeout)
+
+
+def dp_path_in(tmp, dev, size, hw, batch, seq_len, timeout):
+    """Phase 16: data parallelism (``parallel/``) on the train cell, its
+    stores, ranks' logs and checkpoints under ``tmp``.
+    (a) one rank over NCCL in this process: the dp train step, captured,
+    bit for bit with the same step without a group over DP_STEPS steps
+    (both variants the Trainer runs: the plain step, and the one with
+    detections and parameter metrics): outputs, then parameters,
+    BatchNorm buffers, gradients and moments; each timed (ms a step,
+    device busy, idle share) with the NCCL kernels' share. (b) two
+    ranks sharing the card over gloo (eager), 4 lanes each of the same
+    global batch: the replicas and the ranks' metrics bit for bit after
+    every step; step 1's loss parts and grad_norm and the BatchNorm
+    buffers after it against (a)'s step on the global batch; then the
+    f32 leg (``dp_f32_leg``), whose loss parts and grad_norm are held at
+    every step and step 1's gradient leaves too (``hold_dp_ranks``). (c)
+    two ranks running
+    ``run_streaming_eval`` on their shards of phase 13's recordings: the
+    merged metrics the same on both, equal bit for bit to one process
+    scoring the two shards' frames in rank order, and within
+    DP_EVAL_ATOL of one process's run over all recordings (whose frames
+    come in another order: the protocol breaks ties between equal scores
+    by it). (d) a two-rank ``Trainer.fit`` of
+    2 steps, checkpoints every step: each written and published once.
+    (e) ``dryrun_multichip(2)``. (f) with two cards or more, NCCL ranks
+    one a card, their replays bit for bit with eager calls and held as
+    (b) (``run_multi_card_leg``). Returns (numbers for the summary line,
+    the dp step's launches a rank)."""
+    import torch
+    import torch.distributed as dist
+
+    from rvt_tpu_torch.cli.validate import serve_fused_config
+    from rvt_tpu_torch.config import preset
+    from rvt_tpu_torch.data.sequence import StreamView
+    from rvt_tpu_torch.data.streaming import EvalStreamScheduler
+    from rvt_tpu_torch.evaluation.prophesee import PropheseeEvaluator
+    from rvt_tpu_torch.ops import boxes
+    from rvt_tpu_torch.parallel import dryrun
+    from rvt_tpu_torch.parallel.mesh import init_process_group, make_mesh
+    from rvt_tpu_torch.training.evaluator_loop import run_streaming_eval
+
+    on_card = dev == "cuda"
+    res = {}
+    cfg = dp_train_cfg(size, hw, seq_len)
+    base = gen1_base_model(cfg, device=dev)
+    arrays = train_arrays(cfg, batch, seq_len)
+    data = [torch.from_numpy(a).to(dev) for a in arrays]
+    variants = {"plain": {}, "detections + param metrics": dict(
+        with_detections=True, with_param_metrics=True)}
+    counters = all_counters() + (boxes.NMS_KEEP,)
+    dp_counts = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # as phase 15: bit for bit
+    t_start = time.perf_counter()
+    # (a) one rank over NCCL, captured, against the step without a group
+    init_process_group(dev, init_method=f"file://{tmp}/store", rank=0,
+                       world_size=1)
+    try:
+        mesh = make_mesh()
+        log(f"(a) one rank, backend {mesh.backend}, world {mesh.world}")
+        if on_card and mesh.backend != "nccl":
+            fail(f"phase 16 (a): one rank took {mesh.backend}, not NCCL")
+        for vname, kw in variants.items():
+            runs = {}
+            for mode in ("single", "dp"):
+                if mode == "dp":
+                    for c in counters:
+                        c.reset()
+                runs[mode] = dp_steps(cfg, base, data, batch, dev,
+                                      mesh.group if mode == "dp" else None,
+                                      **kw)
+                if mode == "dp":
+                    for c in counters:
+                        dp_counts[c.name] = (dp_counts.get(c.name, 0)
+                                             + c.launches)
+            if vname == "plain":
+                res["ref"] = runs["single"][5]
+                res["ref"]["floor"] = rotated_lanes_floor(
+                    cfg, base, data, batch, dev, res["ref"])
+            (ms_, os_, ss, sts, outs_s, _), (md, od, sd, std, outs_d, _) = (
+                runs["single"], runs["dp"])
+            k = same_leaves(outs_d, outs_s, f"dp step ({vname})")
+            n = same_training_state(md, od, ms_, os_, f"dp step ({vname})")
+            log(f"  (a) {vname}: {DP_STEPS} steps, {k} output tensors and "
+                f"{n} tensors of state bit for bit, one-rank dp vs no group")
+            if on_card and vname == "plain":
+                for mode, (model, opt, step, states, _, _) in runs.items():
+                    t = {}
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(5):
+                        states = step(states, *data)[0]
+                    torch.cuda.synchronize()
+                    t["ms"] = (time.perf_counter() - t0) * 1e3 / 5
+                    prof = profile_window(lambda: step(states, *data),
+                                          f"train step ({mode}, phase 16)",
+                                          top=6)
+                    t.update(wall_ms=prof[0], busy_ms=prof[1], idle=prof[2])
+                    if mode == "dp":
+                        t["nccl_ms"], t["nccl_kernels"] = nccl_ms(
+                            lambda: step(states, *data))
+                    res[mode] = t
+                s_, d_ = res["single"], res["dp"]
+                log(f"(a) captured train step, one-rank dp vs no group: "
+                    f"{d_['ms']:.2f} vs {s_['ms']:.2f} ms a step, device "
+                    f"busy {d_['busy_ms']:.2f} vs {s_['busy_ms']:.2f} ms, "
+                    f"idle share {d_['idle']:.3f} vs {s_['idle']:.3f}; "
+                    f"collectives: {d_['nccl_kernels']} NCCL kernels "
+                    f"{d_['nccl_ms']:.4f} ms "
+                    f"({d_['nccl_ms'] / d_['busy_ms']:.2%} of busy), busy "
+                    f"difference {d_['busy_ms'] - s_['busy_ms']:.3f} ms "
+                    f"({(d_['busy_ms'] - s_['busy_ms']) / d_['busy_ms']:.2%})"
+                    f"; {CARD}")
+            del runs, ms_, os_, ss, md, od, sd, outs_s, outs_d
+            if on_card:
+                torch.cuda.empty_cache()
+        f32 = dp_f32_leg(dev, size, hw, batch, seq_len)
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+    launched = {n: v for n, v in dp_counts.items() if v}
+    log(f"(a) dp step launches, per rank over {DP_STEPS} + {DP_STEPS} "
+        f"steps: {launched}")
+    train_kernels = ("ln_rows", "gemm_bf16", "partition_attention",
+                     "lstm_scan", "ln_rows_bwd", "gemm_bf16_wgrad",
+                     "partition_attention_bwd", "lstm_scan_bwd",
+                     "train_reduce", "nms_keep")
+    missing = [n for n in train_kernels if not dp_counts.get(n)]
+    if on_card and missing:
+        fail(f"phase 16: the dp step launched no {missing}")
+
+    # (b)-(d): two ranks sharing the card (gloo), in one spawn
+    vcfg = with_conf(serve_fused_config(preset(
+        "gen1", size, **({} if size == "base" else dict(
+            resolution_hw=hw, sequence_length=seq_len)))), VAL_CONF)
+    vmodel = gen1_base_model(vcfg, device=dev)
+    views = [StreamView(r, vcfg.dataset.sequence_length)
+             for r in memory_recordings(VAL_LENGTHS, VAL_BOXES, hw=hw)]
+    one = run_streaming_eval(vmodel, vcfg, iter(EvalStreamScheduler(
+        views, batch)), batch, device=dev)
+    # the same frames as the two ranks score them: shard 0's, then 1's
+    with recorded_evaluator() as made:
+        for r in range(2):
+            run_streaming_eval(vmodel, vcfg, iter(EvalStreamScheduler(
+                views, batch, shard_index=r, num_shards=2)), batch,
+                device=dev)
+    in_rank_order = PropheseeEvaluator(vcfg.dataset.name,
+                                       vcfg.dataset.downsample_by_factor_2)
+    for ev in made:
+        in_rank_order.extend_from_bytes(ev.state_bytes())
+    in_rank_order = in_rank_order.evaluate_buffer(
+        *vcfg.dataset.dataloading_hw)
+    del views
+    cpu_state = {k: v.cpu() for k, v in base.state_dict().items()}
+    run_dir = f"{tmp}/trainer"
+    scenarios = [
+        ("chip_smoke:dp_train_steps", dict(cfg=cfg, state=cpu_state,
+                                           arrays=arrays, steps=DP_STEPS)),
+        ("chip_smoke:dp_train_steps", f32[0]),
+        ("chip_smoke:dp_streaming_eval", dict(
+            cfg=vcfg, state={k: v.cpu()
+                             for k, v in vmodel.state_dict().items()},
+            hw=hw, batch_size=batch)),
+        ("chip_smoke:dp_trainer_fit", dict(
+            cfg=cfg, state=cpu_state, n=2, batch=batch, seq_len=seq_len,
+            trainer_kw=dict(max_steps=2, log_every_n_steps=1,
+                            ckpt_every_n_steps=1, gradflow_every_n_steps=0,
+                            prefetch_depth=0, ckpt_dir=run_dir,
+                            artifact_dir=f"{run_dir}/registry")))]
+    del vmodel
+    t0 = time.perf_counter()
+    ranks = dryrun.spawn(scenarios, 2, f"{tmp}/gloo", device=dev,
+                         timeout=timeout)
+    res["spawn_s"] = time.perf_counter() - t0
+    (b0, e0, c0, d0), (b1, e1, c1, d1) = ranks
+    problems = hold_dp_ranks("(b) two gloo ranks on one card", b0, b1,
+                             res["ref"], CELL_TOL)
+    problems += hold_dp_ranks("(b) two gloo ranks on one card, f32 leg",
+                              e0, e1, f32[1], F32_TOL)
+    res["gloo_ms"] = [sum(x) / 2 for x in zip(b0["ms"], b1["ms"])]
+    log(f"(b) gloo, eager: ms a step by step (the ranks' mean; the first "
+        f"is the warm-up) {[round(x, 2) for x in res['gloo_ms']]}; "
+        f"{CARD}")
+    # (c) the evaluator merge
+    gap = max(abs(c0[k] - one[k]) for k in one)
+    if not (c0 == in_rank_order and c1 == c0 and gap <= DP_EVAL_ATOL):
+        fail(f"(c) merged metrics {c0} (rank 1: {c1}) against one process "
+             f"scoring the shards in rank order {in_rank_order}, and its "
+             f"run over all recordings {one}")
+    log(f"(c) streaming eval on two shards of {len(VAL_LENGTHS)} "
+        f"recordings: both ranks' merged metrics the same, equal bit for "
+        f"bit to one process scoring the shards' frames in rank order (AP "
+        f"{c0['AP']:.9g}); one process over all recordings, frames in its "
+        f"own order: AP {one['AP']:.9g}, largest difference {gap:.3e} "
+        f"(tolerance {DP_EVAL_ATOL})")
+    # (d) rank-0 side effects
+    se = dp_side_effects(run_dir)
+    want = dict(steps=[1, 2], versions=[2], last=2, code=1, lines=[1, 2])
+    if se != want or d0["last"].keys() != d1["last"].keys():
+        fail(f"(d) two-rank Trainer side effects {se}, want {want}")
+    if not (d0["replicas"] and d1["replicas"]):
+        fail("(d) the Trainer's replicas differ after fit")
+    log(f"(d) two-rank Trainer.fit, 2 steps, checkpoints every step: each "
+        f"written and published once ({se}); replicas equal")
+    log(f"phase 16 (b)-(d): one spawn of 2 ranks, {res['spawn_s']:.1f} s")
+    # (e) the dry run
+    t0 = time.perf_counter()
+    res["dryrun"] = dryrun.dryrun_multichip(2, device=dev,
+                                            workdir=f"{tmp}/dryrun",
+                                            timeout=timeout)
+    log(f"(e) {res['dryrun']} ({time.perf_counter() - t0:.1f} s)")
+    # (f) NCCL ranks, one a card, where there are two cards or more
+    n_cards = torch.cuda.device_count() if on_card else 0
+    if n_cards >= 2:
+        nccl, more = run_multi_card_leg(cfg, base, res["ref"], f32,
+                                        timeout)
+        res["nccl_ms"] = nccl
+        problems += more
+    else:
+        log(f"(f) not run: {n_cards} card(s) here; two NCCL ranks need two "
+            "cards (NCCL refuses two ranks on one card)")
+    res["phase_s"] = time.perf_counter() - t_start
+    log(f"phase 16: {res['phase_s']:.1f} s")
+    if problems:
+        fail("phase 16: " + "; ".join(problems))
+    return res, dp_counts
+
+
+# (c): one process's run over all recordings orders the frames otherwise;
+# the random head's scores tie (bf16 logits), and the protocol ranks tied
+# detections by buffer order (5.8e-6 apart on an H100 80GB HBM3, 700 W)
+DP_EVAL_ATOL = 1e-4
+# (b), (f), the train cell: phase 7 holds the loss parts at 1e-4,
+# grad_norm at 2e-2 and each gradient leaf at 5e-2 of its max|ref| with
+# the head fed identical features; here each process's cuDNN convolutions
+# round the bf16 features of its lanes their own way and SimOTA's picks
+# differ. The tolerances of the loss parts and grad_norm were set from
+# these readings on H100 80GB HBM3 cards at 700 W: with two ranks 110 vs
+# 108 foreground anchors (num_fg 1.9e-2 apart, the loss parts up to
+# 5.7e-3, grad_norm 1.6e-3), with four 113 (num_fg 4.6e-2, grad_norm
+# 5.6e-2). The gradient leaves are printed, not held: one process's step
+# with its lanes rotated moves them about as far (``rotated_lanes_floor``,
+# printed beside them), so no tolerance there tells a fault from
+# rounding; the f32 leg holds them. A rank normalising by its own count or averaging the
+# gradients (grad_norm off by the world's factor), local BatchNorm (the
+# replicas differ) or rank-local loss parts (the ranks' metrics differ)
+# fail these.
+CELL_TOL = dict(parts=0.1, grad_norm=0.1, bn=2e-2, grads=None, steps=1)
+# the f32 leg: tests/test_torch_modules.py's f32 tolerances (loss parts
+# and grad_norm 1e-3 relative at every step, each gradient leaf 1e-3 of
+# its max|ref|, buffers 1e-4)
+F32_TOL = dict(parts=1e-3, grad_norm=1e-3, bn=1e-4, grads=1e-3,
+               steps=F32_STEPS)
+
+
+def hold_dp_ranks(label, r0, r1, ref, tol):
+    """Two ranks' ``dp_train_steps`` results against the one-rank step on
+    the global batch (``ref``), at the tolerances ``tol`` (CELL_TOL or
+    F32_TOL). Every step: the replicas equal and the ranks' metrics
+    equal. The first ``tol["steps"]`` steps: loss parts (with num_fg) and
+    grad_norm within ``tol``'s relative tolerances. After step 1 (from
+    the same state): the BatchNorm buffers (the batch moments of every
+    rank) within ``tol["bn"]`` of max|ref| and, where ``tol["grads"]``
+    is set, each gradient leaf within it of its max|ref|. The later
+    steps' drift is printed. Returns what failed (printed first)."""
+    bad = []
+    if not (all(r0["replicas"]) and all(r1["replicas"])):
+        bad.append(f"the replicas differ ({r0['replicas']})")
+    if r0["metrics"] != r1["metrics"]:
+        bad.append("the ranks report different metrics")
+    errs = [{k: abs(m[k] - mr[k]) / max(abs(mr[k]), 1e-3)
+             for k in LOSS_KEYS}
+            for m, mr in zip(r0["metrics"], ref["metrics"])]
+    for i, step_errs in enumerate(errs[:tol["steps"]]):
+        for k, e in step_errs.items():
+            t = tol["grad_norm"] if k == "grad_norm" else tol["parts"]
+            if not e <= t:
+                bad.append(f"step {i + 1} {k} {r0['metrics'][i][k]:.6g} vs "
+                           f"one rank {ref['metrics'][i][k]:.6g} (relative "
+                           f"{e:.3e}, tolerance {t})")
+    if not all(math.isfinite(v) for m in r0["metrics"] for v in m.values()):
+        bad.append("non-finite metrics")
+    want = ref["state"]
+    bn = max(compare_rel_quiet(r0["state_1"][n].to(v.device), v)
+             for n, v in want.items()
+             if n.endswith(("running_mean", "running_var")))
+    if not bn <= tol["bn"]:
+        bad.append(f"BatchNorm buffers after step 1 {bn:.3e} of max|ref| "
+                   f"(tolerance {tol['bn']})")
+    rows = sorted(((compare_rel_quiet(r0["grads"][n].to(g.device), g), n)
+                   for n, g in ref["grads"].items()), reverse=True)
+    over = [n for e, n in rows if tol["grads"] is not None
+            and not e <= tol["grads"]]
+    if over:
+        bad.append(f"step 1's gradients: {len(over)} leaves over "
+                   f"{tol['grads']} of max|ref| ({over[0]} first)")
+    held = f" (steps 1-{tol['steps']})" if tol["steps"] > 1 else ""
+    log(f"  {label}: replicas equal after each of {len(r0['replicas'])} "
+        f"steps: {all(r0['replicas']) and all(r1['replicas'])}; step 1 "
+        "against one rank on the global batch: " + ", ".join(
+            f"{k} {r0['metrics'][0][k]:.6g} vs {ref['metrics'][0][k]:.6g} "
+            f"({v:.3e})" for k, v in errs[0].items())
+        + f" (tolerances {tol['parts']}, grad_norm {tol['grad_norm']}"
+        f"{held}); gradients, {len(rows)} leaves: median "
+        f"{rows[len(rows) // 2][0]:.3e} of max|ref|, worst "
+        + "; ".join(f"{n} {e:.3e}" for e, n in rows[:3])
+        + "; worst by part " + ", ".join(
+            f"{part} {max(e for e, n in rows if n.startswith(part)):.3e}"
+            for part in ("backbone", "fpn", "yolox_head"))
+        + (f" (tolerance {tol['grads']} each)" if tol["grads"] is not None
+           else " (printed, not held)")
+        + "; one process with its lanes rotated: median "
+        f"{ref['floor'][0]:.3e}, worst {ref['floor'][1]:.3e}"
+        + f"; after it BatchNorm buffers {bn:.3e} of max|ref| (tolerance "
+        f"{tol['bn']}); later steps, relative: " + "; ".join(
+            f"step {i + 2} " + ", ".join(f"{k} {v:.2e}" for k, v in e.items())
+            for i, e in enumerate(errs[1:])))
+    return [f"{label}: {b}" for b in bad]
+
+
+LOSS_KEYS = ("loss", "iou_loss", "conf_loss", "cls_loss", "num_fg",
+             "grad_norm")
+
+
+# -- phase 16's rank scenarios: the ranks (processes of
+# rvt_tpu_torch.parallel.dryrun) import this script and call each as
+# fn(mesh, device, **kwargs)
+
+
+def dp_rank_model(cfg, state, device, mesh):
+    """The detector of ``cfg`` with ``state``, broadcast from rank 0."""
+    from rvt_tpu_torch.models.detector import init_detector
+    from rvt_tpu_torch.parallel.mesh import module_tensors, replicate_tree
+
+    model = init_detector(cfg.model, seed=0, device=device)
+    model.load_state_dict(state, strict=True)
+    replicate_tree(mesh, module_tensors(model))
+    return model
+
+
+def dp_train_steps(mesh, device, cfg, state, arrays, steps, eager=False,
+                   tf32=True):
+    """``steps`` data-parallel train steps of the model ``state`` on this
+    rank's lanes of the global batch ``arrays``, the LSTM states carried,
+    under cudnn.deterministic (without ``tf32``: f32 convolutions and
+    matmuls in f32): captured over NCCL (with ``eager``, every call eager
+    under ``graphs.eager()``, the replays' bit-for-bit reference), eager
+    over gloo. Returns each step's metrics, wall ms
+    and whether the replicas were bit for bit equal after it, and this
+    rank's final LSTM states; rank 0 also the gradients and the state
+    dict after step 1, and the final state dict."""
+    import torch
+
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.parallel.mesh import module_tensors, same_on_all_ranks
+    from rvt_tpu_torch.training import graphs
+    from rvt_tpu_torch.training.optimizer import make_optimizer
+    from rvt_tpu_torch.training.step import make_train_step
+
+    torch.backends.cudnn.deterministic = True  # as (a)
+    model = dp_rank_model(cfg, state, device, mesh)
+    opt = make_optimizer(model.parameters(), cfg.training)
+    step = make_train_step(model, cfg, opt, group=mesh.group)
+    lanes = mesh.lanes(arrays[0].shape[0])
+    data = [torch.from_numpy(a[lanes]).to(device) for a in arrays]
+    states = zero_states(cfg.model.backbone, lanes.stop - lanes.start,
+                         device=device)
+    on_card = device.type == "cuda"
+    res = dict(metrics=[], ms=[], replicas=[])
+    with contextlib.ExitStack() as modes:
+        if eager:
+            modes.enter_context(graphs.eager())
+        if not tf32:
+            modes.enter_context(no_tf32())
+        for i in range(steps):
+            if on_card:
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            states, metrics = step(states, *data)
+            if on_card:
+                torch.cuda.synchronize(device)
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+            res["metrics"].append({k: float(v) for k, v in metrics.items()})
+            res["replicas"].append(same_on_all_ranks(
+                mesh, module_tensors(model)))
+            if i == 0 and mesh.is_main:
+                # copies: the gradients are views of the optimizer's flat
+                # buffer, which the next step overwrites
+                res["grads"] = {n: p.grad.to("cpu", copy=True)
+                                for n, p in model.named_parameters()}
+                res["state_1"] = {k: v.to("cpu", copy=True)
+                                  for k, v in model.state_dict().items()}
+    res["states"] = [tuple(x.cpu() for x in hc) for hc in states]
+    if mesh.is_main:
+        res["state"] = {k: v.cpu() for k, v in model.state_dict().items()}
+    return res
+
+
+def dp_streaming_eval(mesh, device, cfg, state, hw, batch_size):
+    """``run_streaming_eval`` over this rank's shard of phase 13's
+    recordings at ``hw`` (``EvalStreamScheduler`` with
+    ``shard_index=rank, num_shards=world``); the merged metrics."""
+    from rvt_tpu_torch.data.sequence import StreamView
+    from rvt_tpu_torch.data.streaming import EvalStreamScheduler
+    from rvt_tpu_torch.training.evaluator_loop import run_streaming_eval
+
+    model = dp_rank_model(cfg, state, device, mesh)
+    views = [StreamView(r, cfg.dataset.sequence_length)
+             for r in memory_recordings(VAL_LENGTHS, VAL_BOXES, hw=hw)]
+    sched = EvalStreamScheduler(views, batch_size, shard_index=mesh.rank,
+                                num_shards=mesh.world)
+    return run_streaming_eval(model, cfg, iter(sched), batch_size,
+                              device=device)
+
+
+def dp_trainer_fit(mesh, device, cfg, state, n, batch, seq_len,
+                   trainer_kw):
+    """``Trainer.fit`` over ``trainer_batches(cfg, n, batch, seq_len)``
+    without token masks, with ``TrainerConfig(**trainer_kw)``,
+    data-parallel over the ranks (the Trainer broadcasts the replicas);
+    the last logged metrics and whether the replicas, with the
+    optimizer's moments, are equal after."""
+    from rvt_tpu_torch.models.detector import init_detector
+    from rvt_tpu_torch.parallel.mesh import module_tensors, same_on_all_ranks
+    from rvt_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    model = init_detector(cfg.model, seed=0, device=device)
+    model.load_state_dict(state, strict=True)
+    trainer = Trainer(cfg, TrainerConfig(**trainer_kw), model=model,
+                      device=device)
+    last = trainer.fit(iter(trainer_batches(cfg, n, batch, seq_len,
+                                            masks=False)))
+    return dict(last=last, replicas=same_on_all_ranks(
+        mesh, module_tensors(trainer.model) + trainer.optimizer.mu
+        + trainer.optimizer.nu))
+
+
 # the kernels of csrc/ln_rows.cu and csrc/train_reduce.cu, whose template
 # instances the profile lists apart
 PROFILE_FAMILIES = {"ln_rows": ("ln_rows_kernel", "ln_rows_wide_kernel"),
@@ -3814,6 +4543,8 @@ def main() -> int:
     cli, cli_counts = run_train_cli_path()
     torch.cuda.empty_cache()
     cap = run_captured_path()
+    torch.cuda.empty_cache()
+    dp, dp_counts = run_dp_path()
     # the calls each record timed per step must be the launches the path
     # made per step (eval: 4 windows; raw: 1 + 21 calls; train: 1 + 5;
     # per-step train: one forward and backward; trainer: 4 + 1 + 1)
@@ -3827,7 +4558,8 @@ def main() -> int:
                    "per-step train": s_counts.get(name, 0),
                    "trainer": tr_counts.get(name, 0),
                    "validate": val_counts.get(name, 0),
-                   "train cli": cli_counts.get(name, 0)}
+                   "train cli": cli_counts.get(name, 0),
+                   "dp, per rank": dp_counts.get(name, 0)}
         rec.d["launches"] = sum(by_path.values())
         rec.d["launches_by_path"] = by_path
         for path, q in rec.paths.items():
@@ -3854,7 +4586,9 @@ def main() -> int:
         "captured vs eager ms a call: " + ", ".join(
             f"{k} {v['captured']['ms']:.2f} vs {v['eager']['ms']:.2f}"
             for k, v in cap.items())
-        + f"; {time.perf_counter() - t_start:.0f} s")
+        + f"; dp train step, one NCCL rank {dp['dp']['ms']:.2f} ms vs "
+        f"{dp['single']['ms']:.2f} without a group, two gloo ranks "
+        f"{dp['gloo_ms'][-1]:.2f}; {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": [r.d for r in recs.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,16 @@ shipped spatial augmentation; validation runs every ``--val_every`` steps
 on the val split. ``build_train_scheduler`` and ``make_eval_fn`` take
 recordings and streams already opened, so that a caller can feed them
 from memory. The run is on ``--device`` (``cuda`` by default; no card
-raises); data parallelism (``--dp_size`` above 1, ``--multihost``) is not
-ported yet.
+raises). Data parallelism, one process a card, launched by torchrun:
+
+    torchrun --nproc_per_node=N -m rvt_tpu_torch.cli.train --multihost \
+        --dataset gen1 --size base --data_dir /data/gen1 ...
+
+``--multihost`` joins the process group from torchrun's environment and
+puts each rank on ``cuda:LOCAL_RANK`` (NCCL; ranks sharing a card, or
+``--device cpu``, go over gloo); every rank samples the identical global
+batches and trains on its lanes, and validation evaluates each rank's
+shard of the recordings, merged before scoring.
 """
 from __future__ import annotations
 
@@ -107,17 +115,23 @@ def build_train_scheduler(cfg, recordings, seed: int = 0,
 def make_eval_fn(cfg, val_streams, num_workers: int = 0,
                  loader_mode: str = "thread", device="cuda"):
     """``eval_fn(model)`` for ``Trainer.fit``: the streaming evaluation of
-    ``model`` over every window of ``val_streams`` (one shard: the port
-    runs on one GPU), returning the Prophesee metrics."""
+    ``model`` over this process's shard of ``val_streams`` (every stream
+    in one process; the rank's share in data parallelism, as JAX's CLI
+    shards them), returning the Prophesee metrics of every shard (the
+    loop merges the processes' evaluators)."""
     from rvt_tpu_torch.data.loader import make_loader
     from rvt_tpu_torch.data.streaming import EvalStreamScheduler
+    from rvt_tpu_torch.parallel.mesh import make_mesh
     from rvt_tpu_torch.training.evaluator_loop import run_streaming_eval
 
     B = cfg.batch_size.eval
 
     def eval_fn(model):
-        sched = EvalStreamScheduler(val_streams, B, shard_index=0,
-                                    num_shards=1)
+        # shard recordings across processes (reference: rank-aware
+        # stream sharding, stream_sharded_datapipe.py:73-80)
+        mesh = make_mesh()
+        sched = EvalStreamScheduler(val_streams, B, shard_index=mesh.rank,
+                                    num_shards=mesh.world)
         batches = make_loader(sched, num_workers, mode=loader_mode)
         return run_streaming_eval(model, cfg, iter(batches), B,
                                   device=device)
@@ -137,8 +151,8 @@ def main(argv=None) -> None:
     ap.add_argument("--log_every", type=int, default=500)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dp_size", type=int, default=-1,
-                    help="data-parallel replicas; the port trains on one "
-                         "GPU (-1 or 1)")
+                    help="data-parallel processes (-1: the world's size; "
+                         "another value than it raises)")
     ap.add_argument("--num_workers", type=int, default=0,
                     help="input-pipeline fetch workers (reference "
                          "hardware.num_workers, modules/data/genx.py:92); "
@@ -146,7 +160,9 @@ def main(argv=None) -> None:
     ap.add_argument("--loader_mode", choices=["thread", "process"],
                     default="thread")
     ap.add_argument("--multihost", action="store_true",
-                    help="multi-host training (not ported yet)")
+                    help="data-parallel training launched by torchrun: "
+                         "join the process group from its environment, "
+                         "one rank a card (cuda:LOCAL_RANK)")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--init_ckpt", type=Path, default=None,
                     help="upstream torch .ckpt for weights-only init, "
@@ -167,17 +183,31 @@ def main(argv=None) -> None:
                     help="torch device; 'cpu' runs the plain versions")
     args = ap.parse_args(argv)
 
-    if args.multihost:
-        raise NotImplementedError(
-            "multi-host training is not ported yet (ROADMAP A.6)")
     if args.resume_artifact and args.artifact_dir is None:
         ap.error("--resume_artifact requires --artifact_dir")
 
     from rvt_tpu_torch import resolve_device
+
+    device = resolve_device(args.device)
+    if not args.multihost:
+        train(args, device)
+        return
+    import torch.distributed as dist
+
+    from rvt_tpu_torch.parallel.mesh import init_process_group
+
+    device = init_process_group(device)
+    try:
+        train(args, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def train(args, device) -> None:
+    """The run ``main``'s arguments ask for, on ``device``."""
     from rvt_tpu_torch.config import preset
     from rvt_tpu_torch.training.trainer import Trainer, TrainerConfig
 
-    device = resolve_device(args.device)
     cfg = preset(args.dataset, args.size)
     if args.batch_size:
         cfg = replace(cfg, batch_size=replace(cfg.batch_size,
@@ -207,6 +237,7 @@ def main(argv=None) -> None:
         from rvt_tpu_torch.convert.torch_ckpt import load_torch_checkpoint
 
         load_torch_checkpoint(args.init_ckpt, trainer.model)
+        trainer.replicate(optimizer=False)
 
     scheduler = build_train_scheduler(
         cfg, open_recordings(args.data_dir, "train", cfg), seed=args.seed,

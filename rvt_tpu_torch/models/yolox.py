@@ -11,21 +11,40 @@ in f32; the ``*_pred`` 1x1 convs run in f32 and the box decode is f32.
 In train mode (``model.train()``, as the train step sets it) each
 BatchNorm normalises with the batch statistics and updates its running
 buffers as flax's ``nn.BatchNorm`` does (``rvt_tpu/models/yolox.py:60``,
-momentum 0.9).
+momentum 0.9). Inside ``batch_norm_group(group)`` (the data-parallel
+train step) the batch statistics are those of every rank's frames, as
+flax's are under JAX's jit over a dp mesh.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from rvt_tpu_torch.config import FPNConfig, HeadConfig
+from rvt_tpu_torch.parallel.mesh import all_reduce_sum
 
 BN_EPS = 1e-5  # the JAX package's nn.BatchNorm epsilon
 BN_MOMENTUM = 0.9  # and its momentum (flax: ra = m * ra + (1 - m) * batch)
+# the process group train-mode BatchNorm averages its moments over
+_BN_GROUP = contextvars.ContextVar("rvt_bn_group", default=None)
+
+
+@contextlib.contextmanager
+def batch_norm_group(group):
+    """Within this block train-mode BatchNorm takes its moments over the
+    ranks of ``group`` (None: this process's frames alone)."""
+    token = _BN_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BN_GROUP.reset(token)
 
 
 def _act(name: str):
@@ -67,10 +86,18 @@ def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     max(E[y^2] - E[y]^2, 0) (biased), y' = (y - mean) * (rsqrt(var + eps) *
     scale) + bias; the running buffers become 0.9 * ra + 0.1 * batch,
     with the biased variance (``F.batch_norm`` would store the unbiased
-    one)."""
+    one). Inside ``batch_norm_group(group)`` the mean and E[y^2] are the
+    averages of every rank's (each rank gathers as many frames), one
+    autograd-aware all-reduce a layer, so that the backward sums the
+    moments' cotangents over the ranks."""
     yf = y.float()
     mean = yf.mean((0, 2, 3))
-    var = torch.clamp((yf * yf).mean((0, 2, 3)) - mean * mean, min=0.0)
+    mean_sq = (yf * yf).mean((0, 2, 3))
+    group = _BN_GROUP.get()
+    if group is not None:
+        moments = all_reduce_sum(torch.stack([mean, mean_sq]), group)
+        mean, mean_sq = (moments / dist.get_world_size(group)).unbind(0)
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
     with torch.no_grad():
         m = BN_MOMENTUM
         bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)

@@ -6,8 +6,10 @@ upstream ``validation.py`` + ``Module._val_test_step_impl`` +
 ``Module.run_psee_evaluator`` (modules/detection.py:208-338): runs the
 recurrent model over every recording with carried LSTM states, collects
 detections at labelled frames, and evaluates with the Prophesee protocol.
-The evaluator merge across processes goes with data parallelism (not
-ported yet, ROADMAP); in one process it does nothing.
+In data parallelism each process evaluates its shard of the recordings
+and the evaluators are merged before scoring
+(``parallel/multihost.py:merge_evaluator_buffers``), so every process
+scores the identical full set; in one process the merge does nothing.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from rvt_tpu_torch.evaluation.prophesee import (PropheseeEvaluator,
                                                 labels_to_structured)
 from rvt_tpu_torch.models.backbone import zero_states
 from rvt_tpu_torch.models.detector import RVTDetector
+from rvt_tpu_torch.parallel.multihost import merge_evaluator_buffers
 from rvt_tpu_torch.training.feed import (PinnedFeed, stored_layout,
                                          window_input)
 from rvt_tpu_torch.training.step import make_eval_step
@@ -102,8 +105,10 @@ def run_streaming_eval(model: RVTDetector, cfg: ExperimentConfig,
     batches, all of ``batch_size`` lanes.
 
     Returns the Prophesee COCO metrics dict or None if no labels were
-    seen. The eval step is made here, from the weights the model has now
-    (the kernels' weights are prepared once per call). Each window reaches
+    seen; with several processes, those of every process's batches (each
+    process calls this on its shard, and all get the same metrics). The
+    eval step is made here, from the weights the model has now (the
+    kernels' weights are prepared once per call). Each window reaches
     the card through the pinned feed (``training/feed.py``) in its stored
     layout and is laid out (and s2d-blocked) there.
 
@@ -172,6 +177,11 @@ def run_streaming_eval(model: RVTDetector, cfg: ExperimentConfig,
         pending = (batch, fetch)
     if pending is not None:
         consume(*pending)
+
+    # every process's shard, so that all score the identical full set
+    # (the reference reduces the metric across ranks instead,
+    # modules/detection.py:319-334)
+    merge_evaluator_buffers(evaluator)
 
     if not evaluator.has_data():
         return None

@@ -22,7 +22,12 @@ kernels (the optimizer's scalars) runs in ``before``, outside the graph,
 at every call.
 
 A capture that fails raises: there is no eager fallback on a card. On
-the CPU, and inside ``eager()``, the step runs eagerly.
+the CPU, and inside ``eager()``, the step runs eagerly. A data-parallel
+train step's NCCL collectives are captured with its kernels: the warm-up
+runs them first, outside the capture, which makes the communicator.
+Gloo's collectives stage through the host and cannot be captured, so
+``make_train_step`` gives a gloo step to no capture: it runs eagerly,
+chosen from the backend.
 
 Each kernel's launch ``Counter`` counts the launches of a capture; the
 capture's counts are taken back, and every replay credits them again.

@@ -4,13 +4,18 @@ Port of ``rvt_tpu/training/losses.py`` (upstream ``yolo_head.py:
 get_losses`` 291-443): loss = 5 * IoU (1 - iou^2, foreground only) + BCE
 (objectness, every anchor of a valid frame) + BCE (classes, foreground),
 each divided by the number of foreground anchors of the batch (at least
-1). Padded frames and padded GTs are masked out.
+1). Padded frames and padded GTs are masked out. In data parallelism
+(``group``) the batch is the global one, as under JAX's jit over a dp
+mesh: the foreground and GT counts are summed over the ranks before the
+clamp, and each rank's loss parts are its own sums over the global count
+(their sum over the ranks is the global loss).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from rvt_tpu_torch.ops.simota import simota_assign
@@ -41,14 +46,16 @@ def _bce_with_logits(logits: torch.Tensor,
 def yolox_loss(preds: torch.Tensor, gt_labels: torch.Tensor,
                gt_mask: torch.Tensor, frame_valid: torch.Tensor,
                grid_xy: torch.Tensor, anchor_strides: torch.Tensor,
-               num_classes: int) -> Dict[str, torch.Tensor]:
+               num_classes: int, group=None) -> Dict[str, torch.Tensor]:
     """The detection loss over a batch of frames.
 
     preds [F, A, 5+C] decoded cxcywh + obj/cls logits; gt_labels [F, M, 5]
     (class_id, cx, cy, w, h), zero padded; gt_mask [F, M] bool;
     frame_valid [F] bool (False for gathered padding frames); grid_xy
     [A, 2]; anchor_strides [A]. Returns loss, iou_loss, conf_loss,
-    cls_loss and num_fg (foreground anchors per GT), f32 scalars."""
+    cls_loss and num_fg (foreground anchors per GT), f32 scalars.
+    ``group``: the data-parallel process group the counts are summed
+    over (None: this batch alone)."""
     f32 = torch.float32
     preds = preds.to(f32)
     boxes = preds[..., :4]
@@ -62,8 +69,13 @@ def yolox_loss(preds: torch.Tensor, gt_labels: torch.Tensor,
                            gt_mask, grid_xy, anchor_strides, num_classes)
 
     fg_f = (assign.fg_mask & frame_valid[:, None]).to(f32)  # [F, A]
-    num_fg = torch.clamp(fg_f.sum(), min=1.0)
-    num_gts = torch.clamp(gt_mask.to(f32).sum(), min=1.0)
+    fg_sum, gt_sum = fg_f.sum(), gt_mask.to(f32).sum()
+    if group is not None:
+        counts = torch.stack([fg_sum, gt_sum])
+        dist.all_reduce(counts, group=group)
+        fg_sum, gt_sum = counts.unbind(0)
+    num_fg = torch.clamp(fg_sum, min=1.0)
+    num_gts = torch.clamp(gt_sum, min=1.0)
 
     # IoU loss (foreground only): 1 - iou^2 (losses.py:36)
     idx = assign.matched_gt.long()
@@ -88,4 +100,4 @@ def yolox_loss(preds: torch.Tensor, gt_labels: torch.Tensor,
             "iou_loss": reg_weight * loss_iou,
             "conf_loss": loss_obj,
             "cls_loss": loss_cls,
-            "num_fg": fg_f.sum() / num_gts}
+            "num_fg": fg_sum / num_gts}

@@ -23,8 +23,11 @@ computes them, and reach the device before each step as one small
 stream-ordered copy (``load_scalars``); ``update`` reads them there and
 reads nothing back, so a train step can be captured as a CUDA graph. The
 gradients stay in the same tensors from step to step (``zero_grad``
-zeroes them in place) for the same reason. The optimizer is not a TPU
-kernel in the JAX package and is not one here.
+zeroes them in place) for the same reason: views of one flat f32 buffer,
+which data parallelism sums over the ranks in one all-reduce
+(``reduce_grads``) before the clip reads it, as JAX's clip and
+``grad_norm`` see the global gradient. The optimizer is not a TPU kernel
+in the JAX package and is not one here.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from typing import Callable, Iterable, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rvt_tpu_torch.config import TrainingConfig
 
@@ -88,7 +92,8 @@ class OneCycleAdamW:
         self.scalars = torch.zeros(3, dtype=torch.float32, device=dev)
         self._max_norm = torch.tensor(self.max_norm, dtype=torch.float32,
                                       device=dev)
-        self._grads = None  # what zero_grad sets as each .grad
+        self._flat = None   # one buffer behind every gradient
+        self._grads = None  # its views, what zero_grad sets as each .grad
 
     def state_dict(self) -> dict:
         """The moments and the step count (what a checkpoint keeps)."""
@@ -107,16 +112,32 @@ class OneCycleAdamW:
         self.count = int(state["count"])
 
     def zero_grad(self) -> None:
-        """Zero the gradients in place: the optimizer owns one tensor a
-        parameter (made on first use) and sets it as ``.grad`` again if it
-        was replaced, so that a captured step writes memory that stays
-        allocated from step to step."""
+        """Zero the gradients in place: the optimizer owns one view a
+        parameter of one flat buffer (made on first use) and sets it as
+        ``.grad`` again if it was replaced, so that a captured step writes
+        memory that stays allocated from step to step."""
         if self._grads is None:
-            self._grads = [torch.zeros_like(p) for p in self.params]
+            dtypes = {(p.dtype, p.device) for p in self.params}
+            if len(dtypes) != 1:
+                raise ValueError("the optimizer takes parameters of one "
+                                 f"dtype on one device, got {dtypes}")
+            self._flat = torch.zeros(sum(p.numel() for p in self.params),
+                                     dtype=self.params[0].dtype,
+                                     device=self.params[0].device)
+            self._grads, off = [], 0
+            for p in self.params:
+                self._grads.append(self._flat[off:off + p.numel()].view(
+                    p.shape))
+                off += p.numel()
         for p, g in zip(self.params, self._grads):
             if p.grad is not g:
                 p.grad = g
-        torch._foreach_zero_(self._grads)
+        self._flat.zero_()
+
+    def reduce_grads(self, group) -> None:
+        """Sum the gradients over the data-parallel ``group`` in place, as
+        one flat all-reduce (after ``zero_grad`` and the backward)."""
+        dist.all_reduce(self._flat, group=group)
 
     def load_scalars(self) -> None:
         """Host side of a step: count it and copy its learning rate and

@@ -16,7 +16,10 @@ modules/detection.py:208-280, stream mode).
 
 On a card both steps are captured CUDA graphs (``training/graphs.py``,
 the port's ``jax.jit``), captured on their first call per signature; the
-step bodies read nothing back from the device.
+step bodies read nothing back from the device. The train step also runs
+data-parallel (``group``, ``parallel/mesh.py``) on each rank's lanes of
+the global batch, computing JAX's global-batch step; the eval step runs
+per rank on its own lanes.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from rvt_tpu_torch.config import ExperimentConfig
@@ -33,7 +37,8 @@ from rvt_tpu_torch.models.detector import (RVTDetector,
                                            dropout_rates,
                                            fused_path_supported,
                                            init_detector, scan_backbone)
-from rvt_tpu_torch.models.yolox import make_grids_and_strides
+from rvt_tpu_torch.models.yolox import (batch_norm_group,
+                                        make_grids_and_strides)
 from rvt_tpu_torch.ops.boxes import postprocess
 from rvt_tpu_torch.ops.s2d import s2d_input_hw
 from rvt_tpu_torch.training.graphs import CapturedStep
@@ -197,6 +202,11 @@ def make_eval_step(model: RVTDetector, cfg: ExperimentConfig, *,
     return eval_step if plain else CapturedStep(eval_step)
 
 
+# the train step's loss parts: each rank's sum over the global foreground
+# count, summed over the ranks in data parallelism
+LOSS_PARTS = ("loss", "iou_loss", "conf_loss", "cls_loss")
+
+
 class TrainState(NamedTuple):
     """What the train step updates: the model (parameters and BatchNorm
     buffers) and the optimizer (moments and step count)."""
@@ -215,7 +225,8 @@ def init_train_state(cfg: ExperimentConfig, seed: int = 0,
 def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
                     optimizer: OneCycleAdamW, *, plain: bool = False,
                     with_detections: bool = False,
-                    with_param_metrics: bool = False, graph_pool=None):
+                    with_param_metrics: bool = False, graph_pool=None,
+                    group=None):
     """One TBPTT window on the model's device.
 
     ``train_step(lstm_states, ev_repr [B, T, H, W, C], labels [B, T, M, 7],
@@ -244,6 +255,19 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
     in place). ``graph_pool`` is a memory pool
     (``torch.cuda.graph_pool_handle()``) its graphs share with other
     steps' that never run at the same time, the Trainer's variants.
+
+    ``group``: the data-parallel process group (``parallel/mesh.py``).
+    Each rank passes its lanes of the global batch and its LSTM states;
+    the step computes the JAX package's step over the global batch (its
+    dp mesh under jit): the foreground and GT counts summed over the
+    ranks before the loss divides by them, BatchNorm's moments averaged
+    over the ranks (one autograd-aware all-reduce a layer), the
+    gradients summed (one flat all-reduce) before the clip and
+    ``grad_norm``; the loss parts returned are the sums over the ranks,
+    the same on every rank, and so is the update. With one rank every
+    collective is the identity and the step is the plain one bit for
+    bit. Over NCCL the collectives are captured in the step's graph;
+    over gloo, which a capture cannot take, the step runs eagerly.
 
     A config with a dropout rate above 0 raises here: the JAX package's
     train step passes its modules no 'dropout' rng, and flax raises."""
@@ -285,11 +309,17 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
                                                           K)
         targets, target_mask = gather_labels(labels.float(), label_mask,
                                              frame_idx)
-        preds = model.forward_detect(gathered)
+        with batch_norm_group(group):
+            preds = model.forward_detect(gathered)
         losses = yolox_loss(preds, targets, target_mask, gval.reshape(-1),
-                            grid, anchor_strides, num_classes)
+                            grid, anchor_strides, num_classes, group)
         losses["loss"].backward()
         metrics = {k: v.detach() for k, v in losses.items()}
+        if group is not None:
+            optimizer.reduce_grads(group)
+            parts = torch.stack([metrics[k] for k in LOSS_PARTS])
+            dist.all_reduce(parts, group=group)
+            metrics.update(zip(LOSS_PARTS, parts.unbind(0)))
         if with_param_metrics:
             for name, p in model.named_parameters():
                 metrics[f"gradflow/{name}"] = (
@@ -310,4 +340,6 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
 
     step = CapturedStep(train_step, before=optimizer.load_scalars,
                         pool=graph_pool)
-    return step.run_eager if plain else step
+    eager = plain or (group is not None
+                      and dist.get_backend(group) != "nccl")
+    return step.run_eager if eager else step

@@ -3,25 +3,37 @@ checkpoint/resume, artifacts, periodic validation.
 
 Port of ``rvt_tpu/training/trainer.py`` (the reference's Lightning stack:
 ``train.py`` + ``modules/detection.py`` + callbacks) as a plain loop
-around the port's train step on one GPU. Checkpoints are ``torch.save``
+around the port's train step, on one GPU or data-parallel over processes
+(one a card, ``parallel/mesh.py``). Checkpoints are ``torch.save``
 files (``utils/checkpoint.py``), metrics a JSONL stream
 (``utils/logging.py``), published checkpoints a filesystem registry
 (``utils/artifacts.py``), pred-vs-GT panels of the training batches
 (``utils/visualization.py``). On a card the train step and its variants
 are captured CUDA graphs sharing one memory pool, and each batch reaches
 the card through the pinned feed (``training/feed.py``) in its stored
-layout, laid out (and s2d-blocked) there. Not ported yet (ROADMAP): data
-parallelism (``dp_size`` other than -1 or 1 raises).
+layout, laid out (and s2d-blocked) there.
+
+Data parallelism, as the JAX package's trainer over its dp mesh: every
+process iterates the identical global batches and trains on its lanes of
+each (the train step computes the global-batch step); the replicas are
+broadcast from rank 0 after init and every load; the train-time
+evaluator takes the rank's lanes and is merged over the processes before
+it scores; rank 0 alone writes the code snapshot, checkpoints,
+publishes, panels and the metrics file, and every rank computes the
+same validation metric (``eval_fn`` merges its evaluator), so retention
+agrees.
 """
 from __future__ import annotations
 
 import shutil
 import time
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from rvt_tpu_torch.config import ExperimentConfig
 from rvt_tpu_torch.convert.from_flax import from_flax
@@ -30,6 +42,9 @@ from rvt_tpu_torch.data.types import Batch
 from rvt_tpu_torch.evaluation.prophesee import PropheseeEvaluator
 from rvt_tpu_torch.models.backbone import zero_states
 from rvt_tpu_torch.models.detector import RVTDetector, init_detector
+from rvt_tpu_torch.parallel.mesh import (make_mesh, module_tensors,
+                                         replicate_tree)
+from rvt_tpu_torch.parallel.multihost import merge_evaluator_buffers
 from rvt_tpu_torch.training.evaluator_loop import (_write_panel,
                                                    iter_batch_detections,
                                                    labelmap_of)
@@ -83,15 +98,15 @@ class Trainer:
     ``seed``, its compute dtype from ``training.precision``) on
     ``device``, on the kernels or the modules as ``scan_backbone``
     routes the config. Dropout rates above 0 raise, as in
-    ``make_train_step``."""
+    ``make_train_step``. ``dp_size`` counts the data-parallel processes
+    (``parallel/mesh.py:make_mesh``): -1 takes the process group's world
+    (one process without a group); another value than the world's size
+    raises."""
 
     def __init__(self, cfg: ExperimentConfig, trainer_cfg: TrainerConfig,
                  model: Optional[RVTDetector] = None, seed: int = 0,
                  dp_size: int = -1, device="cuda"):
-        if dp_size not in (-1, 1):
-            raise NotImplementedError(
-                "the port's trainer runs on one GPU; data parallelism is "
-                "not ported yet (ROADMAP)")
+        self.mesh = make_mesh(dp_size)
         self.cfg = cfg
         self.tcfg = trainer_cfg
         if model is None:
@@ -102,13 +117,15 @@ class Trainer:
         self.model = model
         self.device = next(model.parameters()).device
         self.optimizer = make_optimizer(model.parameters(), cfg.training)
+        self.replicate()
         # the variants (with_detections / with_param_metrics) are made on
         # their cadences, once each; on a card their graphs share one
         # memory pool (they never run at once)
         self._pool = (torch.cuda.graph_pool_handle()
                       if self.device.type == "cuda" else None)
         self.train_step = make_train_step(model, cfg, self.optimizer,
-                                          graph_pool=self._pool)
+                                          graph_pool=self._pool,
+                                          group=self.mesh.group)
         self._steps = {(False, False): self.train_step}
         self._feed = PinnedFeed(self.device)
         self.ckpt = CheckpointManager(Path(trainer_cfg.ckpt_dir),
@@ -116,10 +133,11 @@ class Trainer:
         self.artifacts = None
         if trainer_cfg.artifact_dir is not None:
             self.artifacts = ArtifactRegistry(trainer_cfg.artifact_dir)
-            # one code snapshot per run (reference save_code=True)
-            self.artifacts.publish_code(
-                Path(__file__).resolve().parents[2],
-                name=f"{trainer_cfg.artifact_name}-code")
+            if self.mesh.is_main:
+                # one code snapshot per run (reference save_code=True)
+                self.artifacts.publish_code(
+                    Path(__file__).resolve().parents[2],
+                    name=f"{trainer_cfg.artifact_name}-code")
         self.logger = MetricsLogger(Path(trainer_cfg.ckpt_dir)
                                     / "metrics.jsonl")
         self._lstm_states = None
@@ -132,8 +150,20 @@ class Trainer:
             self._steps[key] = make_train_step(
                 self.model, self.cfg, self.optimizer,
                 with_detections=use_det, with_param_metrics=use_pm,
-                graph_pool=self._pool)
+                graph_pool=self._pool, group=self.mesh.group)
         return self._steps[key]
+
+    def replicate(self, optimizer: bool = True) -> None:
+        """Broadcast the parameters and BatchNorm buffers (and the
+        optimizer's moments) from rank 0: the replicas are then equal."""
+        tensors = module_tensors(self.model)
+        if optimizer:
+            tensors += self.optimizer.mu + self.optimizer.nu
+        replicate_tree(self.mesh, tensors)
+
+    def _log(self, step: int, metrics: Dict[str, float]) -> None:
+        if self.mesh.is_main:
+            self.logger.log(step, metrics)
 
     # -- checkpoint/resume ---------------------------------------------------
 
@@ -156,6 +186,7 @@ class Trainer:
         if state is None:
             return False
         self._load(state)
+        self.replicate()
         return True
 
     def load_weights(self, variables: Dict) -> None:
@@ -163,6 +194,7 @@ class Trainer:
         and ``batch_stats``; reference resume_only_weights,
         train.py:79-89), through the weight bridge."""
         self.model.load_state_dict(from_flax(variables), strict=True)
+        self.replicate(optimizer=False)
 
     def _publish_checkpoint(self, step: int,
                             metric: Optional[float]) -> None:
@@ -187,18 +219,22 @@ class Trainer:
         wandb_logger.py:77-87): resolve and md5-verify the payload, copy
         it into this run's checkpoint tree, restore. A local step
         directory that is already there is checked against the manifest's
-        md5s and copied again when it differs."""
+        md5s and copied again when it differs. Rank 0 copies; every rank
+        then restores the copy."""
         if self.artifacts is None:
             raise ValueError("TrainerConfig.artifact_dir is not set")
         payload, manifest = self.artifacts.resolve(uri)
         step = int(manifest["step"] if manifest["step"] is not None
                    else payload.name)
         dst = self.ckpt.step_dir(step)
-        if dst.exists() and _file_manifest(dst) != manifest["files"]:
-            shutil.rmtree(dst)
-        if not dst.exists():
-            dst.parent.mkdir(parents=True, exist_ok=True)
-            shutil.copytree(payload, dst)
+        if self.mesh.is_main:
+            if dst.exists() and _file_manifest(dst) != manifest["files"]:
+                shutil.rmtree(dst)
+            if not dst.exists():
+                dst.parent.mkdir(parents=True, exist_ok=True)
+                shutil.copytree(payload, dst)
+        if self.mesh.world > 1:
+            dist.barrier(self.mesh.group)
         return self.restore(step)
 
     # -- train-time detection metrics ----------------------------------------
@@ -206,8 +242,9 @@ class Trainer:
     def _consume_train_detections(self, batch: Batch, det_out,
                                   evaluate: bool, step: int) -> None:
         """Feed one training batch's detections into a train-mode
-        Prophesee evaluator; on ``evaluate`` steps score the buffer and
-        log train/AP* (modules/detection.py:199-205)."""
+        Prophesee evaluator; on ``evaluate`` steps merge the processes'
+        buffers, score them and log train/AP* (modules/detection.py:
+        199-205). ``batch`` is this rank's lanes of the step's batch."""
         cfg = self.cfg
         if self._train_evaluator is None:
             self._train_evaluator = PropheseeEvaluator(
@@ -219,14 +256,15 @@ class Trainer:
             self._train_evaluator.add_predictions([f[3] for f in frames])
         if not evaluate:
             return
+        merge_evaluator_buffers(self._train_evaluator)
         if self._train_evaluator.has_data():
             h, w = cfg.dataset.dataloading_hw
             m = self._train_evaluator.evaluate_buffer(img_height=h,
                                                       img_width=w)
             if m:
-                self.logger.log(step, {f"train/{k}": v for k, v in m.items()})
+                self._log(step, {f"train/{k}": v for k, v in m.items()})
         self._train_evaluator.reset_buffer()
-        if self.tcfg.train_viz_dir is not None:
+        if self.tcfg.train_viz_dir is not None and self.mesh.is_main:
             self._write_train_panels(batch, frames, step)
 
     def _write_train_panels(self, batch: Batch, frames, step: int) -> None:
@@ -242,10 +280,18 @@ class Trainer:
 
     # -- training loop -------------------------------------------------------
 
+    def _local(self, batch: Batch) -> Batch:
+        """This rank's lanes of ``batch`` (views)."""
+        lanes = self.mesh.lanes(batch.batch_size)
+        return replace(batch, **{
+            f.name: getattr(batch, f.name)[lanes] for f in fields(batch)
+            if isinstance(getattr(batch, f.name), np.ndarray)})
+
     def _to_device(self, batch: Batch):
-        """The step's tensors of ``batch`` through the pinned feed: the
-        window laid out for the model, labels, label mask, frame validity,
-        restarts, then the token mask (None without masking)."""
+        """The step's tensors of ``batch`` (this rank's lanes) through the
+        pinned feed: the window laid out for the model, labels, label
+        mask, frame validity, restarts, then the token mask (None without
+        masking)."""
         bb = self.model.cfg.backbone
         if batch.token_mask is not None and not bb.enable_masking:
             raise ValueError("batch carries a token_mask but the model "
@@ -309,11 +355,12 @@ class Trainer:
                 f"training window has {n_lab} labelled frames > "
                 f"max_labeled_frames={K}; raise "
                 "DatasetConfig.max_labeled_frames")
+        local = self._local(batch)
         if self._lstm_states is None:
             self._lstm_states = zero_states(self.model.cfg.backbone,
-                                            batch.batch_size,
+                                            local.batch_size,
                                             device=self.device)
-        arrays = self._to_device(batch)
+        arrays = self._to_device(local)
         step = self._host_step + 1
         use_det = evaluate = False
         if tc.detection_metrics_every_n_steps:
@@ -327,7 +374,7 @@ class Trainer:
         out = self._get_step(use_det, use_pm)(self._lstm_states, *arrays)
         self._lstm_states, metrics = out[:2]
         if use_det:
-            self._consume_train_detections(batch, out[2], evaluate, step)
+            self._consume_train_detections(local, out[2], evaluate, step)
         self._clock[1] += batch.batch_size * batch.seq_len
         self._host_step = step
 
@@ -336,10 +383,12 @@ class Trainer:
             logged = {k: float(v) for k, v in metrics.items()}
             dt = time.perf_counter() - self._clock[0]
             logged["train/frames_per_s"] = self._clock[1] / max(dt, 1e-9)
-            self.logger.log(step, {k if k.startswith("train/")
-                                   else f"train/{k}": v
-                                   for k, v in logged.items()})
-        if step % tc.ckpt_every_n_steps == 0:
+            self._log(step, {k if k.startswith("train/") else f"train/{k}": v
+                             for k, v in logged.items()})
+        # rank 0 alone writes to the shared checkpoint tree and registry;
+        # every rank computes the same validation metric (the evaluator
+        # merge), so the retention decision agrees anyway
+        if step % tc.ckpt_every_n_steps == 0 and self.mesh.is_main:
             self.ckpt.save(self.state_dict(), step)
             if self.artifacts is not None:
                 self._publish_checkpoint(step, None)
@@ -347,8 +396,9 @@ class Trainer:
                 and step % tc.val_every_n_steps == 0):
             val_metrics = eval_fn(self.model)
             if val_metrics:
-                self.logger.log(step, {f"val/{k}": v
-                                       for k, v in val_metrics.items()})
+                self._log(step, {f"val/{k}": v
+                                 for k, v in val_metrics.items()})
+            if val_metrics and self.mesh.is_main:
                 metric = val_metrics.get(tc.monitor)
                 self.ckpt.save(self.state_dict(), step, metric=metric)
                 if self.artifacts is not None:

@@ -6,8 +6,7 @@ port's ``main`` equal, bit for bit, those of the scheduler that
 ``rvt_tpu.cli.train.main`` builds, for the three samplings, serially and
 with 2 workers; ``main`` trains gen1 tiny a step, validates, writes and
 publishes a checkpoint, resumes from it and from the artifact registry;
-``--init_ckpt`` loads strictly; the options the port does not run
-raise."""
+``--init_ckpt`` loads strictly; the options a run cannot take raise."""
 import ast
 import itertools
 import json
@@ -184,20 +183,26 @@ def test_init_ckpt_loads_strictly(data, tmp_path, monkeypatch):
             t_train.main(base + ["--init_ckpt", str(bad)])
 
 
-@pytest.mark.parametrize("flags,error", [
-    (["--dp_size", "2"], NotImplementedError),
-    (["--multihost"], NotImplementedError),
-    (["--device", "cuda"], RuntimeError),
+@pytest.mark.parametrize("flags,error,match", [
+    (["--dp_size", "2"], ValueError, "has 1 process"),
+    (["--multihost"], RuntimeError, "missing RANK, WORLD_SIZE, LOCAL_RANK"),
+    (["--device", "cuda"], RuntimeError, "no CUDA device"),
 ], ids=["dp_size", "multihost", "no_card"])
-def test_unported_options_raise(data, tmp_path, monkeypatch, flags, error):
-    """Data parallelism is not ported yet, and ``--device cuda`` (the
-    default) raises where no card is present (this host has none)."""
+def test_unported_options_raise(data, tmp_path, monkeypatch, flags, error,
+                                match):
+    """The options this run cannot take raise: ``--dp_size 2`` in a world
+    of one process (launch two), ``--multihost`` without torchrun's
+    environment (naming what is missing), and ``--device cuda`` (the
+    default) where no card is present (this host has none)."""
     if torch.cuda.is_available() and "cuda" in flags:
         pytest.skip("a CUDA device is present")
     small_presets(monkeypatch)
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
     args = ["--dataset", "gen1", "--data_dir", str(data), "--ckpt_dir",
             str(tmp_path / "run")]
     if "--device" not in flags:
         args += ["--device", "cpu"]
-    with pytest.raises(error):
+    with pytest.raises(error, match=match):
         t_train.main(args + flags)

@@ -175,7 +175,9 @@ def test_detection_cadence_logs_train_ap(tmp_path):
 
 def test_fit_refusals(tmp_path):
     cfg = tiny_cfg()
-    with pytest.raises(NotImplementedError, match="one GPU"):
+    # dp_size counts processes: 2 in a world of one raises, saying how
+    # many to launch
+    with pytest.raises(ValueError, match="launch dp_size processes"):
         Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path)), dp_size=2,
                 device="cpu")
     # train_viz_dir: panels of the evaluated step's labelled frames, each

@@ -14,7 +14,9 @@
 // keep [B, K] bool, the unique fixpoint of
 //   keep[i] = valid[i] and not any(j < i: iou(j, i) > thr and keep[j]),
 // which the greedy sweep reaches in one pass: box i is final once every
-// kept box before it has suppressed its successors.
+// kept box before it has suppressed its successors. Where count is not
+// null, count [B] int32 gets the number of each frame's valid boxes, the
+// candidates NMS saw (read by the port's tracing).
 //
 // Design: one block a frame. The frame's alive flags sit in shared memory
 // (K bytes); the block first finds the end of the valid entries (after
@@ -58,22 +60,25 @@ __device__ __forceinline__ float iou_xyxy(float4 a, float4 b) {
 __global__ void __launch_bounds__(THREADS)
 nms_keep_kernel(const float4* __restrict__ boxes,
                 const uint8_t* __restrict__ valid, uint8_t* __restrict__ keep,
-                int K, float thr) {
+                int* __restrict__ count, int K, float thr) {
   extern __shared__ uint8_t alive[];  // [K]
-  __shared__ int n_s;
+  __shared__ int n_s, c_s;
   const long base = (long)blockIdx.x * K;
   const float4* bx = boxes + base;
-  if (threadIdx.x == 0) n_s = 0;
+  if (threadIdx.x == 0) n_s = c_s = 0;
   __syncthreads();
-  int last = 0;
+  int last = 0, c = 0;
   for (int j = threadIdx.x; j < K; j += THREADS) {
     const uint8_t v = valid[base + j] != 0;
     alive[j] = v;
     if (v) last = j + 1;
+    c += v;
   }
   atomicMax(&n_s, last);
+  if (count != nullptr) atomicAdd(&c_s, c);
   __syncthreads();
   const int n = n_s;
+  if (count != nullptr && threadIdx.x == 0) count[blockIdx.x] = c_s;
   for (int i = 0; i < n; ++i) {
     if (!alive[i]) continue;  // uniform across the block: no barrier
     const float4 a = __ldg(bx + i);
@@ -89,9 +94,11 @@ nms_keep_kernel(const float4* __restrict__ boxes,
 // K <= ops/boxes.py:NMS_MAX_BOXES: the alive flags stay within the 48 KB
 // of shared memory a block may take without cudaFuncSetAttribute.
 extern "C" int rvt_nms_keep(const void* boxes, const void* valid, void* keep,
-                            int B, int K, float thr, void* stream) {
+                            void* count, int B, int K, float thr,
+                            void* stream) {
   if (B > 0 && K > 0)
     nms_keep_kernel<<<B, THREADS, K, (cudaStream_t)stream>>>(
-        (const float4*)boxes, (const uint8_t*)valid, (uint8_t*)keep, K, thr);
+        (const float4*)boxes, (const uint8_t*)valid, (uint8_t*)keep,
+        (int*)count, K, thr);
   return (int)cudaGetLastError();
 }

@@ -32,6 +32,7 @@ from rvt_tpu_torch.ops.boxes import postprocess
 from rvt_tpu_torch.ops.voxelization import stacked_histogram_batched
 from rvt_tpu_torch.training.graphs import CapturedStep
 from rvt_tpu_torch.training.step import reset_states
+from rvt_tpu_torch.utils import timers
 
 BINS = 10  # stacked_histogram_dt=50_nbins=10 (dataset presets)
 
@@ -111,11 +112,15 @@ def make_raw_inference_step(model: RVTDetector, cfg: ExperimentConfig, *,
     def step(states: LstmStates, x: torch.Tensor, y: torch.Tensor,
              p: torch.Tensor, t: torch.Tensor, counts: torch.Tensor,
              is_first_sample: torch.Tensor):
+        timers.mark("input")
         model.eval()  # BatchNorm on its running statistics
         states = reset_states(states, is_first_sample)
         frames = event_frames(x, y, p, t, counts, cfg,
                               ds2_direct=ds2_direct, plain=plain)
+        timers.mark("backbone")
+        # marks "detect" between the backbone and the neck
         preds, new_states = model(frames, states, params, plain=plain)
+        timers.mark("postprocess")
         infer = torch.cat([preds[..., :4], torch.sigmoid(preds[..., 4:])],
                           dim=-1)
         dets, valid = postprocess(infer, num_classes,

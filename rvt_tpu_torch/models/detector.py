@@ -49,6 +49,7 @@ from rvt_tpu_torch.ops.fused_train import (StageCfg, fused_stage_step_train,
                                            split_stage_scan_train,
                                            train_block_params, train_stage_ok)
 from rvt_tpu_torch.ops.s2d import BLOCK, s2d_input_hw
+from rvt_tpu_torch.utils import timers
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -194,6 +195,7 @@ class RVTDetector(nn.Module):
         feats, states = self.forward_backbone(
             x, prev_states, params, token_mask=token_mask,
             deterministic=deterministic, gen=gen, plain=plain)
+        timers.mark("detect")  # a step's layer (utils/timers.py)
         preds = self.forward_detect([feats[s]
                                      for s in self.cfg.fpn.in_stages])
         return preds, states

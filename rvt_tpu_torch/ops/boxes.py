@@ -9,7 +9,10 @@ strictly above the threshold.
 
 On a card the keep mask is the hand-written kernel ``csrc/nms_keep.cu``
 (``nms_keep``), which bounds its work by each frame's valid count on the
-device, so no step reads the device from the host. Its plain version,
+device, so no step reads the device from the host. Inside a step whose
+layers are collected (``utils/timers.py``: a capture, a traced eager
+step) that count is the counter ``nms_candidates``, which the kernel
+writes into a buffer of the step's. Its plain version,
 on the CPU and with ``plain=True``, is the JAX package's Jacobi fixpoint
 with its 512-candidate branch, which read flags on the host.
 
@@ -25,6 +28,7 @@ import torch
 from rvt_tpu_torch.ops import kernels
 from rvt_tpu_torch.ops.kernels import (Counter, check, check_operands, need,
                                        ptr, stream_ptr)
+from rvt_tpu_torch.utils import timers
 
 NMS_KEEP = Counter("nms_keep")
 # boxes a frame ``csrc/nms_keep.cu`` takes: its alive flags (one byte a
@@ -109,8 +113,12 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
     ``csrc/nms_keep.cu`` (one block a frame, a greedy sweep up to the last
     valid box, no host read), else the plain version. boxes [B, K, 4] f32
     (score-sorted, class-offset), valid [B, K] bool; the threshold is
-    rounded to f32 as the plain version's comparison rounds it."""
+    rounded to f32 as the plain version's comparison rounds it. Inside a
+    step whose layers are collected, each frame's valid boxes are counted
+    as ``nms_candidates``."""
     if plain or not boxes.is_cuda:
+        if timers.collecting():
+            timers.count("nms_candidates", valid.sum(-1))
         return nms_keep_plain(boxes, valid, iou_threshold)
     B, K = valid.shape
     check_operands("nms_keep", boxes, valid)
@@ -119,11 +127,16 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
          f"nms_keep: boxes f32 [B, K, 4], valid bool [B, K], K <= "
          f"{NMS_MAX_BOXES}")
     keep = torch.empty_like(valid)
+    count = (torch.empty(B, dtype=torch.int32, device=valid.device)
+             if timers.collecting() else None)
     err = kernels.lib("nms_keep").rvt_nms_keep(
-        ptr(boxes), ptr(valid), ptr(keep), B, K, iou_threshold,
+        ptr(boxes), ptr(valid), ptr(keep),
+        None if count is None else ptr(count), B, K, iou_threshold,
         stream_ptr(boxes))
     check(err, "nms_keep")
     NMS_KEEP.launches += 1
+    if count is not None:
+        timers.count("nms_candidates", count)
     return keep
 
 

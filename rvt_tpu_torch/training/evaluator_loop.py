@@ -30,6 +30,7 @@ from rvt_tpu_torch.parallel.multihost import merge_evaluator_buffers
 from rvt_tpu_torch.training.feed import (PinnedFeed, stored_layout,
                                          window_input)
 from rvt_tpu_torch.training.step import make_eval_step
+from rvt_tpu_torch.utils import timers
 from rvt_tpu_torch.utils.visualization import (LABELMAP_GEN1,
                                                LABELMAP_GEN4_SHORT,
                                                render_detections)
@@ -79,16 +80,18 @@ def fetch_outputs(outputs, device: torch.device
     """Start the host copy of step outputs; returns a function that waits
     for it and gives numpy arrays. On a card the copies go to pinned
     memory right behind the step that made them, so a wait begun after
-    the next window's step has been launched does not queue behind it."""
+    the next window's step has been launched does not queue behind it.
+    The start is the span ``eval.fetch``; the wait is the caller's."""
     if device.type != "cuda":
         arrays = [o.numpy() for o in outputs]
         return lambda: arrays
-    host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-            for o in outputs]
-    for h, o in zip(host, outputs):
-        h.copy_(o, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
+    with timers.span("eval.fetch", device):
+        host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                for o in outputs]
+        for h, o in zip(host, outputs):
+            h.copy_(o, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
 
     def wait() -> List[np.ndarray]:
         done.synchronize()

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from rvt_tpu_torch.ops.s2d import device_space_to_depth
+from rvt_tpu_torch.utils import timers
 
 
 def stored_layout(ev: np.ndarray) -> Tuple[np.ndarray, bool]:
@@ -32,11 +33,13 @@ def stored_layout(ev: np.ndarray) -> Tuple[np.ndarray, bool]:
 def window_input(x: torch.Tensor, stored: bool, in_res_hw: Tuple[int, int],
                  stem_s2d: bool) -> torch.Tensor:
     """A fed window as the steps take it: channel-last [B, T, H, W, C],
-    s2d-blocked for an s2d stem, contiguous."""
-    if stored:
-        x = x.permute(0, 1, 3, 4, 2)
-    return device_space_to_depth(x, in_res_hw) if stem_s2d \
-        else x.contiguous()
+    s2d-blocked for an s2d stem, contiguous (the span
+    ``feed.window_input``)."""
+    with timers.span("feed.window_input", x.device):
+        if stored:
+            x = x.permute(0, 1, 3, 4, 2)
+        return device_space_to_depth(x, in_res_hw) if stem_s2d \
+            else x.contiguous()
 
 
 class PinnedFeed:

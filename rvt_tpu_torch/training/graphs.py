@@ -32,6 +32,16 @@ chosen from the backend.
 Each kernel's launch ``Counter`` counts the launches of a capture; the
 capture's counts are taken back, and every replay credits them again.
 
+Tracing (``utils/timers.py``): a call is the span ``step``, with
+``step.before``, ``step.copy_in``, ``step.replay`` and ``step.copy_out``
+(or ``step.eager`` for an eager run) inside it, and the counter
+``launches`` (the hand-written kernels' launches it made or a replay
+credits). The step body's layer marks (``timers.mark``) are captured
+into each graph whatever the switch says, as kernel nodes that write the
+card's clock into the graph's ring (``timers.Captured``), one row a
+replay; the traced replays' rows are read in one copy when the ring comes
+round, or by ``timers.summary()``, and no call waits for a replay.
+
 The graphs of one ``CapturedStep`` share one memory pool, and steps may
 share theirs (the Trainer's variants): the graphs then reuse each other's
 intermediates, which is safe because the port's steps replay one at a time
@@ -51,6 +61,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from rvt_tpu_torch.ops.kernels import COUNTERS
+from rvt_tpu_torch.utils import timers
 
 _EAGER = [False]
 _CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
@@ -87,11 +98,24 @@ def signature(leaves, spec) -> tuple:
 
 
 class _Graph:
-    def __init__(self, graph, static_in, static_out, credit):
+    def __init__(self, graph, static_in, static_out, credit, layers):
         self.graph = graph
         self.static_in = static_in    # leaves; tensors at fixed addresses
         self.static_out = static_out  # the body's outputs, rewritten a replay
         self.credit = credit          # Counter -> launches a replay
+        self.launches = sum(credit.values())
+        self.layers = layers          # the body's marks: timers.Captured
+
+
+def _launches() -> int:
+    return sum(c.launches for c in COUNTERS)
+
+
+def _card(leaves) -> Optional[torch.device]:
+    for x in leaves:
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            return x.device
+    return None
 
 
 def _copy_out(tree):
@@ -115,41 +139,75 @@ class CapturedStep:
 
     def run_eager(self, *args, **kwargs):
         """The step as plain Python on the current stream."""
+        timers.next_call()
+        with timers.span("step"):
+            return self._eager(args, kwargs)
+
+    def _before(self, device) -> None:
         if self.before is not None:
-            self.before()
-        return self.fn(*args, **kwargs)
+            with timers.span("step.before", device):
+                self.before()
+
+    def _eager(self, args, kwargs):
+        device = _card(pytree.tree_leaves((args, kwargs))) \
+            if timers.on() else None
+        self._before(device)
+        return self._body(args, kwargs, device)
+
+    def _body(self, args, kwargs, device):
+        """The body, eagerly; traced, with its layers and launches."""
+        if not timers.on():
+            return self.fn(*args, **kwargs)
+        n = _launches()
+        with timers.span("step.eager", device) as sp:
+            with timers.layers(device) as marks:
+                out = self.fn(*args, **kwargs)
+            timers.queue_layers(marks, sp.rec)
+        timers.add_count("launches", _launches() - n)
+        return out
 
     def __call__(self, *args, **kwargs):
+        timers.next_call()
+        with timers.span("step"):
+            return self._call(args, kwargs)
+
+    def _call(self, args, kwargs):
         leaves, spec = pytree.tree_flatten((args, kwargs))
         tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
         on_card = [t.is_cuda for t in tensors]
         if _EAGER[0] or not any(on_card):
-            return self.run_eager(*args, **kwargs)
+            return self._eager(args, kwargs)
         if not all(on_card):
             raise ValueError("a captured step takes its tensors on one card "
                              "(got CPU and CUDA tensors)")
+        device = tensors[0].device
         key = signature(leaves, spec)
         graph = self.graphs.get(key)
-        if self.before is not None:
-            self.before()
+        self._before(device)
         if graph is None:
-            out = self._warm_up(args, kwargs, tensors[0].device)
-            self.graphs[key] = self._capture(leaves, spec,
-                                             tensors[0].device)
+            out = self._warm_up(args, kwargs, device)
+            self.graphs[key] = self._capture(leaves, spec, device)
             return out
-        for dst, src in zip(graph.static_in, leaves):
-            if isinstance(dst, torch.Tensor):
-                dst.copy_(src)
-        graph.graph.replay()
+        with timers.span("step.copy_in", device):
+            for dst, src in zip(graph.static_in, leaves):
+                if isinstance(dst, torch.Tensor):
+                    dst.copy_(src)
+        graph.layers.before_replay()
+        with timers.span("step.replay") as sp:
+            graph.graph.replay()
+        graph.layers.after_replay(sp.rec, device)
         for counter, n in graph.credit.items():
             counter.launches += n
-        return _copy_out(graph.static_out)
+        if sp.rec is not None:
+            timers.add_count("launches", graph.launches)
+        with timers.span("step.copy_out", device):
+            return _copy_out(graph.static_out)
 
     def _warm_up(self, args, kwargs, device):
         stream = _capture_stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            out = self.fn(*args, **kwargs)
+            out = self._body(args, kwargs, device)
         torch.cuda.current_stream(device).wait_stream(stream)
         return out
 
@@ -161,6 +219,8 @@ class CapturedStep:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
+        stream = _capture_stream(device)
+        layers = timers.Captured(stream)
         # An unreachable step's graph destroyed during the capture (by the
         # cyclic collector, which may run at any allocation) would break
         # it: collect now, and not again until the capture has ended.
@@ -171,10 +231,10 @@ class CapturedStep:
             # thread_local: only this thread's unsafe calls break the
             # capture; other threads (the Trainer's prefetch thread, loader
             # threads) may call CUDA meanwhile.
-            with torch.cuda.graph(graph, pool=self.pool,
-                                  stream=_capture_stream(device),
+            with torch.cuda.graph(graph, pool=self.pool, stream=stream,
                                   capture_error_mode="thread_local"):
-                static_out = self.fn(*args, **kwargs)
+                with layers:
+                    static_out = self.fn(*args, **kwargs)
         finally:
             if collecting:
                 gc.enable()
@@ -182,4 +242,4 @@ class CapturedStep:
                       if c.launches != n}
             for c in credit:  # nothing ran: a replay launches them
                 c.launches = counts[c]
-        return _Graph(graph, static_in, static_out, credit)
+        return _Graph(graph, static_in, static_out, credit, layers)

@@ -16,7 +16,12 @@ modules/detection.py:208-280, stream mode).
 
 On a card both steps are captured CUDA graphs (``training/graphs.py``,
 the port's ``jax.jit``), captured on their first call per signature; the
-step bodies read nothing back from the device. The train step also runs
+step bodies read nothing back from the device. Each body marks its layers
+for tracing (``utils/timers.py:mark``): the eval step ``input``,
+``backbone``, ``detect`` (the gather of labelled frames, PAFPN, head),
+``postprocess``; the train step ``input``, ``backbone``, ``detect``,
+``loss``, ``detect_bwd``, ``backbone_bwd`` (from when the gradient has
+reached the gathered features), ``optimizer``. The train step also runs
 data-parallel (``group``, ``parallel/mesh.py``) on each rank's lanes of
 the global batch, computing JAX's global-batch step; the eval step runs
 per rank on its own lanes.
@@ -44,6 +49,7 @@ from rvt_tpu_torch.ops.s2d import s2d_input_hw
 from rvt_tpu_torch.training.graphs import CapturedStep
 from rvt_tpu_torch.training.losses import yolox_loss
 from rvt_tpu_torch.training.optimizer import OneCycleAdamW, make_optimizer
+from rvt_tpu_torch.utils import timers
 
 
 class EvalOutput(NamedTuple):
@@ -185,15 +191,19 @@ def make_eval_step(model: RVTDetector, cfg: ExperimentConfig, *,
     def eval_step(lstm_states: LstmStates, ev_repr: torch.Tensor,
                   frame_valid: torch.Tensor,
                   is_first_sample: torch.Tensor) -> EvalOutput:
+        timers.mark("input")
         model.eval()  # BatchNorm on its running statistics
         lstm_states = reset_states(lstm_states, is_first_sample)
         ev_seq = pad_ev_repr(ev_repr, in_res, None, stem_s2d)
         ev_seq = ev_seq.transpose(0, 1)
+        timers.mark("backbone")
         feats, final_states = scan_backbone(
             model, ev_seq, lstm_states, params=params, plain=plain)
+        timers.mark("detect")
         gathered, frame_idx, gval = gather_labeled_frames(feats,
                                                           frame_valid, K)
         preds = model.forward_detect(gathered)
+        timers.mark("postprocess")
         dets, det_valid = _postprocess_window(preds, frame_idx, gval, cfg,
                                               plain)
         return EvalOutput(final_states, dets, det_valid, frame_idx, gval,
@@ -291,6 +301,7 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
                    labels: torch.Tensor, label_mask: torch.Tensor,
                    frame_valid: torch.Tensor, is_first_sample: torch.Tensor,
                    token_mask: torch.Tensor | None = None):
+        timers.mark("input")
         lstm_states = reset_states(
             tuple((h.detach().float(), c.detach().float())
                   for h, c in lstm_states), is_first_sample)
@@ -302,18 +313,26 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
                                     bb.stem_patch_size).transpose(0, 1)
         model.train()  # BatchNorm on batch statistics
         optimizer.zero_grad()
+        timers.mark("backbone")
         feats, final_states = scan_backbone(
             model, ev_seq, lstm_states, tm_seq, deterministic=False,
             remat=True, plain=plain)
+        timers.mark("detect")
         gathered, frame_idx, gval = gather_labeled_frames(feats, frame_valid,
                                                           K)
-        targets, target_mask = gather_labels(labels.float(), label_mask,
-                                             frame_idx)
         with batch_norm_group(group):
             preds = model.forward_detect(gathered)
+        timers.mark("loss")
+        targets, target_mask = gather_labels(labels.float(), label_mask,
+                                             frame_idx)
         losses = yolox_loss(preds, targets, target_mask, gval.reshape(-1),
                             grid, anchor_strides, num_classes, group)
+        timers.mark("detect_bwd")
+        # the rest of the backward, once the neck's has reached the
+        # backbone's features
+        timers.mark_after_grads(gathered, "backbone_bwd")
         losses["loss"].backward()
+        timers.mark("optimizer")
         metrics = {k: v.detach() for k, v in losses.items()}
         if group is not None:
             optimizer.reduce_grads(group)
@@ -333,6 +352,7 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
         states = tuple((h.detach(), c.detach()) for h, c in final_states)
         if not with_detections:
             return states, metrics
+        timers.mark("postprocess")
         with torch.no_grad():
             dets, det_valid = _postprocess_window(preds, frame_idx, gval,
                                                   cfg, plain)

@@ -838,3 +838,142 @@ def test_capture_survives_the_collector(dev):
         gc.set_threshold(*old)
     torch.cuda.synchronize()
     assert len(step.graphs) == 1 and torch.equal(out[3], a * 3)
+
+
+def test_traced_replays_tile_their_layers(dev, monkeypatch):
+    """A captured eval, train and raw step: with tracing off a replay
+    makes no event and no record; with it on, a replay's layers are the
+    step body's marks in order (the train step's ``backbone_bwd`` from the
+    gradient hook, captured in the graph), each above zero, summing to
+    the replay's first-to-last device interval within 1 %, with the
+    step's launches and NMS candidates on the ``step`` span, the
+    candidates a plain count of the boxes above the confidence threshold
+    in that replay's head outputs. Traced calls back to back wait for no
+    replay, and each replay, past a full turn of the ring, reads its own
+    row."""
+    from rvt_tpu_torch.inference import make_raw_inference_step
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.models.detector import init_detector
+    from rvt_tpu_torch.ops.s2d import s2d_input_hw
+    from rvt_tpu_torch.training.optimizer import make_optimizer
+    from rvt_tpu_torch.training.step import make_eval_step, make_train_step
+    from rvt_tpu_torch.utils import timers
+
+    B, T = 2, 3
+    g = torch.Generator(device=dev).manual_seed(0)
+    cfg, raw_cfg = (_tiny_kernel_cfg(stem_s2d=s) for s in (True, False))
+    conf = cfg.model.postprocess.confidence_threshold
+    hp, wp = s2d_input_hw(cfg.model.backbone.in_res_hw)
+    ev = torch.randint(0, 4, (B, T, hp, wp, 320), generator=g, device=dev,
+                       dtype=torch.uint8)
+    fv = torch.tensor([[False, True, True]] * B, device=dev)
+    first = torch.tensor([True, False], device=dev)
+    labels = torch.zeros(B, T, 4, 7, device=dev)
+    labels[..., 1:3] = 20.0
+    labels[..., 3:5] = 16.0
+    mask = torch.ones(B, T, 4, dtype=torch.bool, device=dev)
+    model = init_detector(cfg.model, seed=0, device=dev)
+    raw_model = init_detector(raw_cfg.model, seed=0, device=dev)
+    head = []  # the raw step's head outputs: the captured tensor
+    raw_model.register_forward_hook(lambda m, i, out: head.append(out[0]))
+    N = 4096
+    xyp = [torch.randint(0, hi, (B, N), generator=g, device=dev,
+                         dtype=torch.int32) for hi in (80, 64, 2)]
+    t = torch.sort(torch.randint(0, 50000, (B, N), generator=g, device=dev,
+                                 dtype=torch.int32), dim=1).values
+    counts = torch.tensor([N, N // 2], dtype=torch.int32, device=dev)
+    states = zero_states(cfg.model.backbone, B, device=dev)
+    opt = make_optimizer(model.parameters(), cfg.training)
+    steps = [("eval", make_eval_step(model, cfg), (ev, fv, first), B * 2),
+             ("train", make_train_step(model, cfg, opt),
+              (ev, labels, mask, fv, first), None),
+             ("raw", make_raw_inference_step(raw_model, raw_cfg),
+              (*xyp, t, counts, first), B)]
+    made = [0]
+
+    class Counted(torch.cuda.Event):
+        def __new__(cls, *a, **k):
+            made[0] += 1
+            return super().__new__(cls, *a, **k)
+
+    def above(preds):  # the steps' score, in their dtype
+        p = torch.sigmoid(preds[..., 4:])
+        return int((p[..., 0] * p[..., 1:].amax(-1) >= conf).sum())
+
+    def no_wait(self):
+        raise AssertionError("a traced call waited for a replay")
+
+    layers = {"eval": ["input", "backbone", "detect", "postprocess"],
+              "train": ["input", "backbone", "detect", "loss", "detect_bwd",
+                        "backbone_bwd", "optimizer"],
+              "raw": ["input", "backbone", "detect", "postprocess"]}
+    timers.reset()
+    try:
+        for kind, step, args, frames in steps:
+            for _ in range(3):  # the warm-up and capture, two replays
+                step(states, *args)
+            assert len(step.graphs) == 1
+            monkeypatch.setattr(torch.cuda, "Event", Counted)
+            step(states, *args)
+            torch.cuda.synchronize()
+            assert made[0] == 0 and timers.records() == []
+            monkeypatch.undo()
+            timers.enable(True)
+            out = step(states, *args)
+            timers.enable(False)
+            if kind == "raw":
+                torch.cuda.synchronize()
+                want = above(head[-1])
+            elif kind == "eval":
+                want = above(out.preds)
+            timers.summary()
+            recs = timers.records()
+            (replay,) = [r for r in recs if r.name == "step.replay"]
+            got = [r for r in recs if r.pid == replay.rid]
+            assert [r.name for r in got] == layers[kind], kind
+            assert all(r.device_s > 0 for r in got), kind
+            total = sum(r.device_s for r in got)
+            assert abs(total - replay.device_s) <= 0.01 * replay.device_s
+            (launch,) = [r for r in recs if r.name == "launches"]
+            assert launch.parent == "step" and launch.value > 0
+            nms = [r for r in recs if r.name == "nms_candidates"]
+            assert [r.items for r in nms] == ([frames] if frames else [])
+            if frames:
+                assert nms[0].value == want > 0, kind
+            timers.reset()
+        # back to back, past a turn of the ring: no call waits until the
+        # ring comes round, and every replay reads its own row; a traced
+        # replay read a turn later, untraced, still reads its own counts
+        kind, step, args, _ = steps[2]
+        timers.enable(True)
+        step(states, *args)
+        timers.enable(False)
+        torch.cuda.synchronize()
+        want = above(head[-1])
+        for i in range(timers.RING + 1):
+            step(states, *args)
+        (nms,) = [r for r in timers.records() if r.name == "nms_candidates"]
+        assert nms.value == want > 0
+        timers.reset()
+        n = timers.RING + 6
+        monkeypatch.setattr(torch.cuda.Event, "synchronize", no_wait)
+        timers.enable(True)
+        for i in range(timers.RING - 1):
+            step(states, *args)
+        monkeypatch.undo()
+        for i in range(n - timers.RING + 1):
+            step(states, *args)
+        timers.enable(False)
+        timers.summary()
+        recs = timers.records()
+        replays = [r for r in recs if r.name == "step.replay"]
+        assert len(replays) == n
+        for replay in replays:
+            got = [r for r in recs if r.pid == replay.rid]
+            assert [r.name for r in got] == layers[kind]
+            total = sum(r.device_s for r in got)
+            assert abs(total - replay.device_s) <= 0.01 * replay.device_s
+            assert 0 < replay.device_s < 1.0
+    finally:
+        timers.enable(False)
+        timers.reset()

@@ -217,7 +217,7 @@ def test_card_route_of_the_steps_reads_nothing_back(fake_cuda, masked):
     assert boxes.NMS_KEEP.launches == n_nms + 1
     A = out.preds.shape[1]
     (nms_args,) = [a for f, a in _FakeLib.launches if f == "rvt_nms_keep"]
-    assert nms_args[3:5] == (B * 2, A)  # every anchor, no 512 branch
+    assert nms_args[4:6] == (B * 2, A)  # every anchor, no 512 branch
 
     opt = make_optimizer(model.parameters(), cfg.training)
     train = make_train_step(model, cfg, opt, with_detections=True,

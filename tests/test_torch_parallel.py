@@ -431,23 +431,41 @@ def test_cast_params_bf16_matches_jax():
     assert n_bn > 0
 
 
-def test_timers_summary(tmp_path):
-    """Timer and DeviceTimer (the wall clock for CPU tensors) accumulate
-    into the summary; TimerDummy records nothing; profile_trace writes a
-    trace."""
-    for _ in range(3):
-        with timers.Timer("test_parallel/host"):
-            sum(range(1000))
-    x = torch.ones(8)
-    with timers.DeviceTimer("test_parallel/device", observe={"x": x}):
-        x = x * 2
-    with timers.TimerDummy("test_parallel/dummy"):
+def test_timers_summary():
+    """Spans nest and sum by name (self time: a span's host time less its
+    children's), counters sum over their items, each record under its
+    parent and call id; with tracing off a span records nothing; reset
+    drops the records."""
+    timers.reset()
+    timers.enable(True)
+    try:
+        for _ in range(3):
+            call = timers.next_call()
+            with timers.span("test_parallel/host", "cpu"):
+                with timers.span("test_parallel/inner"):
+                    sum(range(1000))
+                timers.add_count("test_parallel/count", 2, items=4)
+    finally:
+        timers.enable(False)
+    with timers.span("test_parallel/off"):
         pass
-    with timers.profile_trace(str(tmp_path)):
-        torch.ones(4).sum()
-    s = timers.timing_summary()
-    assert s["test_parallel/host"]["count"] == 3
-    assert s["test_parallel/device"]["count"] == 1
-    assert s["test_parallel/host"]["total_s"] >= 0
-    assert "test_parallel/dummy" not in s
-    assert list(tmp_path.glob("trace_*.json"))
+    recs = timers.records()
+    assert [r.name for r in recs[-3:]] == ["test_parallel/host",
+                                           "test_parallel/inner",
+                                           "test_parallel/count"]
+    assert {r.call for r in recs[-3:]} == {call}
+    assert [r.parent for r in recs[-3:]] == [None, "test_parallel/host",
+                                             "test_parallel/host"]
+    s = timers.summary()
+    host, inner = (s["spans"][f"test_parallel/{n}"] for n in ("host",
+                                                              "inner"))
+    assert host["count"] == inner["count"] == 3
+    assert 0 < inner["host_s"] <= host["host_s"]
+    assert host["self_s"] == pytest.approx(host["host_s"]
+                                           - inner["host_s"])
+    assert host["device_count"] == 0  # host work: no device interval
+    assert s["counters"]["test_parallel/count"] == {"sum": 6, "items": 12,
+                                                    "count": 3}
+    assert "test_parallel/off" not in s["spans"]
+    timers.reset()
+    assert timers.records() == [] and timers.summary()["spans"] == {}

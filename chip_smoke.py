@@ -26,7 +26,11 @@ Phases, each of which raises (exit code != 0) when it fails:
      eval and raw steps' calls, on 48 dense frames of 1,680 anchors with
      577-676 candidates (class-aware and class-agnostic), a chain of 1,024
      candidates of depth 1,024, boxes exactly at the IoU threshold, and 0
-     and 1 candidates, timed beside its bound.
+     and 1 candidates, timed beside its bound; and window_s2d (the eval
+     window's layout: the stored uint8 window to the s2d stem's bf16
+     operand) identical to its plain version on the stored window's
+     channel-last view at B = 8, T = 21, at B = 1, T = 1, on a contiguous
+     window and at a gen4-like 360x640, timed beside its bound.
      Prints the error
      beside its tolerance and the kernel's, plain version's and one
      library call's times (CUDA events; K4's yardstick cuDNN's
@@ -44,7 +48,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      on the three partitions, K8 at C 48-384, T = 21 and 1), correctness
      only;
   4. run the port's RVT-B gen1 streaming eval step (bf16, s2d stem,
-     B = 8, T = 21, labels on every 5th frame, pre_nms_topk 512) over
+     B = 8, T = 21, labels on every 5th frame, pre_nms_topk 512; the
+     window fed as the stored buffer's channel-last view, so the step
+     runs window_s2d as the validation loop does) over
      several windows with the LSTM states carried, random weights from a
      seed (each step here and below as the port runs it on a card: its
      first call eager, then captured as a CUDA graph and replayed, each
@@ -118,11 +124,12 @@ Phases, each of which raises (exit code != 0) when it fails:
      mid-run, padded fill windows): on the kernels config that
      ``cli.validate --serve_fused`` builds (gen1 RVT-B, bf16, s2d stem)
      with phase 4's weights at confidence threshold 1e-4 (NMS sees
-     candidates), K1-K4 launched the eval step's count per window x
+     candidates), K1-K4, nms_keep and window_s2d launched the eval
+     step's count per window x
      windows, six finite stats, equal bit for bit to the same windows fed
      by hand (make_eval_step, the pinned feed, iter_batch_detections,
      PropheseeEvaluator), each part of a window timed (read+stack, the
-     pinned copy, the layout and s2d on the card, eval step, output wait,
+     pinned copy, the channel-last view, eval step, output wait,
      conversion; postprocess alone on nms_keep and on the plain route,
      identical detections, with its candidates and the plain route's
      Jacobi rounds; the protocol at the end), the idle share of a
@@ -860,8 +867,10 @@ def check_small_preset_train_kernels(randn):
 
 
 def eval_cell():
-    """Phase 4's cell: (cfg, model, a window of s2d-blocked events on the
-    card, frame_valid, is_first)."""
+    """Phase 4's cell: (cfg, model, a window on the card as the feed hands
+    it over, the stored [B, T, C, H, W] uint8 buffer's channel-last view,
+    frame_valid, is_first). The step blocks and casts it itself
+    (``ops/s2d.py:window_s2d``)."""
     from dataclasses import replace
 
     import numpy as np
@@ -869,8 +878,6 @@ def eval_cell():
 
     from rvt_tpu_torch.config import preset
     from rvt_tpu_torch.models.detector import init_detector
-    from rvt_tpu_torch.ops.s2d import host_space_to_depth
-
     cfg = preset("gen1", "base")
     cfg = replace(cfg, model=replace(
         cfg.model, compute_dtype="bfloat16",
@@ -885,11 +892,11 @@ def eval_cell():
         for name, p in model.named_parameters():
             if name.endswith(".gamma"):
                 p.normal_(0.0, 0.1, generator=gen)
-    H, W = cfg.model.backbone.in_res_hw
     rng = np.random.RandomState(0)
     ev_raw = rng.randint(0, 8, size=(BATCH, SEQ_LEN, 240, 304, 20)
                          ).astype(np.uint8)
-    ev = torch.from_numpy(host_space_to_depth(ev_raw, (H, W))).cuda()
+    ev = torch.from_numpy(np.ascontiguousarray(
+        ev_raw.transpose(0, 1, 4, 2, 3))).cuda().permute(0, 1, 3, 4, 2)
     frame_valid = torch.from_numpy(
         (np.arange(SEQ_LEN) % LABEL_EVERY == LABEL_EVERY - 1)[None].repeat(
             BATCH, 0)).cuda()
@@ -907,13 +914,15 @@ def run_main_path():
     from rvt_tpu_torch.ops.fused_attention import (GEMM_BF16, LN_ROWS,
                                                    PARTITION_ATTENTION)
     from rvt_tpu_torch.ops.fused_scan import LSTM_SCAN
+    from rvt_tpu_torch.ops.s2d import WINDOW_S2D
     from rvt_tpu_torch.training.step import make_eval_step
     from rvt_tpu_torch.utils.flops import detector_flops_per_frame
 
     cfg, model, ev, frame_valid, is_first = eval_cell()
     states = zero_states(cfg.model.backbone, BATCH, device="cuda")
     step = make_eval_step(model, cfg)
-    counters = (LN_ROWS, GEMM_BF16, PARTITION_ATTENTION, LSTM_SCAN, NMS_KEEP)
+    counters = (LN_ROWS, GEMM_BF16, PARTITION_ATTENTION, LSTM_SCAN, NMS_KEEP,
+                WINDOW_S2D)
 
     for c in counters:
         c.reset()
@@ -1207,6 +1216,62 @@ def check_nms_keep():
             continue
         rec.add(name, 1, 0.0, ms, pms, nbytes, ops, PEAK_F32_FLOPS, None,
                 device_ms=dms)
+    return rec
+
+
+def check_window_s2d():
+    """Phase 3, the eval window's layout: ``window_s2d`` against its plain
+    version (pad, s2d, T-major, bf16) bit for bit, on the stored window's
+    channel-last view at the eval cell's B = 8, T = 21, 240x304x20 ->
+    256x320 (bytes 0-255), at B = 1, T = 1, on a contiguous channel-last
+    window (the byte path) and at a gen4-like 360x640 -> 384x640, whose
+    51.5 KB of staged rows a block need the raised shared-memory limit.
+    Times the eval cell's call (CUDA events; device time of a CUDA graph
+    of 10 calls) beside its bound (the window read once, the operand
+    written once), the plain version and one library call over the same
+    bytes (the stored view's uint8 -> bf16 cast). Returns its Record."""
+    import torch
+
+    from rvt_tpu_torch.ops import s2d
+
+    rec = Record("window_s2d", "rvt_tpu_torch/csrc/window_s2d.cu",
+                 "rvt_tpu/ops/s2d.py:device_space_to_depth (XLA ops and "
+                 "the stem conv's cast; not a TPU kernel)")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def stored(b, t, c, hw):
+        st = torch.randint(0, 256, (b, t, c) + hw, generator=gen,
+                           device="cuda", dtype=torch.uint8)
+        return st.permute(0, 1, 3, 4, 2)
+
+    cases = {
+        "eval step": (stored(BATCH, SEQ_LEN, 20, (240, 304)), (256, 320)),
+        "B 1 T 1": (stored(1, 1, 20, (240, 304)), (256, 320)),
+        "contiguous": (stored(2, 3, 20, (240, 304)).contiguous(),
+                       (256, 320)),
+        "gen4-like": (stored(1, 2, 20, (360, 640)), (384, 640)),
+    }
+    for name, (ev, target) in cases.items():
+        got = s2d.window_s2d(ev, target)
+        ref = s2d.window_s2d_plain(ev, target)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"window_s2d [{name}]: {int((got != ref).sum())} elements "
+                 "differ from the plain version")
+        log(f"  window_s2d[{name}]: {tuple(ev.shape)} strides "
+            f"{ev.stride()} -> {tuple(got.shape)} bf16, identical to the "
+            "plain version")
+        if name != "eval step":
+            continue
+        nbytes = ev.numel() + got.numel() * got.element_size()
+        ms = time_ms(lambda: s2d.window_s2d(ev, target))
+        dms = device_ms_of(lambda: s2d.window_s2d(ev, target))
+        pms = time_ms(lambda: s2d.window_s2d_plain(ev, target))
+        lms = time_ms(lambda: ev.to(torch.bfloat16))
+        rec.add(name, 1, 0.0, ms, pms, nbytes, 0, PEAK_BF16_FLOPS, lms,
+                device_ms=dms)
+        del got, ref
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -2781,11 +2846,11 @@ def eval_window_parts(step, cfg, batch, states, evaluator, parts, feed):
     """One window fed by hand as ``run_streaming_eval`` feeds it, each part
     timed on the host clock into ``parts`` (ms): the stored layout's copy
     into a pinned slot of ``feed`` with its H2D issued ("pinned copy"),
-    the channel-last permute and s2d issued on the card ("card layout"),
-    the eval step until it returns (a replay: the host only issues), the
-    wait for its outputs' host copy (which takes the card's whole window:
-    H2D, layout, step) and the conversion to protocol arrays. Returns the
-    step's output."""
+    the feed's channel-last view ("card layout"; the s2d step blocks it
+    itself, ``ops/s2d.py:window_s2d``), the eval step until it returns (a
+    replay: the host only issues), the wait for its outputs' host copy
+    (which takes the card's whole window: H2D, layout, step) and the
+    conversion to protocol arrays. Returns the step's output."""
     import torch
 
     from rvt_tpu_torch.training.evaluator_loop import (fetch_outputs,
@@ -2840,6 +2905,7 @@ def run_validation_path(eval_counts):
     from rvt_tpu_torch.ops.fused_attention import (GEMM_BF16, LN_ROWS,
                                                    PARTITION_ATTENTION)
     from rvt_tpu_torch.ops.fused_scan import LSTM_SCAN
+    from rvt_tpu_torch.ops.s2d import WINDOW_S2D
     from rvt_tpu_torch.training.evaluator_loop import run_streaming_eval
     from rvt_tpu_torch.training.feed import PinnedFeed
     from rvt_tpu_torch.training.step import _postprocess_window, make_eval_step
@@ -2864,7 +2930,7 @@ def run_validation_path(eval_counts):
         fail(f"validation: {n_win} windows, {fills} fill windows, "
              f"{restarts} mid-run restarts")
     counters = (LN_ROWS, GEMM_BF16, PARTITION_ATTENTION, LSTM_SCAN,
-                boxes.NMS_KEEP)
+                boxes.NMS_KEEP, WINDOW_S2D)
     for c in counters:
         c.reset()
     timer = first_window_timer(sched)
@@ -2997,9 +3063,9 @@ def run_validation_path(eval_counts):
             profile_window(lambda: eval_window_parts(
                 step, cfg, items[1], states, PropheseeEvaluator("gen1"), {},
                 feed), f"validation window, {mode} (pinned copy, H2D, "
-                "layout and s2d on the card, step, conversion)")
+                "step with the window's layout, conversion)")
     log(f"validation loop: {res['loop_fps']:.1f} frames/s over {n_win - 1} "
-        f"windows after the first (read, stack, s2d, H2D, step, NMS, "
+        f"windows after the first (read, stack, H2D, s2d, step, NMS, "
         f"conversion and the protocol included); {CARD}")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_val_") as tmp:
@@ -4523,6 +4589,7 @@ def main() -> int:
     check_attention_lstm_edges()
     recs["stacked_histogram"] = check_voxelizer()
     recs["nms_keep"] = check_nms_keep()
+    recs["window_s2d"] = check_window_s2d()
     check_train_kernels(recs)
     log(f"LSTM yardstick dtypes: {LSTM_LIB}")
     fps, mfu, counts = run_main_path()

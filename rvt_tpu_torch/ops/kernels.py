@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("ln_rows", "gemm_bf16", "partition_attention", "lstm_scan",
            "stacked_histogram", "ln_rows_bwd", "gemm_bf16_wgrad",
            "partition_attention_bwd", "lstm_scan_bwd", "train_reduce",
-           "nms_keep", "trace_stamp")
+           "nms_keep", "trace_stamp", "window_s2d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -71,6 +71,8 @@ SIGNATURES = {
     "nms_keep": {"rvt_nms_keep": (_P, _P, _P, _P, _I, _I, _F, _P)},
     "trace_stamp": {"rvt_trace_stamp": (_P, _P) + (_I,) * 4 + (_P,),
                     "rvt_trace_keep": (_P, _P, _P, _I, _I, _P)},
+    "window_s2d": {"rvt_window_s2d": (_P, _P) + (_I,) * 5 + (_L,) * 5
+                   + (_I, _I, _P)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -5,7 +5,10 @@ The 7x7 stride-4 stem over 20 channels is re-expressed as a 2x2 stride-1
 conv over 4x4-space-to-depth-blocked input (contraction depth 16*C). The
 blocking is a uint8 re-layout, on the host or on the card
 (``device_space_to_depth``); the model folds its
-stored 7x7 kernel into the equivalent 2x2 kernel (exact).
+stored 7x7 kernel into the equivalent 2x2 kernel (exact). The steps block
+an unblocked window themselves (``window_s2d``): on a card the
+hand-written kernel ``csrc/window_s2d.cu`` reads the stored window once
+and writes the stem's bf16 operand, T-major, once.
 
 Derivation: output(i,j) = sum_{u,v} x[4i+u-3, 4j+v-3] w[u,v]. With block
 index p = floor(r/4), offset a = r mod 4 (r = input row), the taps regroup
@@ -19,7 +22,15 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from rvt_tpu_torch.ops import kernels
+from rvt_tpu_torch.ops.kernels import Counter, check, ptr, stream_ptr
+
 BLOCK = 4  # stem patch size
+WINDOW_S2D = Counter("window_s2d")
+# the most shared memory a block of csrc/window_s2d.cu may take (the
+# H100's 227 KB opt-in): its four staged input rows, 16 * Wp * C bytes; the
+# C entry raises a block's limit to what a launch needs above 48 KB
+_WINDOW_S2D_SMEM = 232448
 
 
 def host_space_to_depth(ev: np.ndarray, target_hw: Tuple[int, int]) -> np.ndarray:
@@ -50,6 +61,45 @@ def device_space_to_depth(ev: torch.Tensor,
     x = x.reshape(*lead, Hp, BLOCK, Wp, BLOCK, C)
     x = x.movedim(-4, -3)  # [..., Hp, Wp, BLOCK, BLOCK, C]
     return x.reshape(*lead, Hp, Wp, BLOCK * BLOCK * C)
+
+
+def window_s2d_plain(ev: torch.Tensor,
+                     target_hw: Tuple[int, int]) -> torch.Tensor:
+    """``window_s2d``'s plain version: ``device_space_to_depth`` of each
+    frame, T-major, cast to bf16 (exact for uint8), contiguous."""
+    x = device_space_to_depth(ev, target_hw).transpose(0, 1).contiguous()
+    return x.to(torch.bfloat16)
+
+
+def window_s2d(ev: torch.Tensor, target_hw: Tuple[int, int], *,
+               plain: bool = False) -> torch.Tensor:
+    """A window [B, T, H, W, C] uint8, any strides, as the s2d stem takes
+    it: [T, B, Hp, Wp, 16*C] bf16, contiguous, each frame
+    ``device_space_to_depth``'s. On a CUDA tensor the kernel
+    ``csrc/window_s2d.cu`` (one pass; the stored [B, T, C, H, W] buffer's
+    channel-last view is its fast path), else the plain version."""
+    B, T, H, W, C = ev.shape
+    th, tw = target_hw
+    # both routes take the same windows: the plain one is exact for uint8
+    kernels.need(ev.dtype == torch.uint8 and th % BLOCK == 0
+                 and tw % BLOCK == 0 and H <= th and W <= tw,
+                 f"window_s2d: uint8 [B, T, H, W, C] within {target_hw}, "
+                 f"a multiple of {BLOCK} (got {ev.dtype} "
+                 f"{tuple(ev.shape)})")
+    if plain or not ev.is_cuda:
+        return window_s2d_plain(ev, target_hw)
+    Hp, Wp = s2d_input_hw(target_hw)
+    kernels.need(16 * Wp * C <= _WINDOW_S2D_SMEM,
+                 f"window_s2d: {16 * Wp * C} bytes of staged rows a block, "
+                 f"more than {_WINDOW_S2D_SMEM}")
+    out = torch.empty((T, B, Hp, Wp, BLOCK * BLOCK * C),
+                      dtype=torch.bfloat16, device=ev.device)
+    err = kernels.lib("window_s2d").rvt_window_s2d(
+        ptr(ev), ptr(out), B, T, H, W, C, *ev.stride(), Hp, Wp,
+        stream_ptr(ev))
+    check(err, "window_s2d")
+    WINDOW_S2D.launches += 1
+    return out
 
 
 def host_depth_to_space(ev: np.ndarray, orig_hw: Tuple[int, int],

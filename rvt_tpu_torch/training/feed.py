@@ -4,9 +4,10 @@ A window leaves ``data/streaming.py:_stack`` as a channel-last view
 [B, T, H, W, C] of the stacked [B, T, C, H, W] uint8 buffer. The feed
 copies that buffer as it is stored (``stored_layout``: a view, no host
 copy) into one of two pinned staging slots, copies it to the card on a
-side stream that the compute stream waits for, and lays it out on the
-card (``window_input``: the channel-last permute and, for an s2d stem,
-``device_space_to_depth``). A slot is refilled only after the event of
+side stream that the compute stream waits for, and hands the steps its
+channel-last view (``window_input``): for an s2d stem as it is, since the
+steps block and cast it in one pass (``training/step.py:window_seq``),
+else as a contiguous copy. A slot is refilled only after the event of
 its last copy, so the host may stack the next window while the card
 copies this one. On the CPU the arrays become tensors without a copy.
 """
@@ -17,7 +18,6 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from rvt_tpu_torch.ops.s2d import device_space_to_depth
 from rvt_tpu_torch.utils import timers
 
 
@@ -32,14 +32,15 @@ def stored_layout(ev: np.ndarray) -> Tuple[np.ndarray, bool]:
 
 def window_input(x: torch.Tensor, stored: bool, in_res_hw: Tuple[int, int],
                  stem_s2d: bool) -> torch.Tensor:
-    """A fed window as the steps take it: channel-last [B, T, H, W, C],
-    s2d-blocked for an s2d stem, contiguous (the span
-    ``feed.window_input``)."""
+    """A fed window as the steps take it: channel-last [B, T, H, W, C]
+    within ``in_res_hw``; for an s2d stem the view of the stored buffer
+    (no device work), else contiguous (the span ``feed.window_input``)."""
     with timers.span("feed.window_input", x.device):
         if stored:
             x = x.permute(0, 1, 3, 4, 2)
-        return device_space_to_depth(x, in_res_hw) if stem_s2d \
-            else x.contiguous()
+        if x.shape[2] > in_res_hw[0] or x.shape[3] > in_res_hw[1]:
+            raise ValueError(f"window {tuple(x.shape)} exceeds {in_res_hw}")
+        return x if stem_s2d else x.contiguous()
 
 
 class PinnedFeed:

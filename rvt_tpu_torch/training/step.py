@@ -35,7 +35,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from rvt_tpu_torch.config import ExperimentConfig
+from rvt_tpu_torch.config import BackboneConfig, ExperimentConfig
 from rvt_tpu_torch.models.backbone import LstmStates
 from rvt_tpu_torch.models.detector import (RVTDetector,
                                            backbone_kernel_params,
@@ -45,7 +45,7 @@ from rvt_tpu_torch.models.detector import (RVTDetector,
 from rvt_tpu_torch.models.yolox import (batch_norm_group,
                                         make_grids_and_strides)
 from rvt_tpu_torch.ops.boxes import postprocess
-from rvt_tpu_torch.ops.s2d import s2d_input_hw
+from rvt_tpu_torch.ops.s2d import s2d_input_hw, window_s2d
 from rvt_tpu_torch.training.graphs import CapturedStep
 from rvt_tpu_torch.training.losses import yolox_loss
 from rvt_tpu_torch.training.optimizer import OneCycleAdamW, make_optimizer
@@ -150,6 +150,21 @@ def pad_ev_repr(ev: torch.Tensor, target_hw: Tuple[int, int], dtype,
     return ev if dtype is None else ev.to(dtype)
 
 
+def window_seq(ev: torch.Tensor, bb: BackboneConfig, dtype,
+               plain: bool = False) -> torch.Tensor:
+    """A window [B, T, ...] as the backbone scan takes it: T-major, padded
+    to the model resolution, in ``dtype`` (None: bf16 for an unblocked s2d
+    window, else the storage dtype). The route follows the window's last
+    axis: with ``bb.stem_s2d`` an unblocked window ([B, T, H, W, C],
+    ``input_channels`` last; the feed's channel-last view of the stored
+    buffer) is blocked and cast in one pass (``ops/s2d.py:window_s2d``), a
+    blocked one (16*C last) goes through ``pad_ev_repr``."""
+    if bb.stem_s2d and ev.shape[-1] == bb.input_channels:
+        x = window_s2d(ev, bb.in_res_hw, plain=plain)
+        return x if dtype is None else x.to(dtype)
+    return pad_ev_repr(ev, bb.in_res_hw, dtype, bb.stem_s2d).transpose(0, 1)
+
+
 def _postprocess_window(preds: torch.Tensor, frame_idx: torch.Tensor,
                         gval: torch.Tensor, cfg: ExperimentConfig,
                         plain: bool = False):
@@ -172,8 +187,10 @@ def make_eval_step(model: RVTDetector, cfg: ExperimentConfig, *,
     """Streaming evaluation step over one window, on the model's device.
 
     ``eval_step(lstm_states, ev_repr [B, T, ...], frame_valid [B, T],
-    is_first_sample [B])`` returns an ``EvalOutput``. The window stays in
-    its storage dtype (uint8); the stem conv casts it. The backbone runs
+    is_first_sample [B])`` returns an ``EvalOutput``. An unblocked window
+    for an s2d stem becomes the stem's bf16 operand in the ``input``
+    layer (``window_seq``); any other stays in its storage dtype (uint8)
+    and the stem conv casts it. The backbone runs
     as ``scan_backbone`` routes it; for a config on the kernels their
     weights are prepared here, once: a later change to the model's
     parameters needs a new step. On a card the step is a
@@ -182,8 +199,7 @@ def make_eval_step(model: RVTDetector, cfg: ExperimentConfig, *,
     ``plain=True`` runs the kernels' plain PyTorch versions (the
     reference the chip check holds the kernels against), eagerly."""
     K = cfg.dataset.max_labeled_frames
-    in_res = cfg.model.backbone.in_res_hw
-    stem_s2d = cfg.model.backbone.stem_s2d
+    bb = cfg.model.backbone
     params = (backbone_kernel_params(model)
               if fused_path_supported(model.cfg) else None)
 
@@ -194,8 +210,7 @@ def make_eval_step(model: RVTDetector, cfg: ExperimentConfig, *,
         timers.mark("input")
         model.eval()  # BatchNorm on its running statistics
         lstm_states = reset_states(lstm_states, is_first_sample)
-        ev_seq = pad_ev_repr(ev_repr, in_res, None, stem_s2d)
-        ev_seq = ev_seq.transpose(0, 1)
+        ev_seq = window_seq(ev_repr, bb, None, plain)
         timers.mark("backbone")
         feats, final_states = scan_backbone(
             model, ev_seq, lstm_states, params=params, plain=plain)
@@ -248,7 +263,8 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
     the raw gradients, which stay in each parameter's ``.grad``).
     ``token_mask`` [B, T, h, w] bool at the storage resolution's stage-1
     token grid replaces the masked tokens by the learned mask token (with
-    ``enable_masking``).
+    ``enable_masking``). With ``stem_s2d`` the window comes unblocked or
+    blocked (``window_seq``); the step's scan takes it in f32.
 
     ``with_param_metrics`` adds ``gradflow/<name>``, the mean |grad| of
     each parameter (zero where it has none), and ``weights/<name>``, its
@@ -305,8 +321,7 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
         lstm_states = reset_states(
             tuple((h.detach().float(), c.detach().float())
                   for h, c in lstm_states), is_first_sample)
-        ev_seq = pad_ev_repr(ev_repr, in_res, torch.float32,
-                             bb.stem_s2d).transpose(0, 1)
+        ev_seq = window_seq(ev_repr, bb, torch.float32, plain)
         tm_seq = None
         if token_mask is not None:
             tm_seq = pad_token_mask(token_mask, in_res,

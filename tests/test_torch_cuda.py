@@ -664,6 +664,89 @@ def test_postprocess_kernel_route_vs_plain(dev, agnostic):
         assert all(torch.equal(a, r) for a, r in zip(got, ref))
 
 
+# (B, T, layout, storage hw, model hw): RVT-B gen1 eval's window, one
+# frame, a contiguous channel-last window (not the stored buffer's view),
+# and a gen4-like frame whose staged rows (51.5 KB) pass a block's default
+# 48 KB of shared memory
+_WINDOW_S2D_CASES = {
+    "gen1_eval": (8, 21, "stored", (240, 304), (256, 320)),
+    "one_frame": (1, 1, "stored", (240, 304), (256, 320)),
+    "channel_last": (2, 3, "contiguous", (240, 304), (256, 320)),
+    "gen4_like": (1, 2, "stored", (360, 640), (384, 640))}
+
+
+@pytest.mark.parametrize("case", sorted(_WINDOW_S2D_CASES))
+def test_window_s2d_kernel(dev, case):
+    """``csrc/window_s2d.cu`` against its plain version (20 channels),
+    bit for bit, from a window of every byte value."""
+    from rvt_tpu_torch.ops import s2d
+
+    B, T, layout, hw, target = _WINDOW_S2D_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(3)
+    stored = torch.randint(0, 256, (B, T, 20) + hw, generator=g,
+                           device=dev, dtype=torch.uint8)
+    ev = stored.permute(0, 1, 3, 4, 2)
+    if layout == "contiguous":
+        ev = ev.contiguous()
+    n = s2d.WINDOW_S2D.launches
+    got = s2d.window_s2d(ev, target)
+    assert s2d.WINDOW_S2D.launches == n + 1
+    torch.cuda.synchronize()
+    ref = s2d.window_s2d_plain(ev, target)
+    Hp, Wp = s2d.s2d_input_hw(target)
+    assert got.shape == (T, B, Hp, Wp, 320) and got.is_contiguous()
+    assert torch.equal(got, ref)
+
+
+def test_captured_eval_step_takes_the_unblocked_window(dev):
+    """The captured eval step fed the stored window's channel-last view
+    (blocked in the step by ``window_s2d``) against the eager step fed the
+    same window blocked on the host, bit for bit, over three carried
+    windows; one kernel launch a replay."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _captured_eval_step_takes_the_unblocked_window(dev)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _captured_eval_step_takes_the_unblocked_window(dev):
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.models.detector import init_detector
+    from rvt_tpu_torch.ops import s2d
+    from rvt_tpu_torch.training import graphs
+    from rvt_tpu_torch.training.step import make_eval_step
+
+    B, T, H, W = 2, 3, 64, 80
+    cfg = _tiny_kernel_cfg(stem_s2d=True)
+    g = torch.Generator(device=dev).manual_seed(4)
+    stored = torch.randint(0, 6, (B, T, 20, H, W), generator=g, device=dev,
+                           dtype=torch.uint8)
+    ev = stored.permute(0, 1, 3, 4, 2)
+    blocked = torch.from_numpy(s2d.host_space_to_depth(
+        ev.cpu().numpy(), cfg.model.backbone.in_res_hw)).to(dev)
+    fv = torch.tensor([[False, True, True]] * B, device=dev)
+    first = torch.tensor([True, False], device=dev)
+    model = init_detector(cfg.model, seed=0, device=dev)
+
+    def run(step, x):
+        states, outs = zero_states(cfg.model.backbone, B, device=dev), []
+        for _ in range(3):
+            out = step(states, x, fv, first)
+            states = out.states
+            outs.append(out)
+        return outs
+
+    step = make_eval_step(model, cfg)
+    with graphs.eager():
+        ref = run(step, blocked)
+    n = s2d.WINDOW_S2D.launches
+    got = run(step, ev)
+    assert s2d.WINDOW_S2D.launches == n + 3
+    _equal_trees(got, ref)
+
+
 def test_foreach_by_a_device_scalar(dev):
     """The optimizer divides and multiplies its lists by 0-d CUDA tensors
     (read on the device, as a captured step must). A product gives the

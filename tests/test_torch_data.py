@@ -314,7 +314,9 @@ def test_feed_inverts_the_stack_view_without_a_copy(stem_s2d):
     [B, T, C, H, W] buffer; the feed takes that buffer back as a view (no
     host copy), and on the CPU its tensors share the arrays' memory; laid
     out again (``window_input``), the window equals what the host path
-    made: the contiguous channel-last copy, or its host s2d."""
+    made: the contiguous channel-last copy, or, for an s2d stem, the
+    channel-last view itself (no copy), which the steps' ``window_s2d``
+    blocks into the host s2d's values, T-major."""
     import torch
 
     from rvt_tpu_torch.training.feed import (PinnedFeed, stored_layout,
@@ -340,7 +342,12 @@ def test_feed_inverts_the_stack_view_without_a_copy(stem_s2d):
     assert np.shares_memory(ev.numpy(), stored)
     assert torch.equal(fv, torch.from_numpy(batch.frame_valid))
     got = window_input(ev, True, target, stem_s2d)
-    ref = (t_s2d.host_space_to_depth(batch.ev_repr, target) if stem_s2d
-           else np.ascontiguousarray(batch.ev_repr))
-    assert got.is_contiguous()
-    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(got.numpy(), batch.ev_repr)
+    if not stem_s2d:
+        assert got.is_contiguous()
+        return
+    assert np.shares_memory(got.numpy(), stored)
+    blocked = t_s2d.host_space_to_depth(batch.ev_repr, target)
+    np.testing.assert_array_equal(
+        t_s2d.window_s2d(got, target).float().numpy(),
+        blocked.swapaxes(0, 1).astype(np.float32))

@@ -11,6 +11,7 @@ import torch
 from rvt_tpu_torch.ops import fused_attention as fa
 from rvt_tpu_torch.ops import fused_scan as fs
 from rvt_tpu_torch.ops import kernels
+from rvt_tpu_torch.ops import s2d
 from rvt_tpu_torch.ops import voxelization as vx
 
 
@@ -48,7 +49,7 @@ class _FakeLib:
 def fake_cuda(monkeypatch):
     monkeypatch.setattr(kernels, "lib", _FakeLib)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    for mod in (fa, fs, vx):
+    for mod in (fa, fs, vx, s2d):
         monkeypatch.setattr(mod, "stream_ptr", lambda t: 0)
     monkeypatch.setattr(fa, "sm_count", lambda t: 132)
     _FakeLib.calls = []
@@ -112,6 +113,40 @@ def test_wrappers_reject_what_the_kernels_do_not_take(fake_cuda):
         vx.stacked_histogram_batched(*ev, ev[0],
                                      torch.full((2,), 90, dtype=torch.int32),
                                      10, 24, 32, count_cutoff=300)
+    assert fake_cuda == []
+
+
+@pytest.mark.parametrize("layout", ["stored", "contiguous"])
+def test_window_s2d_launch_arguments(fake_cuda, layout):
+    """``window_s2d``'s launch: the window's shape and element strides (the
+    stored buffer's channel-last view, or a contiguous window) and the
+    blocked frame reach the C signature, one launch counted; the output is
+    the T-major bf16 operand."""
+    ev = torch.zeros(2, 3, 20, 240, 304, dtype=torch.uint8).permute(
+        0, 1, 3, 4, 2)
+    if layout == "contiguous":
+        ev = ev.contiguous()
+    n = s2d.WINDOW_S2D.launches
+    out = s2d.window_s2d(ev, (256, 320))
+    assert out.shape == (3, 2, 65, 81, 320) and out.is_contiguous()
+    assert out.dtype == torch.bfloat16
+    assert fake_cuda == ["rvt_window_s2d"]
+    assert s2d.WINDOW_S2D.launches == n + 1
+    args = _FakeLib.launches[0][1]
+    assert args[2:] == (2, 3, 240, 304, 20) + ev.stride() + (65, 81, 0)
+
+
+def test_window_s2d_rejects_what_the_kernel_does_not_take(fake_cuda):
+    ev = torch.zeros(1, 2, 240, 304, 20, dtype=torch.uint8)
+    with pytest.raises(ValueError):  # not uint8
+        s2d.window_s2d(ev.float(), (256, 320))
+    with pytest.raises(ValueError):  # larger than the model's frame
+        s2d.window_s2d(ev, (236, 320))
+    with pytest.raises(ValueError):  # a frame not of whole blocks
+        s2d.window_s2d(ev, (256, 318))
+    with pytest.raises(ValueError):  # more staged rows than a block holds
+        s2d.window_s2d(torch.zeros(1, 1, 8, 4000, 20, dtype=torch.uint8),
+                       (8, 4000))
     assert fake_cuda == []
 
 

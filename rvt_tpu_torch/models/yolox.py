@@ -7,7 +7,8 @@ The forward runs on NCHW-shaped tensors that are NHWC in memory
 
 Dtype flow, as in the JAX package: a BaseConv's conv runs in the compute
 dtype (bf16 when serving), its BatchNorm (running statistics) and SiLU
-in f32; the ``*_pred`` 1x1 convs run in f32 and the box decode is f32.
+in f32; the ``*_pred`` 1x1 convs run in f32 and the box decode is f32,
+its log-sizes capped where exp would overflow (``LOG_WH_MAX``).
 In train mode (``model.train()``, as the train step sets it) each
 BatchNorm normalises with the batch statistics and updates its running
 buffers as flax's ``nn.BatchNorm`` does (``rvt_tpu/models/yolox.py:60``,
@@ -32,6 +33,12 @@ from rvt_tpu_torch.parallel.mesh import all_reduce_sum
 
 BN_EPS = 1e-5  # the JAX package's nn.BatchNorm epsilon
 BN_MOMENTUM = 0.9  # and its momentum (flax: ra = m * ra + (1 - m) * batch)
+# The largest log-size the decode exponentiates: exp(80) x stride 32 is
+# 1.8e36 px, finite in f32. Above ~85 exp overflows to inf, and the loss's
+# backward multiplies that inf by a zero gradient (the box's IoU does not
+# move), a NaN that the clip spreads to every parameter. Only sizes beyond
+# 5.5e34 strides change.
+LOG_WH_MAX = 80.0
 # the process group train-mode BatchNorm averages its moments over
 _BN_GROUP = contextvars.ContextVar("rvt_bn_group", default=None)
 
@@ -283,5 +290,5 @@ class YoloXHead(nn.Module):
         grid, stride = self._grid(hw, out.device)
         reg = out[..., :4].float()
         xy = (reg[..., :2] + grid) * stride
-        wh = torch.exp(reg[..., 2:4]) * stride
+        wh = torch.exp(reg[..., 2:4].clamp(max=LOG_WH_MAX)) * stride
         return torch.cat([xy, wh, out[..., 4:].float()], dim=-1)

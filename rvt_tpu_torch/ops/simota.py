@@ -5,7 +5,9 @@ Port of ``rvt_tpu/ops/simota.py`` (upstream ``yolo_head.py``
 ``simota_matching`` 574-606): ground truths padded to M with a mask, the
 candidate filter as a penalty, the dynamic-k top-k as a static top-10 and
 a rank < k mask, anchors matched to several GTs resolved to the cheapest.
-The JAX ``vmap`` over frames is the leading batch axis here.
+The JAX ``vmap`` over frames is the leading batch axis here. A traced or
+captured step counts the candidate pairs it costs (``simota_pairs``,
+``utils/timers.py``).
 
 ``jax.lax.top_k`` breaks ties toward the lower index, and sentinel costs
 tie by design; ``torch.topk`` promises no order on the card. The selection
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from rvt_tpu_torch.ops.boxes import pairwise_iou_cxcywh
+from rvt_tpu_torch.utils import timers
 
 _BIG = 1e15  # sentinel cost for excluded (gt, anchor) pairs
 _N_CANDIDATE_K = 10  # yolo_head.py:577
@@ -60,6 +63,8 @@ def simota_assign(pred_boxes: torch.Tensor, obj_logit: torch.Tensor,
     is_in_center = is_in_center & gt_mask[:, :, None]
     anchor_filter = is_in_center.any(1)  # [F, A]
     pair_valid = anchor_filter[:, None, :] & gt_mask[:, :, None]
+    # the (gt, anchor) pairs costed below, over the frames: the loss's load
+    timers.count("simota_pairs", pair_valid.sum())
 
     # ---- pairwise IoU & costs (yolo_head.py:493-519) ----
     ious = pairwise_iou_cxcywh(gt_boxes.to(f32), pred_boxes.to(f32))

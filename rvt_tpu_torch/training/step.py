@@ -21,10 +21,11 @@ for tracing (``utils/timers.py:mark``): the eval step ``input``,
 ``backbone``, ``detect`` (the gather of labelled frames, PAFPN, head),
 ``postprocess``; the train step ``input``, ``backbone``, ``detect``,
 ``loss``, ``detect_bwd``, ``backbone_bwd`` (from when the gradient has
-reached the gathered features), ``optimizer``. The train step also runs
-data-parallel (``group``, ``parallel/mesh.py``) on each rank's lanes of
-the global batch, computing JAX's global-batch step; the eval step runs
-per rank on its own lanes.
+reached the gathered features), with a data-parallel group ``allreduce``
+(the flat gradient all-reduce and the loss parts' sum), ``optimizer``.
+The train step also runs data-parallel (``group``, ``parallel/mesh.py``)
+on each rank's lanes of the global batch, computing JAX's global-batch
+step; the eval step runs per rank on its own lanes.
 """
 from __future__ import annotations
 
@@ -347,13 +348,14 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
         # backbone's features
         timers.mark_after_grads(gathered, "backbone_bwd")
         losses["loss"].backward()
-        timers.mark("optimizer")
         metrics = {k: v.detach() for k, v in losses.items()}
         if group is not None:
+            timers.mark("allreduce")
             optimizer.reduce_grads(group)
             parts = torch.stack([metrics[k] for k in LOSS_PARTS])
             dist.all_reduce(parts, group=group)
             metrics.update(zip(LOSS_PARTS, parts.unbind(0)))
+        timers.mark("optimizer")
         if with_param_metrics:
             for name, p in model.named_parameters():
                 metrics[f"gradflow/{name}"] = (

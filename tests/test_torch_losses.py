@@ -105,3 +105,33 @@ def test_head_grid_matches_jax():
     np.testing.assert_array_equal(tg, jg)
     np.testing.assert_array_equal(ts, js)
     assert tg.shape == (1680, 2)
+
+
+@pytest.mark.parametrize("cap", [True, False])
+def test_decode_caps_log_sizes_that_overflow(cap, monkeypatch):
+    """A box log-size above ~85 overflows exp to inf, and the loss's
+    backward multiplies the inf by the zero gradient of an IoU it does not
+    move: NaN in every head parameter's gradient. The decode caps log-sizes
+    at ``LOG_WH_MAX`` (a side of 5.5e34 strides), so the gradient stays
+    finite; uncapped (``cap`` False) it does not."""
+    import rvt_tpu_torch.models.yolox as yolox
+
+    if not cap:
+        monkeypatch.setattr(yolox, "LOG_WH_MAX", float("inf"))
+    cfg = t_preset("gen1", "tiny", resolution_hw=(64, 80))
+    torch.manual_seed(0)
+    head = yolox.YoloXHead(cfg.model.head, (32, 64, 128))
+    with torch.no_grad():
+        head.reg_preds[1].bias[2] = 100.0  # every stride-16 anchor's width
+    feats = [torch.randn(4, c, 64 // s, 96 // s)  # 64 x 80 padded
+             for c, s in ((32, 8), (64, 16), (128, 32))]
+    preds = head(feats, torch.float32)
+    assert torch.isfinite(preds).all() == cap
+    _, gt, mask, fv, grid, strides = _case(0)
+    loss = t_loss(preds, torch.from_numpy(gt), torch.from_numpy(mask),
+                  torch.from_numpy(fv), torch.from_numpy(grid),
+                  torch.from_numpy(strides), NC)["loss"]
+    assert torch.isfinite(loss)
+    loss.backward()
+    finite = all(torch.isfinite(p.grad).all() for p in head.parameters())
+    assert finite == cap

@@ -3,10 +3,11 @@ gen1 tiny (64 x 80, T = 3, K = 2): the eval, train and raw steps run
 eagerly with tracing on give their documented layers in order, one call
 id a step call, tiling the step; a span's self time is its duration less
 its children's; ``nms_candidates`` counts the boxes above the confidence
-threshold and ``launches`` the kernels' counters' deltas; the neck's and
-head's backward ends before any backbone node runs, which is where the
-train step's ``backbone_bwd`` layer starts; with tracing off nothing is
-recorded and no event is made. ``test_torch_cuda.py`` checks the layers
+threshold, ``simota_pairs`` the pairs SimOTA costs and ``launches`` the
+kernels' counters' deltas; a data-parallel train step marks
+``allreduce``; the neck's and head's backward ends before any backbone
+node runs, which is where the train step's ``backbone_bwd`` layer
+starts; with tracing off nothing is recorded and no event is made. ``test_torch_cuda.py`` checks the layers
 of captured replays on a card."""
 from dataclasses import replace
 
@@ -184,6 +185,48 @@ def test_nms_candidates_count_boxes_above_threshold(traced):
     for r, p in zip(n[2:], preds[-2:]):
         assert (r.value, r.items) == (int(_above(p).sum()), B)
     assert 0 < n[0].value < n[0].items * out.preds.shape[1]
+
+
+def test_simota_pairs_count_the_costed_pairs(traced):
+    """Each train step counts the (gt, anchor) pairs SimOTA costs: every
+    valid box of the gathered labelled frames with every anchor whose
+    centre lies inside the 1.5-stride radius of a box's centre."""
+    recs, _, _, _, _ = traced
+    n = [r for r in recs if r.name == "simota_pairs"]
+    assert [r.parent for r in n] == ["step"] * 2  # the 2 train calls
+    grid, stride = head_grid(_cfg())
+    centre = (grid + 0.5) * stride[:, None]
+    # the test's boxes: 4 a frame, all at (28, 28), on 2 labelled frames
+    # of each lane
+    inside = (np.abs(centre - 28.0) < 1.5 * stride[:, None]).all(-1).sum()
+    assert inside > 0
+    assert [(r.value, r.items) for r in n] == [(B * 2 * 4 * inside, 1)] * 2
+
+
+def test_allreduce_layer_only_with_a_group(tmp_path):
+    """With a data-parallel group the train step marks ``allreduce``
+    between the backward and the optimizer (a world of one rank over
+    gloo, eagerly); without one its layers are ``LAYERS["train"]``
+    (``test_layers_in_order_one_call_id_tiling_the_step``)."""
+    import torch.distributed as dist
+
+    cfg, model, steps = _steps()
+    (_, _, args), = [s for s in steps if s[0] == "train"]
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        opt = make_optimizer(model.parameters(), cfg.training)
+        step = make_train_step(model, cfg, opt, group=dist.group.WORLD)
+        timers.enable(True)
+        step(*args)
+        timers.enable(False)
+    finally:
+        dist.destroy_process_group()
+    recs = timers.records()
+    (eager,) = [r for r in recs if r.name == "step.eager"]
+    names = [r.name for r in recs if r.pid == eager.rid]
+    want = LAYERS["train"][:-1] + ["allreduce", "optimizer"]
+    assert names == want
 
 
 def test_off_records_nothing_and_makes_no_event(monkeypatch):

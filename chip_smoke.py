@@ -30,7 +30,14 @@ Phases, each of which raises (exit code != 0) when it fails:
      window's layout: the stored uint8 window to the s2d stem's bf16
      operand) identical to its plain version on the stored window's
      channel-last view at B = 8, T = 21, at B = 1, T = 1, on a contiguous
-     window and at a gen4-like 360x640, timed beside its bound.
+     window and at a gen4-like 360x640, timed beside its bound; and
+     bn_act (train-mode BatchNorm + activation of the neck and head,
+     forward and backward) against its plain version on every BaseConv
+     call of gen1 RVT-B's, RVT-S's and gen4 RVT-B's neck and head at the
+     train cells' 48 gathered frames (their layouts and gradients), the
+     same bits on a second run, each call shape timed (device time of a
+     CUDA graph of 10 calls) beside its bound, the plain version and the
+     PyTorch autograd chain it replaced, with each preset's sum a step.
      Prints the error
      beside its tolerance and the kernel's, plain version's and one
      library call's times (CUDA events; K4's yardstick cuDNN's
@@ -1275,6 +1282,111 @@ def check_window_s2d():
     return rec
 
 
+def check_bn_act():
+    """Phase 3, train-mode BatchNorm + activation (``ops/bn_act.py``):
+    every BaseConv call of the neck and head of gen1 RVT-B, RVT-S and gen4
+    RVT-B at the train cells' 48 gathered frames (``tests/
+    test_torch_cuda.py:bn_act_calls``), forward and backward against the
+    plain version (its tolerances) and bit for bit on a second run. Each
+    call shape (layout, dtype, activation) timed once: the four launches
+    as a CUDA graph of 10 calls (device time) and host-paced, the plain
+    version, and the autograd chain of PyTorch ops the port ran before
+    (flax's BatchNorm then the activation, forward and backward; device
+    time), beside the bound (y and the gradient read once, the
+    activation and dy written once). Gen1 RVT-B's calls count for the
+    train step path; the others are printed. Returns its Record."""
+    from collections import Counter as Tally
+
+    import torch
+
+    from rvt_tpu_torch.ops import bn_act as ba
+    from tests.test_torch_cuda import BN_TOL, bn_act_calls, bn_act_vs_plain
+
+    rec = Record("bn_act", "rvt_tpu_torch/csrc/bn_act.cu",
+                 "rvt_tpu/models/yolox.py:BaseConv's nn.BatchNorm and "
+                 "activation (XLA ops; not a TPU kernel)")
+
+    def chain(y, gr, bn, act, leaves):
+        yl, w, b = leaves
+        yf = yl.float()
+        mean, msq = yf.mean((0, 2, 3)), (yf * yf).mean((0, 2, 3))
+        var = torch.clamp(msq - mean * mean, min=0.0)
+        with torch.no_grad():
+            bn.running_mean.copy_(0.9 * bn.running_mean + 0.1 * mean)
+            bn.running_var.copy_(0.9 * bn.running_var + 0.1 * var)
+        mul = torch.rsqrt(var + bn.eps) * w
+        z = (yf - mean[:, None, None]) * mul[:, None, None] \
+            + b[:, None, None]
+        ba.activation(act, z).backward(gr)
+
+    for dataset, size, path in (("gen1", "base", "train step"),
+                                ("gen1", "small", "RVT-S train step"),
+                                ("gen4", "base", "gen4 train step")):
+        calls = bn_act_calls(dataset, size, 48, "cuda")
+        worst = {}
+        for y, gr, bn, act in calls:
+            pairs, again = bn_act_vs_plain(y, gr, bn, act)
+            for k, (got, ref) in pairs.items():
+                scale = max(float(ref.abs().max()), 1e-6)
+                err = float((got.float() - ref.float()).abs().max()) / scale
+                worst[k] = max(worst.get(k, 0.0), err)
+                if err > BN_TOL[k] or not torch.equal(got, again[k]):
+                    fail(f"bn_act {dataset} {size} {tuple(y.shape)} {k}: "
+                         f"{err:.3e} of max|ref| (tolerance {BN_TOL[k]}), "
+                         f"equal on a second run: "
+                         f"{torch.equal(got, again[k])}")
+        log(f"  bn_act[{dataset} {size}]: {len(calls)} calls vs plain, "
+            "worst share of max|ref|: " + ", ".join(
+                f"{k} {v:.2e} (tol {BN_TOL[k]:g})" for k, v in worst.items()))
+        keys = Tally((tuple(y.shape), y.is_contiguous(), act, y.dtype)
+                     for y, _, _, act in calls)
+        first = {}
+        for c in calls:
+            first.setdefault((tuple(c[0].shape), c[0].is_contiguous(), c[3],
+                              c[0].dtype), c)
+        tot = dict(kernel=0.0, chain=0.0, bound=0.0)
+        for key, n in keys.items():
+            y, gr, bn, act = first[key]
+            w, b = bn.weight, bn.bias
+            run = (bn.running_mean.clone(), bn.running_var.clone())
+
+            def kern(plain=False):
+                mom = ba.moments(y, plain=plain)
+                ba.act_fwd(y, mom, 1, w, b, bn.eps, act, run, plain=plain)
+                sums, _ = ba.bwd_sums(y, gr, mom, 1, w, b, bn.eps, act,
+                                      plain=plain)
+                ba.bwd_dy(y, gr, mom, sums, 1, w, b, bn.eps, act,
+                          plain=plain)
+
+            leaves = (y.detach().clone().requires_grad_(),
+                      w.detach().clone().requires_grad_(),
+                      b.detach().clone().requires_grad_())
+            with torch.no_grad():
+                ms = time_ms(kern)
+                dms = device_ms_of(kern)
+                pms = time_ms(lambda: kern(True))
+            lms = device_ms_of(lambda: chain(y, gr, bn, act, leaves))
+            E, isz = y.numel(), y.element_size()
+            nbytes = E * (2 * isz + 8)
+            log(f"  bn_act[{dataset} {size}] y {key[0]} "
+                f"{'NCHW' if key[1] else 'channels_last'} {act} "
+                f"{str(key[3])[6:]}, {n} a step:")
+            # the other presets' calls are printed, not counted for a path
+            rec.add(path, n if path == "train step" else 0,
+                    max(worst.values()), ms, pms, nbytes, 0, PEAK_BF16_FLOPS,
+                    lms, launches_per_call=4, device_ms=dms)
+            tot["kernel"] += n * dms
+            tot["chain"] += n * lms
+            tot["bound"] += n * nbytes / PEAK_BYTES * 1e3
+        log(f"  bn_act[{dataset} {size}] a step ({len(calls)} BaseConvs, 48 "
+            f"frames): kernels {tot['kernel']:.3f} ms (device), the "
+            f"PyTorch chain {tot['chain']:.3f} ms (device), bound "
+            f"{tot['bound']:.3f} ms (bytes)")
+        del calls, first
+        torch.cuda.empty_cache()
+    return rec
+
+
 def raw_cell():
     """Phase 5's cell: (cfg, model, RAW_FRAMES distinct event frames made
     on the card, is_first)."""
@@ -1915,6 +2027,7 @@ def run_train_path():
 
     from rvt_tpu_torch.config import preset
     from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.ops import bn_act
     from rvt_tpu_torch.ops import fused_attention as fa
     from rvt_tpu_torch.ops import fused_scan as fs
     from rvt_tpu_torch.training.step import init_train_state, make_train_step
@@ -1939,7 +2052,7 @@ def run_train_path():
     counters = (fa.LN_ROWS, fa.PARTITION_ATTENTION, fs.LSTM_SCAN,
                 fa.GEMM_BF16, fa.LN_ROWS_BWD, fa.GEMM_BF16_WGRAD,
                 fa.PARTITION_ATTENTION_BWD, fs.LSTM_SCAN_BWD,
-                fa.TRAIN_REDUCE)
+                fa.TRAIN_REDUCE, bn_act.BN_ACT)
 
     for c in counters:
         c.reset()
@@ -4590,6 +4703,7 @@ def main() -> int:
     recs["stacked_histogram"] = check_voxelizer()
     recs["nms_keep"] = check_nms_keep()
     recs["window_s2d"] = check_window_s2d()
+    recs["bn_act"] = check_bn_act()
     check_train_kernels(recs)
     log(f"LSTM yardstick dtypes: {LSTM_LIB}")
     fps, mfu, counts = run_main_path()

@@ -2,8 +2,10 @@
 
 Port of ``rvt_tpu/models/yolox.py`` (upstream Megvii ``network_blocks.py``,
 ``yolo_pafpn.py``, ``yolo_head.py``). Parameter names follow upstream.
-The forward runs on NCHW-shaped tensors that are NHWC in memory
-(``channels_last``), so cuDNN reads the JAX package's layout as it is.
+The forward runs on NCHW-shaped tensors: the backbone's NHWC maps as
+``channels_last`` views, so cuDNN reads the JAX package's layout as it
+is; ``upsample2x`` and the concatenations leave NCHW memory, so every
+conv after the first runs on NCHW.
 
 Dtype flow, as in the JAX package: a BaseConv's conv runs in the compute
 dtype (bf16 when serving), its BatchNorm (running statistics) and SiLU
@@ -12,9 +14,11 @@ its log-sizes capped where exp would overflow (``LOG_WH_MAX``).
 In train mode (``model.train()``, as the train step sets it) each
 BatchNorm normalises with the batch statistics and updates its running
 buffers as flax's ``nn.BatchNorm`` does (``rvt_tpu/models/yolox.py:60``,
-momentum 0.9). Inside ``batch_norm_group(group)`` (the data-parallel
-train step) the batch statistics are those of every rank's frames, as
-flax's are under JAX's jit over a dp mesh.
+momentum 0.9), BatchNorm and activation forward and backward in two
+passes each way (``ops/bn_act.py``; hand-written kernels on a card).
+Inside ``batch_norm_group(group)`` (the data-parallel train step) the
+batch statistics are those of every rank's frames, as flax's are under
+JAX's jit over a dp mesh.
 """
 from __future__ import annotations
 
@@ -24,12 +28,11 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from rvt_tpu_torch.config import FPNConfig, HeadConfig
-from rvt_tpu_torch.parallel.mesh import all_reduce_sum
+from rvt_tpu_torch.ops.bn_act import activation, batch_norm_act_train
 
 BN_EPS = 1e-5  # the JAX package's nn.BatchNorm epsilon
 BN_MOMENTUM = 0.9  # and its momentum (flax: ra = m * ra + (1 - m) * batch)
@@ -39,29 +42,22 @@ BN_MOMENTUM = 0.9  # and its momentum (flax: ra = m * ra + (1 - m) * batch)
 # move), a NaN that the clip spreads to every parameter. Only sizes beyond
 # 5.5e34 strides change.
 LOG_WH_MAX = 80.0
-# the process group train-mode BatchNorm averages its moments over
-_BN_GROUP = contextvars.ContextVar("rvt_bn_group", default=None)
+# (process group, plain) of train-mode BatchNorm: the ranks it averages its
+# moments over, and whether it takes the plain version on a card
+_BN_ROUTE = contextvars.ContextVar("rvt_bn_route", default=(None, False))
 
 
 @contextlib.contextmanager
-def batch_norm_group(group):
+def batch_norm_group(group, *, plain: bool = False):
     """Within this block train-mode BatchNorm takes its moments over the
-    ranks of ``group`` (None: this process's frames alone)."""
-    token = _BN_GROUP.set(group)
+    ranks of ``group`` (None: this process's frames alone), and with
+    ``plain`` its plain PyTorch version on a card too
+    (``ops/bn_act.py``)."""
+    token = _BN_ROUTE.set((group, plain))
     try:
         yield
     finally:
-        _BN_GROUP.reset(token)
-
-
-def _act(name: str):
-    if name == "silu":
-        return F.silu
-    if name == "relu":
-        return F.relu
-    if name == "lrelu":
-        return lambda x: F.leaky_relu(x, 0.1)
-    raise NotImplementedError(name)
+        _BN_ROUTE.reset(token)
 
 
 class BaseConv(nn.Module):
@@ -83,35 +79,10 @@ class BaseConv(nn.Module):
         if not bn.training:
             y = F.batch_norm(y.float(), bn.running_mean, bn.running_var,
                              bn.weight, bn.bias, False, 0.0, bn.eps)
-            return _act(self.act)(y)
-        return _act(self.act)(batch_norm_train(y, bn))
-
-
-def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """flax ``nn.BatchNorm(use_running_average=False)`` on an NCHW-shaped
-    y: f32 batch statistics over (N, H, W) with the fast variance
-    max(E[y^2] - E[y]^2, 0) (biased), y' = (y - mean) * (rsqrt(var + eps) *
-    scale) + bias; the running buffers become 0.9 * ra + 0.1 * batch,
-    with the biased variance (``F.batch_norm`` would store the unbiased
-    one). Inside ``batch_norm_group(group)`` the mean and E[y^2] are the
-    averages of every rank's (each rank gathers as many frames), one
-    autograd-aware all-reduce a layer, so that the backward sums the
-    moments' cotangents over the ranks."""
-    yf = y.float()
-    mean = yf.mean((0, 2, 3))
-    mean_sq = (yf * yf).mean((0, 2, 3))
-    group = _BN_GROUP.get()
-    if group is not None:
-        moments = all_reduce_sum(torch.stack([mean, mean_sq]), group)
-        mean, mean_sq = (moments / dist.get_world_size(group)).unbind(0)
-    var = torch.clamp(mean_sq - mean * mean, min=0.0)
-    with torch.no_grad():
-        m = BN_MOMENTUM
-        bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
-        bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
-    return (yf - mean[:, None, None]) * mul[:, None, None] \
-        + bn.bias[:, None, None]
+            return activation(self.act, y)
+        group, plain = _BN_ROUTE.get()
+        return batch_norm_act_train(y, bn, self.act, group, BN_MOMENTUM,
+                                    plain=plain)
 
 
 class DWConv(nn.Module):

@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("ln_rows", "gemm_bf16", "partition_attention", "lstm_scan",
            "stacked_histogram", "ln_rows_bwd", "gemm_bf16_wgrad",
            "partition_attention_bwd", "lstm_scan_bwd", "train_reduce",
-           "nms_keep", "trace_stamp", "window_s2d")
+           "nms_keep", "trace_stamp", "window_s2d", "bn_act")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -73,6 +73,17 @@ SIGNATURES = {
                     "rvt_trace_keep": (_P, _P, _P, _I, _I, _P)},
     "window_s2d": {"rvt_window_s2d": (_P, _P) + (_I,) * 5 + (_L,) * 5
                    + (_I, _I, _P)},
+    # y, y_f32 first; the shape (chw, N, C, S, vec); a reduction's plan
+    # (chunks, rows, tx) or an elementwise pass's grid (``ops/bn_act.py``)
+    "bn_act": {
+        "rvt_bn_moments": (_P, _I, _P) + (_I,) * 5 + (_I, _L, _I)
+        + (_P, _P, _P),
+        "rvt_bn_act_fwd": (_P, _I) + (_P,) * 6 + (_I,) * 6 + (_F,) * 4
+        + (_I, _P),
+        "rvt_bn_act_bwd_sums": (_P, _I, _P, _I) + (_P,) * 5 + (_I,) * 5
+        + (_I, _L, _I) + (_F, _F, _I) + (_P, _P, _P),
+        "rvt_bn_act_bwd_dy": (_P, _I, _P, _I) + (_P,) * 5 + (_I,) * 6
+        + (_F, _F, _I, _P)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

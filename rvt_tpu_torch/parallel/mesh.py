@@ -10,7 +10,7 @@ one gradient, one update. The port runs one process a card
 function needs by hand, in the train step (``training/step.py``): the
 foreground and GT counts summed before the clamp
 (``training/losses.py``), each train-mode BatchNorm's mean and mean
-square averaged over the ranks (``models/yolox.py``), and the gradients
+square averaged over the ranks (``ops/bn_act.py``), and the gradients
 summed as one flat buffer before the clip (``training/optimizer.py``).
 With one rank each of them is the identity, so the dp step is the
 single-card step bit for bit.
@@ -161,28 +161,6 @@ def replicate_tree(mesh: DataParallel,
 def module_tensors(module: torch.nn.Module):
     """Every parameter and buffer of ``module`` (what a replica holds)."""
     return list(module.state_dict(keep_vars=True).values())
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """SUM over the group whose backward sums the cotangents the same
-    way: the gradient of a function of every rank's input."""
-
-    @staticmethod
-    def forward(ctx, tensor, group):
-        ctx.group = group
-        out = tensor.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _AllReduceSum.apply(grad, ctx.group), None
-
-
-def all_reduce_sum(tensor: torch.Tensor, group) -> torch.Tensor:
-    """The autograd-aware sum of ``tensor`` over ``group`` (a new
-    tensor)."""
-    return _AllReduceSum.apply(tensor, group)
 
 
 def same_on_all_ranks(mesh: DataParallel, tensors) -> bool:

@@ -336,7 +336,7 @@ def make_train_step(model: RVTDetector, cfg: ExperimentConfig,
         timers.mark("detect")
         gathered, frame_idx, gval = gather_labeled_frames(feats, frame_valid,
                                                           K)
-        with batch_norm_group(group):
+        with batch_norm_group(group, plain=plain):
             preds = model.forward_detect(gathered)
         timers.mark("loss")
         targets, target_mask = gather_labels(labels.float(), label_mask,

@@ -1060,3 +1060,180 @@ def test_traced_replays_tile_their_layers(dev, monkeypatch):
     finally:
         timers.enable(False)
         timers.reset()
+
+
+def bn_act_calls(dataset, size, frames, dev, seed=0):
+    """Every train-mode BaseConv of ``preset(dataset, size)``'s neck and
+    head (bf16 convs) on ``frames`` gathered frames at the preset's
+    padded input, as the train cells run them: a list of (y, the
+    gradient the BatchNorm's backward receives, its BatchNorm, act),
+    recorded on the plain route under a random linear loss. The layouts
+    are the convs' own (the first neck conv's channels_last, NCHW after
+    the first concatenation) and the gradients the autograd hands over
+    (channel slices of the concatenations' gradients)."""
+    from dataclasses import replace
+
+    from rvt_tpu_torch.config import preset
+    from rvt_tpu_torch.models import yolox
+    from rvt_tpu_torch.models.detector import init_detector
+
+    cfg = preset(dataset, size)
+    model = init_detector(replace(cfg.model, compute_dtype="bfloat16"),
+                          seed=seed, device=dev).train()
+    fpn = model.fpn
+    chans = (fpn.reduce_conv1.conv.out_channels,
+             fpn.lateral_conv0.conv.out_channels,
+             fpn.lateral_conv0.conv.in_channels)
+    H, W = cfg.model.backbone.in_res_hw
+    g = torch.Generator(device=dev).manual_seed(seed)
+    feats = [torch.randn(frames, H // s, W // s, c, generator=g, device=dev
+                         ).to(torch.bfloat16)
+             for s, c in zip((8, 16, 32), chans)]
+    calls, real = [], yolox.batch_norm_act_train
+
+    def record(y, bn, act, group=None, momentum=0.9, *, plain=False):
+        out = real(y, bn, act, group, momentum, plain=True)
+        entry = [y.detach(), None, bn, act]
+        calls.append(entry)
+        out.register_hook(lambda gr: entry.__setitem__(1, gr.detach()))
+        return out
+
+    yolox.batch_norm_act_train = record
+    try:
+        preds = model.forward_detect(feats)
+        w = torch.randn(preds.shape, generator=g, device=dev) * 1e-2
+        (preds * w).sum().backward()
+    finally:
+        yolox.batch_norm_act_train = real
+    return calls
+
+
+def bn_act_vs_plain(y, gr, bn, act):
+    """One BaseConv's BatchNorm + activation, each kernel against the plain
+    version of its function on the same operands (the kernels' moments
+    and first-pass sums feed both sides, so z, and with it relu's kink,
+    is the same on both): {name: (kernel, plain)}, and the kernels'
+    outputs of a second run."""
+    from rvt_tpu_torch.ops import bn_act as ba
+
+    w, b, eps = bn.weight, bn.bias, bn.eps
+
+    def run():
+        run_b = (bn.running_mean.clone(), bn.running_var.clone())
+        mom = ba.moments(y)
+        out = ba.act_fwd(y, mom, 1, w, b, eps, act, run_b)
+        sums, dpar = ba.bwd_sums(y, gr, mom, 1, w, b, eps, act)
+        dy = ba.bwd_dy(y, gr, mom, sums, 1, w, b, eps, act)
+        return dict(moments=mom, out=out, running_mean=run_b[0],
+                    running_var=run_b[1], sums=sums, dparams=dpar, dy=dy)
+
+    with torch.no_grad():
+        got, again = run(), run()
+        mom, sums = got["moments"], got["sums"]
+        run_b = (bn.running_mean.clone(), bn.running_var.clone())
+        ref = dict(moments=ba.moments(y, plain=True),
+                   out=ba.act_fwd(y, mom, 1, w, b, eps, act, run_b,
+                                  plain=True),
+                   running_mean=run_b[0], running_var=run_b[1])
+        ref["sums"], ref["dparams"] = ba.bwd_sums(y, gr, mom, 1, w, b, eps,
+                                                  act, plain=True)
+        ref["dy"] = ba.bwd_dy(y, gr, mom, sums, 1, w, b, eps, act,
+                              plain=True)
+    return {k: (got[k], ref[k]) for k in got}, again
+
+
+# The kernels against the plain version, each within this share of the
+# plain tensor's max |.|: the same f32 arithmetic in another order (the
+# moments' and sums' chunked, in-order adds against PyTorch's reductions;
+# fma contraction); dy is bf16, where that order moves a rounding by one
+# ulp (2^-8 of its value) now and then.
+BN_TOL = {"moments": 1e-5, "out": 1e-4, "running_mean": 1e-5,
+          "running_var": 1e-5, "sums": 1e-4, "dparams": 1e-4, "dy": 2 ** -7}
+
+
+@pytest.mark.parametrize("dataset,size", [("gen1", "base"), ("gen1", "small"),
+                                          ("gen4", "base")])
+def test_bn_act_kernels_at_every_neck_and_head_shape(dev, dataset, size):
+    """Train-mode BatchNorm + activation (``csrc/bn_act.cu``) on every
+    BaseConv call of the neck and head of gen1 RVT-B, RVT-S and gen4
+    RVT-B at the train cells' 48 gathered frames (their layouts and the
+    gradients autograd hands over): four launches a call, forward and
+    backward against the plain version, the same bits on a second run."""
+    from rvt_tpu_torch.ops import bn_act as ba
+
+    calls = bn_act_calls(dataset, size, 48, dev)
+    assert len(calls) == {"base": 47, "small": 39}[size]
+    layouts = set()
+    for y, gr, bn, act in calls:
+        layouts.add(y.is_contiguous())
+        n = ba.BN_ACT.launches
+        pairs, again = bn_act_vs_plain(y, gr, bn, act)
+        assert ba.BN_ACT.launches == n + 8  # two runs of four
+        for k, (got, ref) in pairs.items():
+            assert got.dtype == ref.dtype and got.shape == ref.shape, k
+            _rel_close(got, ref, BN_TOL[k])
+            assert torch.equal(got, again[k]), k
+        assert pairs["dy"][0].stride() == y.stride()
+    assert layouts == {True, False}  # both layouts occur
+
+
+@pytest.mark.parametrize("ydtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", ["silu", "relu", "lrelu"])
+@pytest.mark.parametrize("shape", [(4, 24, 6, 8), (3, 33, 5, 7),
+                                   (2, 1000, 1, 3), (48, 512, 8, 10)])
+@pytest.mark.parametrize("layout", ["chw", "hwc"])
+def test_bn_act_kernels_small_and_ragged(dev, layout, shape, act, ydtype):
+    """Every activation on both y dtypes and layouts, at shapes that take
+    narrow vectors (odd C or S: 1- and 2-element loads), 1,000 channels
+    over three elements each, and one chunk a channel; a constant channel
+    (E[y^2] - E[y]^2 at or under 0: the variance's gradient is cut) and the
+    gradient as a slice of a wider one."""
+    fmt = torch.channels_last if layout == "hwc" else torch.contiguous_format
+    N, C, H, W = shape
+    y = (_randn(dev, N, C, H, W, scale=2.0, dtype=torch.float32) + 0.5)
+    y[:, 0] = 3.0
+    y = y.to(ydtype).contiguous(memory_format=fmt)
+    wide = _randn(dev, N, C + 5, H, W, dtype=torch.float32, seed=1)
+    gr = wide.contiguous(memory_format=fmt)[:, 3:3 + C]
+    bn = torch.nn.BatchNorm2d(C).to(dev)
+    with torch.no_grad():
+        bn.weight.copy_(_randn(dev, C, dtype=torch.float32, seed=2) + 1)
+        bn.bias.copy_(_randn(dev, C, dtype=torch.float32, seed=3))
+    pairs, again = bn_act_vs_plain(y, gr, bn, act)
+    for k, (got, ref) in pairs.items():
+        _rel_close(got, ref, BN_TOL[k])
+        assert torch.equal(got, again[k]), k
+    assert torch.isfinite(pairs["dy"][0].float()).all()
+
+
+def test_bn_act_function_vs_autograd_of_the_torch_ops(dev):
+    """The autograd Function (kernels) against PyTorch's autograd over the
+    same math in f32 ops (flax's BatchNorm then silu) on one neck shape:
+    output, running buffers, and the gradients of y, scale and bias."""
+    from rvt_tpu_torch.ops import bn_act as ba
+
+    y = _randn(dev, 48, 128, 32, 40, scale=2.0) + 0.3
+    gr = _randn(dev, 48, 128, 32, 40, dtype=torch.float32, seed=1)
+    bn = torch.nn.BatchNorm2d(128).to(dev)
+    ref_bn = torch.nn.BatchNorm2d(128).to(dev)
+    yk = y.clone().requires_grad_()
+    out = ba.batch_norm_act_train(yk, bn, "silu")
+    out.backward(gr)
+    yr = y.clone().requires_grad_()
+    yf = yr.float()
+    mean, msq = yf.mean((0, 2, 3)), (yf * yf).mean((0, 2, 3))
+    var = torch.clamp(msq - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + ref_bn.eps) * ref_bn.weight
+    ref = torch.nn.functional.silu(
+        (yf - mean[:, None, None]) * mul[:, None, None]
+        + ref_bn.bias[:, None, None])
+    ref.backward(gr)
+    with torch.no_grad():
+        ref_bn.running_mean.mul_(0.9).add_(0.1 * mean)
+        ref_bn.running_var.mul_(0.9).add_(0.1 * var)
+    _rel_close(out.detach(), ref.detach(), 1e-4)
+    _rel_close(bn.running_mean, ref_bn.running_mean, 1e-5)
+    _rel_close(bn.running_var, ref_bn.running_var, 1e-5)
+    _rel_close(yk.grad, yr.grad, 2 ** -7)
+    _rel_close(bn.weight.grad, ref_bn.weight.grad, 1e-4)
+    _rel_close(bn.bias.grad, ref_bn.bias.grad, 1e-4)

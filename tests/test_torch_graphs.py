@@ -22,7 +22,7 @@ from rvt_tpu_torch.inference import make_raw_inference_step
 from rvt_tpu_torch.models.backbone import zero_states
 from rvt_tpu_torch.models.detector import (fused_train_scan_backbone,
                                            init_detector)
-from rvt_tpu_torch.ops import boxes
+from rvt_tpu_torch.ops import bn_act, boxes
 from rvt_tpu_torch.ops import fused_attention as fa
 from rvt_tpu_torch.ops import fused_scan as fs
 from rvt_tpu_torch.ops import kernels
@@ -171,7 +171,7 @@ def test_replaced_workspaces_are_never_freed():
 def fake_cuda(monkeypatch):
     monkeypatch.setattr(kernels, "lib", _FakeLib)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    for mod in (fa, fs, vx, boxes):
+    for mod in (fa, fs, vx, boxes, bn_act):
         monkeypatch.setattr(mod, "stream_ptr", lambda t: 0)
     monkeypatch.setattr(fa, "sm_count", lambda t: 132)
     _FakeLib.calls = []
@@ -236,7 +236,8 @@ def test_card_route_of_the_steps_reads_nothing_back(fake_cuda, masked):
     assert all(p.grad is g for p, g in zip(model.parameters(), grads))
     for fn in ("rvt_gemm_bf16", "rvt_gemm_bf16_wgrad", "rvt_lstm_scan",
                "rvt_lstm_bwd_scan", "rvt_partition_attention_bwd",
-               "rvt_ln_rows_bwd", "rvt_nms_keep"):
+               "rvt_ln_rows_bwd", "rvt_nms_keep", "rvt_bn_moments",
+               "rvt_bn_act_fwd", "rvt_bn_act_bwd_sums", "rvt_bn_act_bwd_dy"):
         assert fn in _FakeLib.calls, fn
 
     # the per-step train backbone (row 7), forward and backward

@@ -248,42 +248,65 @@ def _check_lstm_grads(case):
         assert err < GRAD_TOL, (name, err)
 
 
-def test_batch_norm_train_mode_matches_flax():
-    """A train-mode BaseConv (bf16 conv, flax BatchNorm on batch
-    statistics): output, updated running buffers (biased variance,
-    momentum 0.9) and gradients against flax's."""
+# (act, conv dtype, a constant output channel): every activation on both
+# conv dtypes, and silu with channel 0's kernel zeroed, so that y's channel
+# is 0 everywhere and E[y^2] - E[y]^2 is 0 (the clamp's edge: the
+# variance's gradient must vanish, not turn NaN)
+_BN_CASES = [(a, d, False) for d in ("bf16", "f32")
+             for a in ("silu", "relu", "lrelu")] + [("silu", "bf16", True)]
+
+
+@pytest.mark.parametrize(
+    "act,dtype,const", _BN_CASES,
+    ids=[f"{a}-{d}" + ("-const" if c else "") for a, d, c in _BN_CASES])
+def test_batch_norm_train_mode_matches_flax(act, dtype, const):
+    """A train-mode BaseConv (bf16 or f32 conv, flax BatchNorm on batch
+    statistics, then the activation) through ``ops/bn_act.py``'s plain
+    two-pass version: output, updated running buffers (biased variance,
+    momentum 0.9) and the gradients of x, the conv kernel, scale and bias
+    against flax's."""
     from rvt_tpu.models.yolox import BaseConv as JBaseConv
     from rvt_tpu_torch.models.yolox import BaseConv
+    from rvt_tpu_torch.ops import bn_act
 
+    bf16 = dtype == "bf16"
     rng = np.random.RandomState(4)
     x = rng.randn(4, 6, 8, 16).astype(np.float32)
-    jm = JBaseConv(features=24, ksize=3, stride=1, dtype=jnp.bfloat16)
+    jm = JBaseConv(features=24, ksize=3, stride=1, act=act,
+                   dtype=jnp.bfloat16 if bf16 else None)
     v = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
     v = jax.tree.map(
         lambda a: a + 0.1 * jnp.asarray(rng.randn(*a.shape), a.dtype), v)
+    if const:
+        v["params"]["conv"]["kernel"] = v["params"]["conv"]["kernel"].at[
+            ..., 0].set(0.0)
     wgt = rng.randn(4, 6, 8, 24).astype(np.float32)
 
-    def jloss(params):
+    def jloss(params, xx):
         y, mut = jm.apply({"params": params,
                            "batch_stats": v["batch_stats"]},
-                          jnp.asarray(x), True, mutable=["batch_stats"])
+                          xx, True, mutable=["batch_stats"])
         return jnp.sum(y * wgt), (y, mut)
 
-    (_, (jy, mut)), jg = jax.value_and_grad(jloss, has_aux=True)(v["params"])
-    tm = BaseConv(16, 24, 3, 1)
+    (_, (jy, mut)), (jg, jgx) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(v["params"], jnp.asarray(x))
+    tm = BaseConv(16, 24, 3, 1, act=act)
     p, bs = v["params"], v["batch_stats"]
     with torch.no_grad():
         tm.conv.weight.copy_(torch.from_numpy(
             np.asarray(p["conv"]["kernel"]).transpose(3, 2, 0, 1).copy()))
-        tm.bn.weight.copy_(torch.from_numpy(np.asarray(p["bn"]["scale"])))
-        tm.bn.bias.copy_(torch.from_numpy(np.asarray(p["bn"]["bias"])))
+        tm.bn.weight.copy_(torch.from_numpy(np.array(p["bn"]["scale"])))
+        tm.bn.bias.copy_(torch.from_numpy(np.array(p["bn"]["bias"])))
         tm.bn.running_mean.copy_(torch.from_numpy(
-            np.asarray(bs["bn"]["mean"])))
-        tm.bn.running_var.copy_(torch.from_numpy(np.asarray(bs["bn"]["var"])))
+            np.array(bs["bn"]["mean"])))
+        tm.bn.running_var.copy_(torch.from_numpy(np.array(bs["bn"]["var"])))
     tm.train()
-    y = tm(torch.from_numpy(x).permute(0, 3, 1, 2), torch.bfloat16)
+    tx = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    n = bn_act.BN_ACT.launches
+    y = tm(tx, torch.bfloat16 if bf16 else torch.float32)
     (y.permute(0, 2, 3, 1) * torch.from_numpy(wgt)).sum().backward()
-    # f32 statistics and affine on identical bf16 conv outputs: f32 noise
+    assert bn_act.BN_ACT.launches == n  # the CPU takes the plain version
+    # f32 statistics and affine on identical conv outputs: f32 noise
     np.testing.assert_allclose(y.permute(0, 2, 3, 1).detach().numpy(),
                                np.asarray(jy), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(tm.bn.running_mean.numpy(),
@@ -296,7 +319,13 @@ def test_batch_norm_train_mode_matches_flax():
                      (tm.bn.bias.grad, jg["bn"]["bias"])):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                    atol=1e-4)
-    # the conv weight gradient is a bf16 product on both sides: one ulp
-    ref = np.asarray(jg["conv"]["kernel"])
-    got = tm.conv.weight.grad.numpy().transpose(2, 3, 1, 0)
-    assert np.abs(got - ref).max() <= 2 ** -7 * np.abs(ref).max()
+    if const:  # no gradient through the clamped variance: scale's is 0
+        assert float(tm.bn.weight.grad[0]) == 0.0
+        assert np.isfinite(tx.grad.numpy()).all()
+    # the conv's gradients are bf16 products on both sides (one ulp); in
+    # f32 the sums' order alone
+    tol = 2 ** -7 if bf16 else 1e-5
+    for got, ref in ((tm.conv.weight.grad.numpy().transpose(2, 3, 1, 0),
+                      np.asarray(jg["conv"]["kernel"])),
+                     (tx.grad.permute(0, 2, 3, 1).numpy(), np.asarray(jgx))):
+        assert np.abs(got - ref).max() <= tol * np.abs(ref).max()

@@ -8,6 +8,7 @@ import ctypes
 import pytest
 import torch
 
+from rvt_tpu_torch.ops import bn_act
 from rvt_tpu_torch.ops import fused_attention as fa
 from rvt_tpu_torch.ops import fused_scan as fs
 from rvt_tpu_torch.ops import kernels
@@ -49,7 +50,7 @@ class _FakeLib:
 def fake_cuda(monkeypatch):
     monkeypatch.setattr(kernels, "lib", _FakeLib)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    for mod in (fa, fs, vx, s2d):
+    for mod in (fa, fs, vx, s2d, bn_act):
         monkeypatch.setattr(mod, "stream_ptr", lambda t: 0)
     monkeypatch.setattr(fa, "sm_count", lambda t: 132)
     _FakeLib.calls = []
@@ -545,3 +546,98 @@ def test_lstm_scan_bwd_at_one_step(fake_cuda):
     assert dx.shape == (1, B, H, W, C) and dh0.shape == (B, H, W, C)
     assert dh0.data_ptr() == dx.data_ptr() + C * 4  # columns C: of dxh
     assert dc0.data_ptr() == scan[10].value
+
+
+def _bn_operands(layout, C=24, wide=48):
+    """y [4, C, 6, 8] bf16 in ``layout``; its gradient as the channel
+    slice of a wider f32 tensor in the same layout (a concatenation's
+    backward hands a BaseConv such a slice)."""
+    fmt = (torch.channels_last if layout == "hwc"
+           else torch.contiguous_format)
+    y = _bf(4, C, 6, 8).contiguous(memory_format=fmt)
+    g = torch.randn(4, wide, 6, 8).contiguous(memory_format=fmt)[:, :C]
+    return y, g
+
+
+@pytest.mark.parametrize("layout", ["chw", "hwc"])
+def test_bn_act_launch_arguments(fake_cuda, layout):
+    """The four launches of a train-mode BatchNorm + activation, forward
+    and backward through the autograd Function, each counted: the shape,
+    the 16-byte vector, ``bn_plan``'s plan, and the gradient read in place
+    as a slice (its sample or row stride) rather than copied."""
+    y, g = _bn_operands(layout)
+    bn = torch.nn.BatchNorm2d(24)
+    n = bn_act.BN_ACT.launches
+    out = bn_act.batch_norm_act_train(y.requires_grad_(), bn, "lrelu")
+    assert out.dtype == torch.float32 and out.stride() == y.stride()
+    out.backward(g)
+    assert y.grad.dtype == torch.bfloat16 and y.grad.stride() == y.stride()
+    assert fake_cuda == ["rvt_bn_moments", "rvt_bn_act_fwd",
+                         "rvt_bn_act_bwd_sums", "rvt_bn_act_bwd_dy"]
+    assert bn_act.BN_ACT.launches == n + 4
+    chw = layout == "chw"
+    shape = (int(chw), 4, 24, 48, 8)
+    plan = tuple(bn_act.bn_plan(chw, 4, 24, 48, 8, bn_act._MOMENT_BLOCKS))
+    (_, mom), (_, fwd), (_, sums), (_, dy) = _FakeLib.launches
+    assert mom[1] == 0 and mom[3:11] == shape + plan
+    plan = tuple(bn_act.bn_plan(chw, 4, 24, 48, 8, bn_act._SUM_BLOCKS))
+    # grid: 4 * 24 * 48 / 8 vectors, 256 a block
+    assert fwd[8:14] == shape + (3,) and fwd[14:19] == (1.0, 1e-5, 0.9,
+                                                        1 - 0.9, 2)
+    stride = 48 * 48 if chw else 48
+    assert sums[3] == stride and sums[9:17] == shape + plan
+    assert dy[3] == stride and dy[9:14] == shape
+    # this rank's scale and bias gradients come from the first pass
+    assert bn.weight.grad.shape == bn.bias.grad.shape == (24,)
+
+
+def test_bn_act_copies_a_gradient_in_another_layout(fake_cuda):
+    """A gradient in the other layout than y's (the first neck conv's
+    channels_last output, summed in NCHW by autograd) is copied into y's;
+    the kernels never read a layout they do not walk."""
+    y, _ = _bn_operands("hwc")
+    g = torch.randn(4, 24, 6, 8)
+    mom, w = torch.zeros(2, 24), torch.ones(24)
+    sums, _ = bn_act.bwd_sums(y, g, mom, 1, w, w, 1e-5, "silu")
+    (_, args), = _FakeLib.launches
+    assert args[3] == 24 and args[9] == 0  # row stride C, the HWC walk
+
+
+@pytest.mark.parametrize("ncs", [(48, 64, 1280), (48, 512, 80),
+                                 (48, 128, 3840), (4, 24, 6), (1, 1000, 1),
+                                 (48, 256, 80), (4, 24, 48), (2, 3, 35)])
+@pytest.mark.parametrize("chw", [True, False])
+def test_bn_plan_covers_each_channel_once(ncs, chw):
+    """Every chunk holds elements and together they hold each channel's
+    once; at most 32 chunks, and no more blocks than asked for where a
+    block a channel (or tile) fits; HWC tiles of a power of two up to 32
+    channel vectors cover the channels."""
+    N, C, S = ncs
+    vec = next(v for v in (8, 4, 2, 1) if (S if chw else C) % v == 0)
+    for blocks in (bn_act._MOMENT_BLOCKS, bn_act._SUM_BLOCKS):
+        chunks, rows, tx = bn_act.bn_plan(chw, N, C, S, vec, blocks)
+        n = N * S // vec if chw else N * S
+        assert 1 <= chunks <= 32 and (chunks - 1) * rows < n <= chunks * rows
+        groups = C if chw else -(-(C // vec) // tx)
+        assert chunks == 1 or chunks * groups <= blocks
+    if chw:
+        assert tx == 1
+    else:
+        assert tx & (tx - 1) == 0 and tx <= 32
+        assert -(-(C // vec) // tx) * tx * vec >= C
+
+
+def test_bn_act_rejects_what_the_kernels_do_not_take(fake_cuda):
+    y, g = _bn_operands("chw")
+    mom, w = torch.zeros(2, 24), torch.ones(24)
+    with pytest.raises(ValueError):  # neither NCHW nor channels_last
+        bn_act.moments(y.transpose(2, 3))
+    with pytest.raises(ValueError):  # bf16 scale
+        bn_act.act_fwd(y, mom, 1, w.bfloat16(), w, 1e-5, "silu")
+    with pytest.raises(ValueError):  # a bf16 gradient
+        bn_act.bwd_dy(y, g.bfloat16(), mom, mom, 1, w, w, 1e-5, "silu")
+    with pytest.raises(ValueError):  # more channels than tickets
+        bn_act.moments(_bf(2, 2048, 2, 2))
+    with pytest.raises(NotImplementedError):
+        bn_act.batch_norm_act_train(y, torch.nn.BatchNorm2d(24), "gelu")
+    assert fake_cuda == []

@@ -1,7 +1,13 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card,
-at small shapes. Needs an NVIDIA GPU and nvcc; skips without a card.
-On a machine with one: ``python -m pytest tests/test_torch_cuda.py -q``.
-``chip_smoke.py`` makes the same checks at the gen1 RVT-B shapes."""
+"""The port on the card, at small shapes: each CUDA kernel against its
+plain PyTorch version, the eval, raw and train steps on the kernels
+against the same steps on the plain versions, the captured steps against
+the same steps eager, the per-step train backbone, the validation loop
+and the module path against the CPU, and one data-parallel rank over
+NCCL. Needs an NVIDIA GPU and nvcc; skips without a card. It imports
+nothing of JAX. On a machine with one: ``python -m pytest --noconftest
+tests/test_torch_cuda.py -q``. ``chip_smoke.py`` times the kernels at
+the gen1 RVT-B shapes; the benchmark (``benchmark/run.py``) times the
+paths and holds them against its reference."""
 import pytest
 import torch
 
@@ -712,7 +718,6 @@ def test_captured_eval_step_takes_the_unblocked_window(dev):
 
 
 def _captured_eval_step_takes_the_unblocked_window(dev):
-    from rvt_tpu_torch.models.backbone import zero_states
     from rvt_tpu_torch.models.detector import init_detector
     from rvt_tpu_torch.ops import s2d
     from rvt_tpu_torch.training import graphs
@@ -729,20 +734,11 @@ def _captured_eval_step_takes_the_unblocked_window(dev):
     fv = torch.tensor([[False, True, True]] * B, device=dev)
     first = torch.tensor([True, False], device=dev)
     model = init_detector(cfg.model, seed=0, device=dev)
-
-    def run(step, x):
-        states, outs = zero_states(cfg.model.backbone, B, device=dev), []
-        for _ in range(3):
-            out = step(states, x, fv, first)
-            states = out.states
-            outs.append(out)
-        return outs
-
     step = make_eval_step(model, cfg)
     with graphs.eager():
-        ref = run(step, blocked)
+        ref = _carried(dev, cfg, step, 3, blocked, fv, first)
     n = s2d.WINDOW_S2D.launches
-    got = run(step, ev)
+    got = _carried(dev, cfg, step, 3, ev, fv, first)
     assert s2d.WINDOW_S2D.launches == n + 3
     _equal_trees(got, ref)
 
@@ -786,32 +782,54 @@ def _equal_trees(a, b):
         assert torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
 
 
-def test_captured_steps_equal_eager(dev):
-    """The eval, raw and train steps captured (the first call a warm-up,
-    then replays) against the same steps eager (``graphs.eager()``) from
-    the same state, bit for bit: outputs, and for training the parameters,
-    gradients, moments and BatchNorm buffers; one replay of each under
+@pytest.mark.parametrize("path", ["eval", "train", "raw",
+                                  "per_step_backbone", "trainer"])
+def test_captured_steps_equal_eager(dev, tmp_path, path):
+    """Each path's step captured (the first call a warm-up, then replays)
+    against the same step eager (``graphs.eager()``) from the same state,
+    bit for bit: the eval, raw and train steps' outputs, and for training
+    the parameters, gradients, moments and BatchNorm buffers; the per-step
+    train backbone's forward and backward (features, final states and
+    every backbone gradient); the Trainer with token masks (its state and
+    its last step's metrics). One replay of each under
     ``set_sync_debug_mode("error")`` (no host read left). cuDNN runs its
     deterministic algorithms: its default backward-filter ones may add in
     any order, and two eager steps would differ too."""
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        _captured_steps_equal_eager(dev)
+        _CAPTURED_VS_EAGER[path](dev, tmp_path)
     finally:
         torch.backends.cudnn.deterministic = deterministic
 
 
-def _captured_steps_equal_eager(dev):
-    import copy
-
-    from rvt_tpu_torch.inference import make_raw_inference_step
+def _carried(dev, cfg, step, n, *args):
+    """``n`` calls of ``step`` from zero states of two lanes, the states
+    carried; every call's output."""
     from rvt_tpu_torch.models.backbone import zero_states
-    from rvt_tpu_torch.models.detector import init_detector
+
+    states, outs = zero_states(cfg.model.backbone, 2, device=dev), []
+    for _ in range(n):
+        out = step(states, *args)
+        states = out[0]
+        outs.append(out)
+    return outs
+
+
+def _without_syncs(fn, *args):
+    """``fn(*args)`` with every device synchronisation an error."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _tiny_train_case(dev):
+    """The tiny kernels config with the s2d stem, and a train step's
+    arguments after the states: two lanes of three host-blocked frames,
+    the last two labelled, lane 0 restarting."""
     from rvt_tpu_torch.ops.s2d import s2d_input_hw
-    from rvt_tpu_torch.training import graphs
-    from rvt_tpu_torch.training.optimizer import make_optimizer
-    from rvt_tpu_torch.training.step import make_eval_step, make_train_step
 
     B, T = 2, 3
     g = torch.Generator(device=dev).manual_seed(0)
@@ -819,75 +837,820 @@ def _captured_steps_equal_eager(dev):
     hp, wp = s2d_input_hw(cfg.model.backbone.in_res_hw)
     ev = torch.randint(0, 4, (B, T, hp, wp, 320), generator=g, device=dev,
                        dtype=torch.uint8)
-    fv = torch.tensor([[False, True, True]] * B, device=dev)
-    first = torch.tensor([True, False], device=dev)
-    model = init_detector(cfg.model, seed=0, device=dev)
-
-    def run(step, n, *args):
-        states, outs = zero_states(cfg.model.backbone, B, device=dev), []
-        for _ in range(n):
-            out = step(states, *args)
-            states = out[0]
-            outs.append(out)
-        return outs
-
-    step = make_eval_step(model, cfg)
-    with graphs.eager():
-        ref = run(step, 3, ev, fv, first)
-    got = run(step, 3, ev, fv, first)
-    _equal_trees(got, ref)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        again = step(got[-1].states, ev, fv, first)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    assert len(step.graphs) == 1 and again.dets.shape == got[0].dets.shape
-
     labels = torch.zeros(B, T, 4, 7, device=dev)
     labels[..., 1:3] = 20.0
     labels[..., 3:5] = 16.0
     mask = torch.ones(B, T, 4, dtype=torch.bool, device=dev)
-    models = [model, copy.deepcopy(model)]
-    opts = [make_optimizer(m.parameters(), cfg.training) for m in models]
-    steps = [make_train_step(m, cfg, o) for m, o in zip(models, opts)]
-    got = run(steps[0], 3, ev, labels, mask, fv, first)
-    with graphs.eager():
-        ref = run(steps[1], 3, ev, labels, mask, fv, first)
-    _equal_trees(got, ref)
+    fv = torch.tensor([[False, True, True]] * B, device=dev)
+    first = torch.tensor([True, False], device=dev)
+    return cfg, (ev, labels, mask, fv, first)
+
+
+def _same_training_state(models, opts):
+    """Two models' state dicts and gradients and two optimizers' moments
+    and counts, bit for bit."""
     for (na, a), (_, b) in zip(models[0].state_dict().items(),
                                models[1].state_dict().items()):
         assert torch.equal(a, b), na
     for pa, pb in zip(*(m.parameters() for m in models)):
         assert torch.equal(pa.grad, pb.grad)
     _equal_trees((opts[0].mu, opts[0].nu), (opts[1].mu, opts[1].nu))
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        steps[0](got[-1][0], ev, labels, mask, fv, first)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+    assert opts[0].count == opts[1].count
 
-    raw_cfg = _tiny_kernel_cfg(stem_s2d=False)
-    raw_model = init_detector(raw_cfg.model, seed=0, device=dev)
-    raw = make_raw_inference_step(raw_model, raw_cfg)
-    N = 4096
-    x = torch.randint(0, 80, (B, N), generator=g, device=dev,
-                      dtype=torch.int32)
-    y = torch.randint(0, 64, (B, N), generator=g, device=dev,
-                      dtype=torch.int32)
-    p = torch.randint(0, 2, (B, N), generator=g, device=dev,
-                      dtype=torch.int32)
-    t = torch.sort(torch.randint(0, 50000, (B, N), generator=g, device=dev,
-                                 dtype=torch.int32), dim=1).values
-    counts = torch.tensor([N, N // 2], dtype=torch.int32, device=dev)
+
+def _captured_eval_equals_eager(dev, tmp_path):
+    from rvt_tpu_torch.models.detector import init_detector
+    from rvt_tpu_torch.training import graphs
+    from rvt_tpu_torch.training.step import make_eval_step
+
+    cfg, (ev, _, _, fv, first) = _tiny_train_case(dev)
+    step = make_eval_step(init_detector(cfg.model, seed=0, device=dev), cfg)
     with graphs.eager():
-        ref = run(raw, 4, x, y, p, t, counts, first)
-    got = run(raw, 4, x, y, p, t, counts, first)
+        ref = _carried(dev, cfg, step, 3, ev, fv, first)
+    got = _carried(dev, cfg, step, 3, ev, fv, first)
     _equal_trees(got, ref)
-    torch.cuda.set_sync_debug_mode("error")
+    again = _without_syncs(step, got[-1].states, ev, fv, first)
+    assert len(step.graphs) == 1 and again.dets.shape == got[0].dets.shape
+
+
+def _captured_train_equals_eager(dev, tmp_path):
+    import copy
+
+    from rvt_tpu_torch.models.detector import init_detector
+    from rvt_tpu_torch.training import graphs
+    from rvt_tpu_torch.training.optimizer import make_optimizer
+    from rvt_tpu_torch.training.step import make_train_step
+
+    cfg, args = _tiny_train_case(dev)
+    model = init_detector(cfg.model, seed=0, device=dev)
+    models = [model, copy.deepcopy(model)]
+    opts = [make_optimizer(m.parameters(), cfg.training) for m in models]
+    steps = [make_train_step(m, cfg, o) for m, o in zip(models, opts)]
+    got = _carried(dev, cfg, steps[0], 3, *args)
+    with graphs.eager():
+        ref = _carried(dev, cfg, steps[1], 3, *args)
+    _equal_trees(got, ref)
+    _same_training_state(models, opts)
+    _without_syncs(steps[0], got[-1][0], *args)
+
+
+def _tiny_raw_case(dev):
+    """The tiny kernels config without the s2d stem, and a raw step's
+    arguments after the states: two lanes of 4,096 events (the second
+    with half of them valid), lane 0 restarting."""
+    B, N = 2, 4096
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def ints(hi):
+        return torch.randint(0, hi, (B, N), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    x, y, p = ints(80), ints(64), ints(2)
+    t = torch.sort(ints(50000), dim=1).values
+    counts = torch.tensor([N, N // 2], dtype=torch.int32, device=dev)
+    first = torch.tensor([True, False], device=dev)
+    return _tiny_kernel_cfg(stem_s2d=False), (x, y, p, t, counts, first)
+
+
+def _captured_raw_equals_eager(dev, tmp_path):
+    from rvt_tpu_torch.inference import make_raw_inference_step
+    from rvt_tpu_torch.models.detector import init_detector
+    from rvt_tpu_torch.training import graphs
+
+    cfg, args = _tiny_raw_case(dev)
+    raw = make_raw_inference_step(
+        init_detector(cfg.model, seed=0, device=dev), cfg)
+    with graphs.eager():
+        ref = _carried(dev, cfg, raw, 4, *args)
+    got = _carried(dev, cfg, raw, 4, *args)
+    _equal_trees(got, ref)
+    _without_syncs(raw, got[-1][0], *args)
+
+
+def _captured_per_step_backbone_equals_eager(dev, tmp_path):
+    from rvt_tpu_torch.training import graphs
+
+    case = _per_step_case(dev)
+    step = graphs.CapturedStep(case["run"])
+    with graphs.eager():
+        ref = [step(case["ev"], case["states"]) for _ in range(3)]
+    got = [step(case["ev"], case["states"]) for _ in range(3)]
+    _equal_trees(got, ref)
+    _without_syncs(step, case["ev"], case["states"])
+    assert len(step.graphs) == 1
+
+
+def _captured_trainer_equals_eager(dev, tmp_path):
+    import contextlib
+    from dataclasses import replace
+
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.models.detector import init_detector
+    from rvt_tpu_torch.ops import fused_attention as fa
+    from rvt_tpu_torch.training import graphs
+    from rvt_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = _tiny_kernel_cfg(stem_s2d=False)
+    cfg = replace(cfg, model=replace(cfg.model, backbone=replace(
+        cfg.model.backbone, enable_masking=True)))
+    items = _batches(cfg, 3, token_masks=True)
+    trainers, last = {}, {}
+    for mode in ("eager", "captured"):
+        n = fa.GEMM_BF16_WGRAD.launches
+        trainers[mode] = Trainer(cfg, TrainerConfig(
+            max_steps=3, log_every_n_steps=1, ckpt_every_n_steps=100,
+            gradflow_every_n_steps=0, detection_metrics_every_n_steps=0,
+            prefetch_depth=2, ckpt_dir=str(tmp_path / mode)),
+            model=init_detector(cfg.model, seed=0, device=dev))
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            last[mode] = trainers[mode].fit(iter(items))
+        assert fa.GEMM_BF16_WGRAD.launches > n  # the train kernels ran
+    got, ref = trainers["captured"], trainers["eager"]
+    _same_training_state([got.model, ref.model],
+                         [got.optimizer, ref.optimizer])
+    keys = [k for k in last["eager"] if k != "train/frames_per_s"]
+    assert keys and all(last["captured"][k] == last["eager"][k]
+                        for k in keys)
+    args = (zero_states(cfg.model.backbone, 2, device=dev),
+            *got._to_device(items[0]))
+    _without_syncs(got.train_step, *args)
+
+
+_CAPTURED_VS_EAGER = {"eval": _captured_eval_equals_eager,
+                      "train": _captured_train_equals_eager,
+                      "raw": _captured_raw_equals_eager,
+                      "per_step_backbone":
+                          _captured_per_step_backbone_equals_eager,
+                      "trainer": _captured_trainer_equals_eager}
+
+
+def _close_mean(got, ref, atol, rtol, mean_tol):
+    """|got - ref| <= atol + rtol*|ref| elementwise and mean |got - ref| <=
+    mean_tol: a bf16 rounding may land one ulp apart where the kernels
+    and the plain versions sum in other orders."""
+    _close(got, ref, atol=atol, rtol=rtol)
+    assert float((got.float() - ref.float()).abs().mean()) <= mean_tol
+
+
+def _states_close(got, ref):
+    for (hg, cg), (hr, cr) in zip(got, ref):
+        _close_mean(hg, hr, 5e-2, 2e-2, 5e-3)
+        _close_mean(cg, cr, 1e-1, 2e-2, 5e-3)
+
+
+def _head_close(got, ref):
+    scale = max(float(ref.abs().max()), 1.0)
+    err = (got.float() - ref.float()).abs()
+    assert float(err.max()) <= 0.05 * scale, (float(err.max()), scale)
+    assert float(err.mean()) <= 5e-3 * scale, (float(err.mean()), scale)
+
+
+def _stage_kernels_run(fn):
+    """``fn()``, asserting that it launched the stages' kernels."""
+    from rvt_tpu_torch.ops import fused_attention as fa
+
+    n = fa.PARTITION_ATTENTION.launches
+    out = fn()
+    assert fa.PARTITION_ATTENTION.launches > n
+    return out
+
+
+def _tiny_kernel_model(cfg, dev):
+    from rvt_tpu_torch.models.detector import init_detector
+
+    return _drawn_gammas(init_detector(cfg.model, seed=0,
+                                       device="cpu")).to(dev)
+
+
+def _eval_vs_plain(dev, monkeypatch):
+    from rvt_tpu_torch.training.step import make_eval_step
+
+    cfg, (ev, _, _, fv, first) = _tiny_train_case(dev)
+    model = _tiny_kernel_model(cfg, dev)
+    step = make_eval_step(model, cfg)
+    states = _carried(dev, cfg, step, 2, ev, fv, first)[-1].states
+    got = _stage_kernels_run(lambda: step(states, ev, fv, first))
+    ref = make_eval_step(model, cfg, plain=True)(states, ev, fv, first)
+    _states_close(got.states, ref.states)
+    _head_close(got.preds, ref.preds)
+    assert torch.equal(got.frame_idx, ref.frame_idx)
+
+
+def _raw_vs_plain(dev, monkeypatch):
+    from rvt_tpu_torch.inference import event_frames, make_raw_inference_step
+    from rvt_tpu_torch.models.detector import backbone_kernel_params
+    from rvt_tpu_torch.training.step import reset_states
+
+    cfg, args = _tiny_raw_case(dev)
+    model = _tiny_kernel_model(cfg, dev)
+    step = make_raw_inference_step(model, cfg)
+    states = _carried(dev, cfg, step, 2, *args)[-1][0]
+    got = _stage_kernels_run(lambda: step(states, *args))
+    ref = make_raw_inference_step(model, cfg, plain=True)(states, *args)
+    _states_close(got[0], ref[0])
+    *events, first = args
+    with torch.inference_mode():
+        frames = event_frames(*events, cfg)
+        assert torch.equal(frames, event_frames(*events, cfg, plain=True))
+        params = backbone_kernel_params(model)
+        st = reset_states(states, first)
+        preds, _ = model(frames, st, params)
+        preds_plain, _ = model(frames, st, params, plain=True)
+    _head_close(preds, preds_plain)
+
+
+def _shared_features(scan, kept):
+    """A stand-in for the train step's backbone scan: the first call keeps
+    its features in ``kept["first"]``; a later call keeps its own in
+    ``kept["own"]`` and returns the first call's values with its own
+    gradient (straight through: f + (first - f), the difference
+    detached)."""
+    def run(model, ev_seq, init_states, *args, **kw):
+        feats, states = scan(model, ev_seq, init_states, *args, **kw)
+        if "first" not in kept:
+            kept["first"] = tuple(f.detach() for f in feats)
+            return feats, states
+        kept["own"] = tuple(f.detach() for f in feats)
+        return tuple((f.float() + (r.float() - f.float()).detach()
+                      ).to(f.dtype) for f, r in zip(feats, kept["first"])
+                     ), states
+
+    return run
+
+
+def _train_vs_plain(dev, monkeypatch):
+    import copy
+
+    from rvt_tpu_torch.training import graphs
+    from rvt_tpu_torch.training import step as step_mod
+    from rvt_tpu_torch.training.optimizer import make_optimizer
+    from rvt_tpu_torch.training.step import make_train_step
+
+    cfg, args = _tiny_train_case(dev)
+    model = _tiny_kernel_model(cfg, dev)
+    opt = make_optimizer(model.parameters(), cfg.training)
+    step = make_train_step(model, cfg, opt)
+    states = _carried(dev, cfg, step, 2, *args)[-1][0]
+    pmodel, popt = copy.deepcopy((model, opt))
+    # The kernel step's head is fed the plain step's features (their
+    # values, with the kernel backbone's gradient) and runs its BatchNorm
+    # on the plain version too: the neck, head, SimOTA and the loss see
+    # the same inputs and run the same code on both sides, so the losses,
+    # leaves and grad_norm differ only by what the backbone's kernels do.
+    # Fed its own features, or on bn_act, the random bf16 head amplifies
+    # one-ulp differences (bn_act, on an H100: the loss parts 3.5e-3
+    # apart, a neck BatchNorm weight's gradient 7e-2 of its max); bn_act
+    # is held against its plain version call by call (test_bn_act_*).
+    kept = {}
+    monkeypatch.setattr(step_mod, "scan_backbone",
+                        _shared_features(step_mod.scan_backbone, kept))
+    bn_route = step_mod.batch_norm_group
+    monkeypatch.setattr(step_mod, "batch_norm_group",
+                        lambda group, plain=False: bn_route(group,
+                                                            plain=True))
+    st_p, m_p = make_train_step(pmodel, cfg, popt, plain=True)(states,
+                                                              *args)
+    with graphs.eager():
+        st_k, m_k = _stage_kernels_run(lambda: step(states, *args))
+    for fk, fp in zip(kept["own"], kept["first"]):
+        _close_mean(fk, fp, 5e-2, 2e-2, 5e-3)
+    for k in ("loss", "iou_loss", "conf_loss", "cls_loss", "num_fg"):
+        a, b = float(m_k[k]), float(m_p[k])
+        assert abs(a - b) <= 1e-4 * max(abs(b), 1e-3), k
+    nk, npl = float(m_k["grad_norm"]), float(m_p["grad_norm"])
+    assert abs(nk - npl) <= 2e-2 * npl
+    for (name, p), q in zip(model.named_parameters(), pmodel.parameters()):
+        assert (p.grad is None) == (q.grad is None), name
+        if p.grad is not None:
+            _rel_close(p.grad, q.grad, 5e-2)
+    _states_close(st_k, st_p)
+    bp = dict(pmodel.named_buffers())
+    for name, buf in model.named_buffers():
+        if name.endswith(("running_mean", "running_var")):
+            _rel_close(buf, bp[name], 2e-2)
+
+
+_ON_THE_KERNELS_VS_PLAIN = {"eval": _eval_vs_plain, "raw": _raw_vs_plain,
+                            "train": _train_vs_plain}
+
+
+@pytest.mark.parametrize("path", sorted(_ON_THE_KERNELS_VS_PLAIN))
+def test_steps_on_the_kernels_equal_the_plain_versions(dev, monkeypatch,
+                                                      path):
+    """Each step at gen1 tiny (64, 80) on the kernels (bf16, LayerScale
+    gammas drawn at 0.1) against the same step with ``plain=True`` from
+    the same state, carried two calls: each stage's h within 5e-2 and c
+    within 1e-1 (+ 2e-2 x |ref|, mean 5e-3); the eval step's head outputs
+    within 0.05 x max|ref| (mean 5e-3 x) and its ``frame_idx`` equal; the
+    raw step's voxelized frame equal and its head outputs as the eval
+    step's; the train step, its head fed the plain step's features and
+    on the plain BatchNorm, features as the states, the loss parts within
+    1e-4, ``grad_norm`` within 2 %, every gradient leaf within 5e-2 of
+    its max|ref|, the BatchNorm buffers within 2e-2."""
+    _ON_THE_KERNELS_VS_PLAIN[path](dev, monkeypatch)
+
+
+def _batches(cfg, n, token_masks, B=2):
+    """``n`` Batches of random events at ``cfg``'s resolution, a box on
+    every lane's last frame at t = 1 s (past the Prophesee protocol's
+    0.5 s warm-up), the first batch restarting every lane, and with
+    ``token_masks`` masks of about 20 % of the stage-1 tokens."""
+    import numpy as np
+
+    from rvt_tpu_torch.data.types import Batch
+
+    rng = np.random.RandomState(0)
+    T = cfg.dataset.sequence_length
+    H, W = cfg.dataset.dataloading_hw
+    M = cfg.dataset.max_labels_per_frame
+    ps = cfg.model.backbone.stem_patch_size
+    out = []
+    for i in range(n):
+        labels = np.zeros((B, T, M, 7), np.float32)
+        label_mask = np.zeros((B, T, M), bool)
+        labels[:, -1, 0] = (1_000_000.0, 8.0, 8.0, 30.0, 24.0, 0.0, 1.0)
+        label_mask[:, -1, 0] = True
+        out.append(Batch(
+            ev_repr=rng.randint(0, 4, size=(B, T, H, W, 20)).astype(np.uint8),
+            labels=labels, label_mask=label_mask,
+            frame_valid=label_mask.any(-1),
+            is_first_sample=np.full((B,), i == 0),
+            is_padded=np.zeros((B, T), bool),
+            token_mask=(rng.rand(B, T, H // ps, W // ps) < 0.2
+                        if token_masks else None)))
+    return out
+
+
+def _per_step_case(dev, T=3, B=2):
+    """The train backbone at gen1 tiny on the kernels, a window of ``T``
+    frames of ``B`` lanes and the states one window carries into it;
+    ``run(ev, states, per_step=True, plain=False)`` its forward and
+    backward under a fixed linear loss on the features and final states:
+    (outputs, every backbone gradient)."""
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.models.detector import (fused_train_scan_backbone,
+                                               init_detector)
+
+    cfg = _tiny_kernel_cfg(stem_s2d=False)
+    bb = cfg.model.backbone
+    model = init_detector(cfg.model, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    ev = torch.randint(0, 8, (T, B) + tuple(bb.in_res_hw) + (20,),
+                       generator=g, device=dev).float()
+    with torch.no_grad():
+        _, states = fused_train_scan_backbone(
+            model, ev, zero_states(bb, B, device=dev))
+    params = [p for n, p in model.named_parameters()
+              if n.startswith("backbone.")]
+    weights = []
+
+    def run(ev, states, per_step=True, plain=False):
+        model.zero_grad(set_to_none=True)
+        feats, final = fused_train_scan_backbone(
+            model, ev, states, per_step=per_step, plain=plain)
+        outs = list(feats) + [t for hc in final for t in hc]
+        if not weights:
+            weights.extend(torch.randn(o.shape, generator=g, device=dev)
+                           for o in outs)
+        sum((o.float() * w).sum() for o, w in zip(outs, weights)).backward()
+        return ([o.detach() for o in outs],
+                [p.grad.clone() if p.grad is not None
+                 else torch.zeros_like(p) for p in params])
+
+    return dict(run=run, ev=ev, states=states, T=T)
+
+
+def test_per_step_backbone_equals_the_window_and_the_plain_versions(dev):
+    """The per-step train backbone (``fused_train_scan_backbone(per_step=
+    True)``: row 7 once a stage and step) on the kernels, one forward and
+    backward under a linear loss: the forward bit for bit with the
+    whole-window path's and every backbone gradient within 2e-2 of its
+    max|ref|; against its plain versions the features and states within
+    phase-3 tolerances and every gradient within 5e-2 of its max|ref|."""
+    from rvt_tpu_torch.ops import fused_train as ft
+
+    case = _per_step_case(dev)
+    run, ev, states = case["run"], case["ev"], case["states"]
+    n = ft.STAGE_STEP_TRAIN.launches
+    got, ggot = run(ev, states)
+    assert ft.STAGE_STEP_TRAIN.launches - n == case["T"] * 4
+    win, gwin = run(ev, states, per_step=False)
+    _equal_trees(got, win)
+    for a, b in zip(ggot, gwin):
+        _rel_close(a, b, 2e-2)
+    ref, gref = run(ev, states, plain=True)
+    n_f = len(got) - 2 * len(states)  # the features, then each h and c
+    for i, (a, b) in enumerate(zip(got, ref)):
+        is_c = i >= n_f and (i - n_f) % 2 == 1
+        _close(a, b, atol=1e-1 if is_c else 5e-2, rtol=2e-2)
+    for a, b in zip(ggot, gref):
+        _rel_close(a, b, 5e-2)
+
+
+@pytest.mark.parametrize("variant", ["plain", "detections"])
+def test_one_nccl_rank_dp_step_is_the_plain_step(dev, tmp_path, variant):
+    """One rank over NCCL in this process (a world of one): the dp train
+    step, captured, bit for bit with the same captured step without a
+    group over four carried steps, for both variants the Trainer runs
+    (the plain step, and the one with detections and parameter metrics):
+    every output, then the parameters, BatchNorm buffers, gradients and
+    moments; each kernel launched as often."""
+    import copy
+    import gc
+
+    import torch.distributed as dist
+
+    from rvt_tpu_torch.models.detector import init_detector
+    from rvt_tpu_torch.ops.kernels import COUNTERS
+    from rvt_tpu_torch.parallel.mesh import init_process_group, make_mesh
+    from rvt_tpu_torch.training.optimizer import make_optimizer
+    from rvt_tpu_torch.training.step import make_train_step
+
+    kw = ({} if variant == "plain"
+          else dict(with_detections=True, with_param_metrics=True))
+    cfg, args = _tiny_train_case(dev)
+    base = init_detector(cfg.model, seed=0, device=dev)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    init_process_group(dev, init_method=f"file://{tmp_path}/store", rank=0,
+                       world_size=1)
     try:
-        raw(got[-1][0], x, y, p, t, counts, first)
+        mesh = make_mesh()
+        assert mesh.backend == "nccl"
+        models, opts, outs, launched = [], [], [], []
+        for group in (None, mesh.group):
+            models.append(copy.deepcopy(base))
+            opts.append(make_optimizer(models[-1].parameters(),
+                                       cfg.training))
+            step = make_train_step(models[-1], cfg, opts[-1], group=group,
+                                   **kw)
+            before = {c.name: c.launches for c in COUNTERS}
+            outs.append(_carried(dev, cfg, step, 4, *args))
+            launched.append({c.name: c.launches - before[c.name]
+                             for c in COUNTERS})
+            assert len(step.graphs) == 1
+            del step  # a graph that captured collectives goes first
+            gc.collect()
+        torch.cuda.synchronize()
     finally:
-        torch.cuda.set_sync_debug_mode(0)
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+    _equal_trees(outs[1], outs[0])
+    _same_training_state(models, opts)
+    assert launched[1] == launched[0]
+    assert launched[1]["lstm_scan_bwd"] > 0 and launched[1]["bn_act"] > 0
+    assert (launched[1]["nms_keep"] > 0) == (variant == "detections")
+
+
+_TINY_BOXES = ((16.0, 16.0, 32.0, 32.0, 0), (48.0, 16.0, 32.0, 32.0, 0),
+               (24.0, 28.0, 32.0, 32.0, 1))
+
+
+def _memory_recordings(lengths, hw, seed):
+    """One ``Recording`` a length held in memory (the card's machine has
+    no h5py): uint8 stacked histograms [n, 20, H, W] in [0, 8) from a
+    numpy seed, and three 32x32 boxes on every 5th frame, two of them
+    where the random head's stride-32 boxes lie, stamped 50 ms apart from
+    1 s."""
+    import numpy as np
+
+    from rvt_tpu_torch.data.labels import LabelStore
+    from rvt_tpu_torch.data.sequence import Recording
+
+    H, W = hw
+
+    class MemoryRecording(Recording):
+        def __init__(self, rec_seed, n):
+            rng = np.random.RandomState(rec_seed)
+            self.path, self.max_labels = None, 48
+            self.prefer_raw_chunks, self._h5, self._data = False, None, None
+            self.ev = rng.randint(0, 8, size=(n, 20, H, W), dtype=np.uint8)
+            self.num_ev_repr, self.ev_shape = n, (20, H, W)
+            self.ev_dtype = self.ev.dtype
+            labelled = np.arange(4, n, 5)
+            self.objframe_idx_2_repr_idx = labelled
+            self.repr_idx_2_objframe_idx = {int(r): i
+                                            for i, r in enumerate(labelled)}
+            rows = [(1e6 + 5e4 * r, *b, 1.0) for r in labelled
+                    for b in _TINY_BOXES]
+            self.label_store = LabelStore(
+                np.asarray(rows, np.float32),
+                np.arange(0, len(rows), len(_TINY_BOXES)), input_size_hw=hw)
+
+        def read_ev_repr(self, start, end):
+            assert 0 <= start < end <= self.num_ev_repr
+            return self.ev[start:end]
+
+    return [MemoryRecording(seed + i, n) for i, n in enumerate(lengths)]
+
+
+def _tiny_cfg(T, conf=None):
+    """gen1 tiny at (64, 80) as it ships (f32, the module path), with
+    ``conf`` as its confidence threshold."""
+    from dataclasses import replace
+
+    from rvt_tpu_torch.config import preset
+
+    cfg = preset("gen1", "tiny", resolution_hw=(64, 80), sequence_length=T)
+    if conf is None:
+        return cfg
+    return replace(cfg, model=replace(cfg.model, postprocess=replace(
+        cfg.model.postprocess, confidence_threshold=conf)))
+
+
+def _drawn_gammas(model):
+    """LayerScale gammas drawn at 0.1 (they start at 1e-5), so that the
+    attention blocks shape the output the tests compare."""
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".gamma"):
+                p.normal_(0.0, 0.1, generator=g)
+    return model
+
+
+def _recorded_evaluators(monkeypatch):
+    """Keep the PropheseeEvaluator each ``run_streaming_eval`` makes."""
+    from rvt_tpu_torch.training import evaluator_loop as el
+
+    made = []
+
+    class Recorded(el.PropheseeEvaluator):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    monkeypatch.setattr(el, "PropheseeEvaluator", Recorded)
+    return made
+
+
+_STATS = {"AP", "AP_50", "AP_75", "AP_S", "AP_M", "AP_L"}
+
+
+def test_streaming_eval_equals_the_windows_fed_by_hand(dev):
+    """``run_streaming_eval`` on the config ``cli.validate --serve_fused``
+    builds (bf16, the s2d stem, the kernels; gen1 tiny at (64, 80), T =
+    5, confidence 1e-4 so that NMS sees candidates) over in-memory
+    recordings, lanes restarting mid-run and padded fill windows among
+    them, against the same windows fed by hand (the pinned feed,
+    ``make_eval_step``, ``iter_batch_detections``, a PropheseeEvaluator):
+    the metrics bit for bit, each kernel launched as often, ``window_s2d``
+    once a window."""
+    import math
+
+    from rvt_tpu_torch.cli.validate import serve_fused_config
+    from rvt_tpu_torch.data.sequence import StreamView
+    from rvt_tpu_torch.data.streaming import EvalStreamScheduler
+    from rvt_tpu_torch.evaluation.prophesee import PropheseeEvaluator
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.models.detector import init_detector
+    from rvt_tpu_torch.ops.kernels import COUNTERS
+    from rvt_tpu_torch.training.evaluator_loop import (fetch_outputs,
+                                                       iter_batch_detections,
+                                                       run_streaming_eval)
+    from rvt_tpu_torch.training.feed import (PinnedFeed, stored_layout,
+                                             window_input)
+    from rvt_tpu_torch.training.step import make_eval_step
+
+    B = 2
+    cfg = serve_fused_config(_tiny_cfg(5, conf=1e-4))
+    model = _drawn_gammas(init_detector(cfg.model, device="cpu")).to(dev)
+    views = [StreamView(r, 5) for r in _memory_recordings(
+        (23, 17, 12, 30, 9), (64, 80), seed=100)]
+    plans = list(EvalStreamScheduler(views, B).plan_batches())
+    assert any(p.window_idx < 0 for b in plans for p in b)  # fill windows
+    assert any(p.window_idx == 0 for b in plans[1:] for p in b)  # restarts
+
+    def launches():
+        return {c.name: c.launches for c in COUNTERS}
+
+    before = launches()
+    metrics = run_streaming_eval(model, cfg, iter(EvalStreamScheduler(
+        views, B)), B, device=dev)
+    loop = {k: v - before[k] for k, v in launches().items()}
+    batches = list(EvalStreamScheduler(views, B))
+    step, feed = make_eval_step(model, cfg), PinnedFeed(dev)
+    evaluator = PropheseeEvaluator("gen1", False)
+    states = zero_states(cfg.model.backbone, B, device=dev)
+    bb = cfg.model.backbone
+    before = launches()
+    for b in batches:
+        ev, stored = stored_layout(b.ev_repr)
+        ev, fv, first = feed([ev, b.frame_valid, b.is_first_sample])
+        out = step(states, window_input(ev, stored, bb.in_res_hw,
+                                        bb.stem_s2d), fv, first)
+        states = out.states
+        frames = list(iter_batch_detections(b, *fetch_outputs(
+            (out.dets, out.det_valid, out.frame_idx, out.gval), dev)()))
+        if frames:
+            evaluator.add_labels([f[2] for f in frames])
+            evaluator.add_predictions([f[3] for f in frames])
+    assert {k: v - before[k] for k, v in launches().items()} == loop
+    assert loop["window_s2d"] == len(batches) and loop["nms_keep"] > 0
+    assert set(metrics) == _STATS and all(math.isfinite(v)
+                                          for v in metrics.values())
+    H, W = cfg.dataset.dataloading_hw
+    assert evaluator.evaluate_buffer(img_height=H, img_width=W) == metrics
+
+
+def _same_buffers(a, b):
+    """Two PropheseeEvaluators hold the same frames bit for bit."""
+    import numpy as np
+
+    return (len(a._labels) == len(b._labels)
+            and len(a._predictions) == len(b._predictions)
+            and all(np.array_equal(x, y) for x, y in zip(
+                a._labels + a._predictions, b._labels + b._predictions)))
+
+
+def test_trainer_validates_each_steps_weights(dev, tmp_path, monkeypatch):
+    """The Trainer on the train kernels (gen1 tiny at (64, 80), bf16, T =
+    5) validating every step through ``run_streaming_eval`` over
+    in-memory recordings: each validation's detections and metrics equal
+    a fresh loop's on that step's weights, the two steps' detections
+    differ, and ``cli.validate``'s loader restores the best slot to its
+    metrics bit for bit."""
+    from dataclasses import replace
+
+    from rvt_tpu_torch.cli.validate import load_model
+    from rvt_tpu_torch.config import preset
+    from rvt_tpu_torch.data.sequence import StreamView
+    from rvt_tpu_torch.data.streaming import EvalStreamScheduler
+    from rvt_tpu_torch.models.detector import RVTDetector, init_detector
+    from rvt_tpu_torch.training.evaluator_loop import run_streaming_eval
+    from rvt_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = preset("gen1", "tiny", resolution_hw=(64, 80), sequence_length=5)
+    cfg = replace(cfg, model=replace(
+        cfg.model, compute_dtype="bfloat16",
+        backbone=replace(cfg.model.backbone, fused_kernels=True),
+        postprocess=replace(cfg.model.postprocess,
+                            confidence_threshold=1e-4)))
+    views = [StreamView(r, 5) for r in _memory_recordings(
+        (23, 17, 12, 30), (64, 80), seed=100)]
+
+    def loop(model):
+        return run_streaming_eval(model, cfg, iter(EvalStreamScheduler(
+            views, 2)), 2, device=dev)
+
+    snaps, seen = [], []
+
+    def eval_fn(model):
+        snaps.append({k: v.detach().clone()
+                      for k, v in model.state_dict().items()})
+        seen.append(loop(model))
+        return seen[-1]
+
+    made = _recorded_evaluators(monkeypatch)
+    trainer = Trainer(cfg, TrainerConfig(
+        max_steps=2, log_every_n_steps=1, ckpt_every_n_steps=100,
+        val_every_n_steps=1, gradflow_every_n_steps=0,
+        detection_metrics_every_n_steps=0, prefetch_depth=2,
+        ckpt_dir=str(tmp_path / "run")),
+        model=_drawn_gammas(init_detector(cfg.model, device="cpu")).to(dev))
+    trainer.fit(iter(_batches(cfg, 2, token_masks=False)), eval_fn=eval_fn)
+    assert len(seen) == 2 and all(set(m) == _STATS for m in seen)
+    assert not _same_buffers(made[0], made[1])
+    for i, snap in enumerate(snaps):
+        fresh = RVTDetector(cfg.model)
+        fresh.load_state_dict(snap, strict=True)
+        assert loop(fresh.to(dev).eval()) == seen[i]
+        assert _same_buffers(made[-1], made[i])
+    best = trainer.ckpt.best_step()
+    assert best in (1, 2)
+    assert loop(load_model(tmp_path / "run", cfg, dev)) == seen[best - 1]
+
+
+def _canonical_rows(p):
+    """Detection rows by box corner and size rounded to the pixel: the
+    order of rows whose scores tie within rounding is not the
+    protocol's."""
+    import numpy as np
+
+    key = np.round(np.stack([p["x"], p["y"], p["w"], p["h"]])).astype(int)
+    return p[np.lexsort(key[::-1])]
+
+
+def test_module_path_on_the_card_equals_the_cpu(dev, monkeypatch):
+    """gen1 tiny at (64, 80), T = 5, as it ships (f32, the module path) on
+    the card against the CPU from the same weights: the eval step over a
+    window, every stage's states and the head outputs within 1e-4 of
+    max|ref|; on the card a step at a time over the window bit for bit
+    with the window scan (features and states); ``run_streaming_eval``
+    over in-memory recordings, every labelled frame's detections (counts,
+    classes and times equal; boxes and scores within 1e-4 of max|ref|)
+    and the six stats within 1e-4. No stage kernel runs on the card: the
+    only kernel launched is the card's NMS, ``nms_keep``. Every anchor
+    enters NMS (threshold 1e-6) and class 1's biases sit 1 below class
+    0's, so that no class decision is a near-tie of two 0.01 priors."""
+    import copy
+
+    import numpy as np
+
+    from rvt_tpu_torch.data.sequence import StreamView
+    from rvt_tpu_torch.data.streaming import EvalStreamScheduler
+    from rvt_tpu_torch.models import detector as det
+    from rvt_tpu_torch.models.backbone import zero_states
+    from rvt_tpu_torch.ops.kernels import COUNTERS
+    from rvt_tpu_torch.training.evaluator_loop import run_streaming_eval
+    from rvt_tpu_torch.training.step import make_eval_step, pad_ev_repr
+
+    cfg = _tiny_cfg(5, conf=1e-6)
+    assert det.stage_routes(cfg.model) == ["modules"] * 4
+    cpu_model = _drawn_gammas(det.init_detector(cfg.model, device="cpu"))
+    with torch.no_grad():
+        for name, p in cpu_model.named_parameters():
+            if name.startswith("yolox_head.cls_preds") and name.endswith(
+                    "bias"):
+                p[1:] -= 1.0
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    before = {c.name: c.launches for c in COUNTERS}
+
+    # one window through the eval step
+    g = torch.Generator().manual_seed(0)
+    ev = torch.randint(0, 8, (2, 5, 64, 80, 20), generator=g,
+                       dtype=torch.uint8)
+    fv, first = torch.ones(2, 5, dtype=torch.bool), torch.ones(
+        2, dtype=torch.bool)
+    ref = make_eval_step(cpu_model, cfg)(
+        zero_states(cfg.model.backbone, 2, device="cpu"), ev, fv, first)
+    got = make_eval_step(card_model, cfg)(
+        zero_states(cfg.model.backbone, 2, device=dev), ev.to(dev),
+        fv.to(dev), first.to(dev))
+    for (hg, cg), (hr, cr) in zip(got.states, ref.states):
+        _rel_close(hg.cpu(), hr, 1e-4)
+        _rel_close(cg.cpu(), cr, 1e-4)
+    _rel_close(got.preds.cpu(), ref.preds, 1e-4)
+    with torch.inference_mode():
+        seq = pad_ev_repr(ev.to(dev), cfg.model.backbone.in_res_hw,
+                          None).transpose(0, 1)
+        feats, states = det.scan_backbone(card_model, seq, got.states)
+        st = got.states
+        for t in range(seq.shape[0]):
+            f, st = card_model.forward_backbone(seq[t], st)
+            for i, s in enumerate(cfg.model.fpn.in_stages):
+                assert torch.equal(f[s], feats[i][t])
+    _equal_trees(st, states)
+
+    # the validation loop over recordings
+    views = [StreamView(r, 5) for r in _memory_recordings(
+        (23, 17, 12, 30), (64, 80), seed=100)]
+    made = _recorded_evaluators(monkeypatch)
+    ref = run_streaming_eval(cpu_model, cfg, iter(EvalStreamScheduler(
+        views, 2)), 2, device="cpu")
+    got = run_streaming_eval(card_model, cfg,
+                             iter(EvalStreamScheduler(views, 2)), 2,
+                             device=dev)
+    assert {c.name for c in COUNTERS
+            if c.launches != before[c.name]} == {"nms_keep"}
+    assert set(ref) == _STATS
+    assert max(abs(got[k] - ref[k]) for k in ref) <= 1e-4
+    frames = list(zip(made[1]._predictions, made[0]._predictions))
+    assert frames and len(made[1]._predictions) == len(
+        made[0]._predictions)
+    for a, b in frames:
+        assert len(a) == len(b)
+        a, b = _canonical_rows(a), _canonical_rows(b)
+        assert np.array_equal(a["class_id"], b["class_id"])
+        assert np.array_equal(a["t"], b["t"])
+        for f in ("x", "y", "w", "h", "class_confidence"):
+            scale = max(np.abs(b[f].astype(np.float64)).max(initial=0.0),
+                        1e-6)
+            assert np.abs(a[f] - b[f]).max(initial=0.0) <= 1e-4 * scale, f
+
+
+def test_train_cli_step_on_the_card_equals_the_cpu(dev, tmp_path):
+    """The train CLI's first step (``build_train_scheduler``'s mixed batch
+    from in-memory recordings, the Trainer) at gen1 tiny (64, 80), B = 2,
+    T = 5, in f32 on the module path, on the card against the CPU from the
+    same weights and batch: the loss parts and grad_norm within 1e-4 of
+    their magnitude."""
+    import copy
+    from dataclasses import replace
+
+    from rvt_tpu_torch.cli.train import build_train_scheduler
+    from rvt_tpu_torch.models.detector import init_detector
+    from rvt_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = _tiny_cfg(5)
+    cfg = replace(cfg, batch_size=replace(cfg.batch_size, train=2, eval=2),
+                  training=replace(cfg.training, precision="32"))
+    batch = next(iter(build_train_scheduler(cfg, _memory_recordings(
+        (23, 17, 12, 30), (64, 80), seed=300), seed=0)))
+    cpu_model = _drawn_gammas(init_detector(cfg.model, device="cpu"))
+    metrics = {}
+    for where, model in (("cpu", copy.deepcopy(cpu_model)),
+                         ("card", copy.deepcopy(cpu_model).to(dev))):
+        trainer = Trainer(cfg, TrainerConfig(
+            max_steps=1, log_every_n_steps=1, ckpt_every_n_steps=100,
+            gradflow_every_n_steps=0, detection_metrics_every_n_steps=0,
+            prefetch_depth=0, ckpt_dir=str(tmp_path / where)), model=model)
+        metrics[where] = trainer.fit(iter([batch]))
+    ref, got = metrics["cpu"], metrics["card"]
+    keys = [k for k in ref if k != "train/frames_per_s"]
+    assert "grad_norm" in keys and "loss" in keys
+    for k in keys:
+        assert abs(got[k] - ref[k]) <= 1e-4 * max(abs(ref[k]), 1e-30), k
 
 
 def test_capture_survives_the_collector(dev):

@@ -20,7 +20,8 @@ code != 0) when it fails:
      stage shape (T*B = 168 frames, and the raw step's B = 8): ln_rows on
      bf16 rows with their f32 copy (the downsample LN as the paths run
      it) and on f32 rows, printing its lane plan, gemm_bf16 with each
-     epilogue at the qkv/proj/fc1/fc2 shapes, partition_attention in
+     epilogue at the qkv/proj/fc1/fc2 shapes (each line naming the
+     schedule and tile its launcher took), partition_attention in
      window and grid mode, lstm_scan at T = 21 and at T = 1; row 2
      (``fused_stage``: K1-K3 over the B frames, K4 at T = 1) at each
      stage with gen1 RVT-B's weights, h and c against its plain version,
@@ -84,8 +85,10 @@ code != 0) when it fails:
      the outputs); fail where the calls a kernel was timed at for one of
      those paths differ from the launches it made, or where a kernel
      launched on the eval, raw or train step was not timed for it (on
-     the per-step window only row 7's calls are timed); print one line
-     per K4 and per K8 call shape (path, stage, launches, ms beside
+     the per-step window only row 7's calls are timed); print the share
+     of K2's launches (K4's and K8's products included) that took the
+     ping-pong schedule in each, and fail where none of the eval or the
+     train step's did; print one line per K4 and per K8 call shape (path, stage, launches, ms beside
      cuDNN's LSTM forward or backward, and the launch plan of the
      recurrent kernel), then the kernels line (per kernel: launches by
      path, and ms, plain, bound and library summed over one step of each
@@ -256,6 +259,7 @@ def compare(name, got, ref, atol, rtol, mean_tol=1e-3):
 
 
 LSTM_LIB = {}  # the dtype the cuDNN LSTM yardstick ran in, by call
+PINGPONG_SHARE = {}  # K2's launches on the ping-pong schedule, by path
 K4_STAGES = []  # (path, stage, T, rows, launches, K4 ms, library ms)
 K8_STAGES = []  # the same for K8 (cuDNN's backward), + ms by launch
 
@@ -397,6 +401,23 @@ def ln_rows_case(fa, randn, s, b, M, C, dtype):
     return err, ms, pms, lms, nbytes, dms
 
 
+def k2_schedule(M, N, K, epi):
+    """The schedule K2's launcher takes for ``epi`` at (M, N, K), as a
+    label; fails where ``gemm_schedule`` (the Python mirror that the
+    schedule tallies count by) disagrees."""
+    import torch
+
+    from rvt_tpu_torch.ops import fused_attention as fa
+
+    plan = fa.gemm_plan(M, N, K, epi)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if plan != fa.gemm_schedule(M, N, K, epi, sms):
+        fail(f"gemm_bf16 {epi} at M={M}, N={N}, K={K}: the launcher takes "
+             f"{plan}, gemm_schedule says otherwise")
+    return (f"{'ping-pong' if plan.pingpong else 'cooperative'} "
+            f"{plan.rows}x{plan.cols}")
+
+
 def check_pair_kernels(recs, randn, g, H, W, C, n_frames, per):
     """Phase 3: K1-K3 at one stage over ``n_frames`` frames, against their
     plain versions, timed; ``per(eval calls, train calls)`` gives the calls
@@ -430,7 +451,9 @@ def check_pair_kernels(recs, randn, g, H, W, C, n_frames, per):
                            out=R0.clone() if R0 is not None else None)
         ref = fa.gemm_bf16(a, w, epi, bias=bias, plain=True,
                            out=R0.clone() if R0 is not None else None)
-        err = compare(f"gemm_bf16[{label} {epi}]", got, ref, 3.2e-2, 1e-2)
+        err = compare(f"gemm_bf16[{label} {epi}, "
+                      f"{k2_schedule(M, N, K, epi)}]", got, ref, 3.2e-2,
+                      1e-2)
         R1 = R0.clone() if R0 is not None else None
         ms = time_ms(lambda: fa.gemm_bf16(a, w, epi, bias=bias, out=R1))
         pms = time_ms(lambda: fa.gemm_bf16(a, w, epi, bias=bias, out=R1,
@@ -1334,7 +1357,8 @@ def check_train_kernels(recs):
 
             got = run(False, None if R is None else R.clone())
             ref = run(True, None if R is None else R.clone())
-            err = compare(f"gemm_bf16[{label} {epi}]", first(got),
+            err = compare(f"gemm_bf16[{label} {epi}, "
+                          f"{k2_schedule(M, N, K, epi)}]", first(got),
                           first(ref), 3.2e-2, 1e-2)
             if epi == "rt_gelu_bwd":
                 compare_rel("  its column sums", got[1], ref[1], 1e-3)
@@ -1743,7 +1767,8 @@ def path_launches():
     from rvt_tpu_torch.inference import make_raw_inference_step
     from rvt_tpu_torch.models.backbone import zero_states
     from rvt_tpu_torch.models.detector import fused_train_scan_backbone
-    from rvt_tpu_torch.ops.kernels import COUNTERS
+    from rvt_tpu_torch.ops import fused_attention as fa
+    from rvt_tpu_torch.ops.kernels import COUNTERS, TALLIES
     from rvt_tpu_torch.training import graphs
     from rvt_tpu_torch.training.optimizer import make_optimizer
     from rvt_tpu_torch.training.step import (make_eval_step, make_train_step,
@@ -1793,12 +1818,18 @@ def path_launches():
         "per-step train": (per_step_window, batch[:1])}
     made = {}
     for path, (step, args) in steps.items():
-        for c in COUNTERS:
+        for c in COUNTERS + TALLIES:
             c.reset()
         with graphs.eager():
             step(states, *args)
         made[path] = {c.name: c.launches for c in COUNTERS if c.launches}
         log(f"launches of one {path}: {made[path]}")
+        pp = fa.GEMM_BF16_PINGPONG.launches
+        k2 = pp + fa.GEMM_BF16_COOPERATIVE.launches
+        PINGPONG_SHARE[path] = pp / k2 if k2 else 0.0
+        log(f"K2 schedules in one {path}: ping-pong {pp} of {k2} launches "
+            f"({PINGPONG_SHARE[path]:.1%}; K4's and K8's products "
+            "included)")
         torch.cuda.empty_cache()
     return made
 
@@ -1859,6 +1890,9 @@ def main() -> int:
             if path != "per-step train" and (
                     name not in recs or path not in recs[name].paths):
                 fail(f"{name}: {n} launches per {path} made, none timed")
+    for path in ("eval step", "train step"):
+        if not PINGPONG_SHARE.get(path):
+            fail(f"no K2 launch of one {path} took the ping-pong schedule")
     for name, rec in recs.items():
         by_path = {path: n.get(name, 0) for path, n in made.items()}
         rec.d["launches"] = sum(by_path.values())

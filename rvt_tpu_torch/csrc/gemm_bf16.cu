@@ -35,17 +35,29 @@
 //
 // Design (hopper_gemm.cuh): wgmma on 128-byte-swizzled k-tiles of 64
 // that TMA loads through an mbarrier ring, in a persistent grid whose
-// producer loads the next tile during the current tile's epilogue. Tiles
-// of 128 x BN rows x columns (two consumer warpgroups), BN = 128 where N
-// is a multiple of 128, else 64; 64 x BN (one consumer warpgroup) when
-// 128-row tiles would leave SMs idle (the per-step path's B = 8 frames);
-// 192 x BN (three) for the products whose output outweighs their input. A is read
+// producer loads ahead while the consumers run an epilogue. A is read
 // K-major; W [K, N] is an MN-major B operand and W [N, K] (the rt_
 // epilogues) a K-major one, both straight from memory (wgmma's transpose
 // immediate). K is not split: the in-place epilogues need one block per
-// output tile. The epilogue stages each warpgroup's 64 x 64 f32 slices in
-// shared memory and writes eight neighbouring columns per thread with
-// 16-byte accesses.
+// output tile. BN = 128 where N is a multiple of 128, else 64. Two
+// schedules, picked in ``schedule`` from (M, N, K) and the epilogue:
+//   * ping-pong: 64 x BN tiles, two consumer warpgroups owning whole
+//     tiles in turn, so one's epilogue runs under the other's loads and
+//     products; where every block gets two tiles or more and the
+//     epilogue's memory traffic sets the pace (the f32 epilogues up to
+//     K = 1024, bias and rt_bf16 up to K = 128);
+//   * cooperative: 128 x BN tiles (two consumer warpgroups), 64 x BN (one)
+//     when 128-row tiles would leave SMs idle (the per-step path's B = 8
+//     frames), 192 x BN (three) for the products whose output outweighs
+//     their input (N >= 2K); the gelu epilogues, bound by their
+//     instructions (two MUFU and some 28 instructions a value), and the
+//     longer products, which gain from two or three warpgroups issuing
+//     products at once.
+// The epilogue stages each warpgroup's 64 x 64 slices in shared memory,
+// as bf16 for the epilogues that start by rounding the sum to bf16 (the
+// bias variants and rt_bf16: half the traffic, the bias added in bf16x2
+// with the same rounding), else as f32, and writes eight neighbouring
+// columns per thread with 16-byte accesses.
 #include "hopper_gemm.cuh"
 
 namespace {
@@ -76,17 +88,35 @@ __device__ __forceinline__ void store_bf16x8(bf16* dst, const float* v) {
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(packed);
 }
 
-__device__ __forceinline__ void load_bf16x8(const bf16* src, float* v) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+__device__ __forceinline__ void unpack_bf16x8(const uint4& raw, float* v) {
   const bf16* b = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
   for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(b[e]);
+}
+
+// One 16-byte load into registers, then the eight values.
+__device__ __forceinline__ void load_bf16x8(const bf16* src, float* v) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  unpack_bf16x8(raw, v);
 }
 
 __device__ __forceinline__ void load_f32x8(const float* src, float* v) {
   *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(src);
   *reinterpret_cast<float4*>(v + 4) =
       *reinterpret_cast<const float4*>(src + 4);
+}
+
+// a + b for eight pairs of bf16, each sum rounded once to bf16: the bits
+// of round_bf16(float(a) + float(b)). The f32 sum of two bf16 is exact
+// unless their exponents lie 16 or more apart; then the smaller moves the
+// larger by under 2^-15 of it, far from a bf16 tie, and both roundings
+// give the larger.
+__device__ __forceinline__ uint4 add_bf16x8(uint4 a, const uint4& b) {
+  __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i] = __hadd2(x[i], y[i]);
+  return a;
 }
 
 struct EpiArgs {
@@ -99,12 +129,17 @@ struct EpiArgs {
 };
 
 // EPI >= EPI_RT_F32 (TRANS): W is [N, K] and the product is A . W^T (the
-// _dot_rt of the backward); otherwise W is [K, N].
-template <int WG, int BN, int EPI>
+// _dot_rt of the backward); otherwise W is [K, N]. Tiles of SL 64-row
+// slices by BN columns.
+template <int SL, int BN, int EPI>
 struct Gemm {
   static constexpr bool TRANS = EPI >= EPI_RT_F32;
-  static constexpr int BM = 64 * WG, WN = hg::Plan<WG, BN>::WN;
+  static constexpr int BM = 64 * SL, WN = hg::Plan<SL, BN>::WN;
   static constexpr int TA = 0, TB = TRANS ? 0 : 1;
+  // the epilogue starts by rounding the sum to bf16: staged as bf16
+  static constexpr bool STAGE_BF16 =
+      EPI <= EPI_RESID_LS || EPI == EPI_RT_BF16;
+  static constexpr int ITEMS = 64 * 8 / 128;  // rows a thread, a piece
   struct Tile {
     int m0, n0, ktiles;
   };
@@ -131,42 +166,47 @@ struct Gemm {
         hg::tma_load(b + j * 64 * hg::BK * 2, tb, bar, t.n0 + 64 * j, k0);
     }
   }
-  __device__ uint64_t desc_a(uint32_t a, int wg, int k16) const {
-    return hg::desc_sw128(a + wg * 64 * 128 + 32 * k16, 16, 1024);
+  __device__ uint64_t desc_a(uint32_t a, int s, int k16) const {
+    return hg::desc_sw128(a + s * 64 * 128 + 32 * k16, 16, 1024);
   }
   __device__ uint64_t desc_b(uint32_t b, int i, int k16) const {
     if (TRANS) return hg::desc_sw128(b + i * WN * 128 + 32 * k16, 16, 1024);
     return hg::desc_sw128(b + i * WN * 128 + 2048 * k16, 64 * 128, 1024);
   }
 
-  // One 64 x 64 slice of consumer warpgroup wg: rows m0 + 64 wg.., columns
-  // n0 + 64 c..; Cs is its f32 staging tile. Each thread owns eight
-  // neighbouring columns of four rows (tid / 8 + 16 k): the bias and gamma
-  // are read once, and the four rows' other inputs are all requested
-  // before any is used.
-  __device__ void epilogue(const Tile& t, int wg, int c, float* Cs) const {
-    constexpr int ITEMS = 64 * 8 / 128;
-    const int tid = threadIdx.x % 128;
-    const int row0 = t.m0 + 64 * wg, col0 = t.n0 + 64 * c;
+  // One 64 x 64 piece of the tile: rows m0 + 64 s.., columns n0 + 64 c..,
+  // run by one consumer warpgroup from its staging tile Cs (named barrier
+  // 1 + its index guards it). Each thread owns eight neighbouring columns
+  // of four rows (tid / 8 + 16 k): the bias and gamma are read once, and
+  // the four rows' other inputs are all requested before any is used.
+  __device__ void epilogue(const Tile& t, int s, int c, float* Cs) const {
+    if constexpr (STAGE_BF16)
+      epilogue_bf16(t.m0 + 64 * s, t.n0 + 64 * c,
+                    reinterpret_cast<const bf16*>(Cs));
+    else
+      epilogue_f32(t.m0 + 64 * s, t.n0 + 64 * c, Cs);
+  }
+
+  // The bias variants and rt_bf16, from the sums rounded to bf16: v = the
+  // sum + the bias in bf16x2 (the rounding points of
+  // ``dot(...).astype(bf16) + b``).
+  __device__ void epilogue_bf16(int row0, int col0, const bf16* Cb) const {
     constexpr int epi = EPI;
-    const int c8 = (tid % 8) * 8, gn = col0 + c8;
-    const bool col_ok = gn < N;  // N % 8 == 0: all eight in range
-    __align__(16) float v[ITEMS][8];
-    __align__(16) float x[ITEMS][8];  // aux (7), out (2, 6), res_in (3)
-    __align__(16) float bb[8];
+    const int tid = threadIdx.x % 128, c8 = (tid % 8) * 8, gn = col0 + c8;
+    if (gn >= N) return;  // N % 8 == 0: all eight in range
+    uint4 bias8, v8[ITEMS];
+    __align__(16) float x[ITEMS][8];  // out (2), res_in (3)
     __align__(16) float g8[8];
-    float colsum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (col_ok && epi <= EPI_RESID_LS) load_bf16x8(e.bias + gn, bb);
-    if (col_ok && epi == EPI_RESID_LS) load_f32x8(e.gamma + gn, g8);
+    if (epi != EPI_RT_BF16)
+      bias8 = *reinterpret_cast<const uint4*>(e.bias + gn);
+    if (epi == EPI_RESID_LS) load_f32x8(e.gamma + gn, g8);
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
       const int r = tid / 8 + 16 * k;
       const long gm = (long)row0 + r, o = gm * N + gn;
-      load_f32x8(Cs + r * hg::EPI_LD + c8, v[k]);
-      if (!col_ok || gm >= M) continue;
-      if (epi == EPI_RT_GELU_BWD)
-        load_bf16x8(e.aux + o, x[k]);
-      else if (epi == EPI_RESID || epi == EPI_RT_ACC)
+      v8[k] = *reinterpret_cast<const uint4*>(Cb + r * hg::EPI_LDB + c8);
+      if (gm >= M) continue;
+      if (epi == EPI_RESID)
         load_f32x8(reinterpret_cast<const float*>(e.out) + o, x[k]);
       else if (epi == EPI_RESID_LS)
         load_f32x8(e.res_in + o, x[k]);
@@ -175,51 +215,90 @@ struct Gemm {
     for (int k = 0; k < ITEMS; ++k) {
       const int r = tid / 8 + 16 * k;
       const long gm = (long)row0 + r, o = gm * N + gn;
-      if (!col_ok || gm >= M) continue;
-      float* w = v[k];
-      if (epi <= EPI_RESID_LS) {  // the bias variants
-#pragma unroll
-        for (int q = 0; q < 8; ++q) w[q] = round_bf16(round_bf16(w[q]) + bb[q]);
-        if ((epi == EPI_GELU || epi == EPI_RESID_LS) && e.aux != nullptr)
-          store_bf16x8(e.aux + o, w);
-      }
+      if (gm >= M) continue;
+      const uint4 v = epi == EPI_RT_BF16 ? v8[k] : add_bf16x8(v8[k], bias8);
       if (epi == EPI_BIAS || epi == EPI_RT_BF16) {
-        store_bf16x8(reinterpret_cast<bf16*>(e.out) + o, w);
-      } else if (epi == EPI_GELU) {
+        *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(e.out) + o) = v;
+        continue;
+      }
+      if ((epi == EPI_GELU || epi == EPI_RESID_LS) && e.aux != nullptr)
+        *reinterpret_cast<uint4*>(e.aux + o) = v;
+      __align__(16) float w[8];
+      unpack_bf16x8(v, w);
+      if (epi == EPI_GELU) {
 #pragma unroll
         for (int q = 0; q < 8; ++q) w[q] = gelu_tanh(w[q]);
         store_bf16x8(reinterpret_cast<bf16*>(e.out) + o, w);
-      } else if (epi == EPI_RT_GELU_BWD) {
+        continue;
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {  // += (2), res_in + v * gamma (3)
+        if (epi == EPI_RESID_LS)
+          w[q] = x[k][q] + w[q] * g8[q];
+        else
+          w[q] = x[k][q] + w[q];
+      }
+      float4* R =
+          reinterpret_cast<float4*>(reinterpret_cast<float*>(e.out) + o);
+      R[0] = *reinterpret_cast<const float4*>(w);
+      R[1] = *reinterpret_cast<const float4*>(w + 4);
+      if (epi == EPI_RESID && e.aux != nullptr) store_bf16x8(e.aux + o, w);
+    }
+  }
+
+  // rt_f32, rt_acc and rt_gelu_bwd, from the f32 sums.
+  __device__ void epilogue_f32(int row0, int col0, float* Cs) const {
+    constexpr int epi = EPI;
+    const int tid = threadIdx.x % 128, bar = 1 + threadIdx.x / 128;
+    const int c8 = (tid % 8) * 8, gn = col0 + c8;
+    const bool col_ok = gn < N;  // N % 8 == 0: all eight in range
+    __align__(16) float v[ITEMS][8];
+    __align__(16) float x[ITEMS][8];  // aux (7), out (6)
+    float colsum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      const int r = tid / 8 + 16 * k;
+      const long gm = (long)row0 + r, o = gm * N + gn;
+      load_f32x8(Cs + r * hg::EPI_LD + c8, v[k]);
+      if (!col_ok || gm >= M) continue;
+      if (epi == EPI_RT_GELU_BWD)
+        load_bf16x8(e.aux + o, x[k]);
+      else if (epi == EPI_RT_ACC)
+        load_f32x8(reinterpret_cast<const float*>(e.out) + o, x[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+      const int r = tid / 8 + 16 * k;
+      const long gm = (long)row0 + r, o = gm * N + gn;
+      if (!col_ok || gm >= M) continue;
+      float* w = v[k];
+      if (epi == EPI_RT_GELU_BWD) {
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
           w[q] *= gelu_grad(x[k][q]);
           colsum[q] += w[q];  // the f32 d, rows in k order
         }
         store_bf16x8(reinterpret_cast<bf16*>(e.out) + o, w);
-      } else {  // f32 outputs: += (2, 6), res_in + v * gamma (3), = (4)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          if (epi == EPI_RESID_LS)
-            w[q] = x[k][q] + w[q] * g8[q];
-          else if (epi != EPI_RT_F32)
-            w[q] = x[k][q] + w[q];
-        }
-        float4* R =
-            reinterpret_cast<float4*>(reinterpret_cast<float*>(e.out) + o);
-        R[0] = *reinterpret_cast<const float4*>(w);
-        R[1] = *reinterpret_cast<const float4*>(w + 4);
-        if (epi == EPI_RESID && e.aux != nullptr) store_bf16x8(e.aux + o, w);
+        continue;
       }
+      if (epi == EPI_RT_ACC) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) w[q] = x[k][q] + w[q];
+      }
+      float4* R =
+          reinterpret_cast<float4*>(reinterpret_cast<float*>(e.out) + o);
+      R[0] = *reinterpret_cast<const float4*>(w);
+      R[1] = *reinterpret_cast<const float4*>(w + 4);
     }
     if (epi == EPI_RT_GELU_BWD) {
       // column sums of the block's valid rows: each thread's four rows,
       // then the 16 row groups in order over the staging tile (every read
       // of it is done): a fixed order, so two runs agree
-      hg::named_sync(1 + wg, 128);
+      hg::named_sync(bar, 128);
 #pragma unroll
       for (int q = 0; q < 8; ++q)
         Cs[(tid / 8) * hg::EPI_LD + c8 + q] = colsum[q];
-      hg::named_sync(1 + wg, 128);
+      hg::named_sync(bar, 128);
       if (tid < 64 && col0 + tid < N && row0 < M) {
         float s = 0.f;
 #pragma unroll
@@ -230,20 +309,28 @@ struct Gemm {
   }
 };
 
-template <int WG, int BN, int EPI>
-__global__ void __launch_bounds__(128 * (WG + 1), 1)
+// PP: the ping-pong schedule (whole 64-row tiles for each of two consumer
+// warpgroups in turn), else the cooperative one (SL 64-row slices, one a
+// consumer warpgroup).
+constexpr int PP_NC = hg::PP_CONSUMERS;
+
+template <bool PP, int SL, int BN, int EPI>
+__global__ void __launch_bounds__(128 * ((PP ? PP_NC : SL) + 1), 1)
 gemm_kernel(const __grid_constant__ CUtensorMap ta,
             const __grid_constant__ CUtensorMap tb, EpiArgs e, int M, int N,
             int K) {
-  const Gemm<WG, BN, EPI> p{&ta, &tb, e, M, N, K};
-  hg::run<WG, BN>(p);
+  const Gemm<SL, BN, EPI> p{&ta, &tb, e, M, N, K};
+  if constexpr (PP)
+    hg::run_pingpong<BN>(p);
+  else
+    hg::run<SL, BN>(p);
 }
 
-template <int WG, int BN, int EPI>
+template <bool PP, int SL, int BN, int EPI>
 int launch(const void* a, const void* w, const EpiArgs& e, int M, int N,
            int K, cudaStream_t st) {
   constexpr bool TRANS = EPI >= EPI_RT_F32;
-  using PL = hg::Plan<WG, BN>;
+  using PL = hg::Plan<SL, BN, PP ? PP_NC : SL>;
   static unsigned long long ready = 0;
   CUtensorMap ta, tb;
   if (!hg::make_map(&ta, a, M, K, PL::BM, hg::BK) ||
@@ -251,29 +338,64 @@ int launch(const void* a, const void* w, const EpiArgs& e, int M, int N,
               : hg::make_map(&tb, w, K, N, hg::BK, 64)))
     return (int)cudaErrorInvalidValue;
   const long tiles = (long)((M + PL::BM - 1) / PL::BM) * ((N + BN - 1) / BN);
-  return hg::launch_persistent(gemm_kernel<WG, BN, EPI>, ready, PL::SMEM,
+  return hg::launch_persistent(gemm_kernel<PP, SL, BN, EPI>, ready, PL::SMEM,
                                PL::THREADS, tiles, st, ta, tb, e, M, N, K);
 }
 
-// The tile: BN = 128 where N is a multiple of 128, else 64 (no column
-// wasted at N = 192, the stage-1 qkv); rows: 64 (one consumer warpgroup)
-// where 128-row tiles would leave SMs idle, 192 (three) where the output
-// outweighs the input (N >= 2K: qkv, fc1, the gelu backward), whose
-// epilogue then has more warps, else 128. (On the H100, 128 x 256 tiles
-// and two blocks per SM lost at every gen1 RVT-B shape.)
+// The schedule and tile of epilogue ``epi`` at (M, N, K): {1 ping-pong /
+// 0 cooperative, tile rows, tile columns, consumer warpgroups}.
+//   * Columns: BN = 128 where N is a multiple of 128, else 64 (no column
+//     wasted at N = 192, the stage-1 qkv).
+//   * Ping-pong (64-row tiles, two consumer warpgroups) where its tiles
+//     give every block two or more and the tile's time is its epilogue's
+//     memory traffic: the f32 epilogues (residual, residual_ls, rt_f32,
+//     rt_acc) up to K = 1024, the bias and rt_bf16 ones up to K = 128.
+//   * Else cooperative: the gelu epilogues, bound by their instructions
+//     (tanhf), and the longer products run faster with two or three
+//     warpgroups issuing products at once. 64 rows (one consumer
+//     warpgroup) where 128-row tiles would leave SMs idle (the per-step
+//     path's B = 8 frames), 192 (three) where the output outweighs the
+//     input (N >= 2K: qkv, fc1, the gelu backward), whose epilogue then
+//     has more warps, else 128. (On the H100, 128 x 256 tiles and two
+//     blocks per SM lost at every gen1 RVT-B shape.)
+struct Schedule {
+  int pp, rows, bn, nc;
+};
+
+Schedule schedule(int M, int N, int K, int epi) {
+  const long sms = hg::sm_count();
+  const int bn = N > 64 && N % 128 == 0 ? 128 : 64;
+  const long n_tiles = (N + bn - 1) / bn;
+  const bool f32_out = epi == EPI_RESID || epi == EPI_RESID_LS ||
+                       epi == EPI_RT_F32 || epi == EPI_RT_ACC;
+  const bool light = epi == EPI_BIAS || epi == EPI_RT_BF16;
+  if ((long)((M + 63) / 64) * n_tiles >= 2 * sms &&
+      ((f32_out && K <= 1024) || (light && K <= 128)))
+    return {1, 64, bn, PP_NC};
+  if ((long)((M + 127) / 128) * n_tiles < sms) return {0, 64, bn, 1};
+  if (N >= 2 * K) return {0, 192, bn, 3};
+  return {0, 128, bn, 2};
+}
+
 template <int EPI>
 int dispatch(const void* a, const void* w, const EpiArgs& e, int M, int N,
              int K, cudaStream_t st) {
-  const long sms = hg::sm_count();
-  const int bn = N > 64 && N % 128 == 0 ? 128 : 64;
-  if ((long)((M + 127) / 128) * ((N + bn - 1) / bn) < sms)
-    return bn == 64 ? launch<1, 64, EPI>(a, w, e, M, N, K, st)
-                    : launch<1, 128, EPI>(a, w, e, M, N, K, st);
-  if (N >= 2 * K)
-    return bn == 64 ? launch<3, 64, EPI>(a, w, e, M, N, K, st)
-                    : launch<3, 128, EPI>(a, w, e, M, N, K, st);
-  return bn == 64 ? launch<2, 64, EPI>(a, w, e, M, N, K, st)
-                  : launch<2, 128, EPI>(a, w, e, M, N, K, st);
+  const Schedule s = schedule(M, N, K, EPI);
+  const bool wide = s.bn == 128;
+  if (s.pp)
+    return wide ? launch<true, 1, 128, EPI>(a, w, e, M, N, K, st)
+                : launch<true, 1, 64, EPI>(a, w, e, M, N, K, st);
+  switch (s.nc) {
+    case 1:
+      return wide ? launch<false, 1, 128, EPI>(a, w, e, M, N, K, st)
+                  : launch<false, 1, 64, EPI>(a, w, e, M, N, K, st);
+    case 3:
+      return wide ? launch<false, 3, 128, EPI>(a, w, e, M, N, K, st)
+                  : launch<false, 3, 64, EPI>(a, w, e, M, N, K, st);
+    default:
+      return wide ? launch<false, 2, 128, EPI>(a, w, e, M, N, K, st)
+                  : launch<false, 2, 64, EPI>(a, w, e, M, N, K, st);
+  }
 }
 
 }  // namespace
@@ -316,4 +438,20 @@ extern "C" int rvt_gemm_bf16(const void* a, const void* w, const void* bias,
     default:
       return dispatch<EPI_RT_GELU_BWD>(a, w, e, M, N, K, st);
   }
+}
+
+// What dispatch() takes for ``epilogue`` at (M, N, K) on the current
+// device, into plan[4]: 1 for the ping-pong schedule (0 cooperative), the
+// tile's rows and columns, the consumer warpgroups. Launches nothing.
+extern "C" int rvt_gemm_bf16_plan(int M, int N, int K, int epilogue,
+                                  int* plan) {
+  if (M < 0 || N <= 0 || K <= 0 || epilogue < EPI_BIAS ||
+      epilogue > EPI_RT_GELU_BWD)
+    return (int)cudaErrorInvalidValue;
+  const Schedule s = schedule(M, N, K, epilogue);
+  plan[0] = s.pp;
+  plan[1] = s.rows;
+  plan[2] = s.bn;
+  plan[3] = s.nc;
+  return (int)cudaSuccess;
 }

@@ -33,6 +33,7 @@ template <int WG, int BN>
 struct Wgrad {
   static constexpr int BM = 64 * WG, WN = hg::Plan<WG, BN>::WN;
   static constexpr int TA = 1, TB = 1;
+  static constexpr bool STAGE_BF16 = false;
   struct Tile {
     int z, m0, n0, ktiles;
     long r0;

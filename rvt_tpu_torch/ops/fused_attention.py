@@ -40,6 +40,7 @@ Training (``ops/fused_train.py``) adds the backward kernels of the pair:
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Dict, NamedTuple, Sequence, Tuple
 
@@ -51,6 +52,10 @@ from rvt_tpu_torch.ops.kernels import (Counter, check, check_operands, need,
 
 LN_ROWS = Counter("ln_rows")
 GEMM_BF16 = Counter("gemm_bf16")
+# K2's launches by the schedule they took (``gemm_schedule``), whichever
+# counter a launch is credited to: tallies, not launches of their own
+GEMM_BF16_PINGPONG = Counter("gemm_bf16.pingpong", tally=True)
+GEMM_BF16_COOPERATIVE = Counter("gemm_bf16.cooperative", tally=True)
 PARTITION_ATTENTION = Counter("partition_attention")
 LN_ROWS_BWD = Counter("ln_rows_bwd")
 GEMM_BF16_WGRAD = Counter("gemm_bf16_wgrad")
@@ -251,6 +256,49 @@ def gemm_bf16_plain(a: torch.Tensor, w: torch.Tensor, epilogue: str,
     return out, v
 
 
+class GemmSchedule(NamedTuple):
+    pingpong: bool   # else the cooperative schedule
+    rows: int        # a tile's rows
+    cols: int        # a tile's columns
+    warpgroups: int  # consumer warpgroups a block
+
+
+_F32_OUT = ("residual", "residual_ls", "rt_f32", "rt_acc")
+
+
+@functools.lru_cache(maxsize=None)  # a launch's host time: few shapes
+def gemm_schedule(M: int, N: int, K: int, epilogue: str,
+                  sms: int) -> GemmSchedule:
+    """K2's schedule and tile for ``epilogue`` at (M, N, K) on a card of
+    ``sms`` SMs, as ``csrc/gemm_bf16.cu:schedule`` picks them: ping-pong
+    (64-row tiles, two consumer warpgroups) where its tiles give every
+    block two or more and the epilogue's memory traffic sets the pace (the
+    f32 epilogues up to K = 1024, "bias" and "rt_bf16" up to K = 128);
+    else cooperative: 64 rows where 128-row tiles would leave SMs idle,
+    192 where N >= 2K, else 128. Columns: 128 where N is a multiple of
+    128, else 64."""
+    bn = 128 if N > 64 and N % 128 == 0 else 64
+    n_tiles = -(-N // bn)
+    if -(-M // 64) * n_tiles >= 2 * sms and (
+            (epilogue in _F32_OUT and K <= 1024)
+            or (epilogue in ("bias", "rt_bf16") and K <= 128)):
+        return GemmSchedule(True, 64, bn, 2)
+    if -(-M // 128) * n_tiles < sms:
+        return GemmSchedule(False, 64, bn, 1)
+    if N >= 2 * K:
+        return GemmSchedule(False, 192, bn, 3)
+    return GemmSchedule(False, 128, bn, 2)
+
+
+def gemm_plan(M: int, N: int, K: int, epilogue: str) -> GemmSchedule:
+    """What the compiled launcher picks for ``epilogue`` at (M, N, K) on
+    the current card (``rvt_gemm_bf16_plan``; launches nothing)."""
+    plan = (ctypes.c_int * 4)()
+    check(kernels.lib("gemm_bf16").rvt_gemm_bf16_plan(
+        M, N, K, EPILOGUES[epilogue], plan), "gemm_bf16_plan")
+    return GemmSchedule(bool(plan[0]), plan[1], plan[2], plan[3])
+
+
 def gemm_part_rows(M: int) -> int:
     """Rows of the f32 column-sum partials "rt_gelu_bwd" writes: one per
     64 rows of a (the launcher refuses any other count)."""
@@ -346,6 +394,10 @@ def gemm_bf16(a: torch.Tensor, w: torch.Tensor, epilogue: str, *,
         EPILOGUES[epilogue], stream_ptr(a))
     check(err, "gemm_bf16")
     counter.launches += 1
+    if gemm_schedule(M, N, K, epilogue, sm_count(a)).pingpong:
+        GEMM_BF16_PINGPONG.launches += 1
+    else:
+        GEMM_BF16_COOPERATIVE.launches += 1
     if epilogue == "rt_gelu_bwd":
         return out, sum_parts(part)
     return (out, aux) if want_aux else out

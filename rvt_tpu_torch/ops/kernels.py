@@ -45,7 +45,8 @@ _REDUCE_PLAN = (_I, _L, _I, _I, _I)
 SIGNATURES = {
     "ln_rows": {"rvt_ln_rows": (_P, _I, _P, _P, _P, _P, _L, _I, _F)
                 + (_I,) * 4 + (_P,)},
-    "gemm_bf16": {"rvt_gemm_bf16": (_P,) * 8 + (_I,) * 5 + (_P,)},
+    "gemm_bf16": {"rvt_gemm_bf16": (_P,) * 8 + (_I,) * 5 + (_P,),
+                  "rvt_gemm_bf16_plan": (_I,) * 4 + (_P,)},
     "partition_attention": {
         "rvt_partition_attention": (_P, _P) + (_I,) * 8 + (_F, _P)},
     "lstm_scan": {"rvt_lstm_scan": (_P, _I) + (_P,) * 9 + (_I,) * 3
@@ -88,6 +89,7 @@ SIGNATURES = {
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 COUNTERS: List["Counter"] = []
+TALLIES: List["Counter"] = []
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -227,12 +229,16 @@ class Counter:
     """Launch count of one kernel: each wrapper adds one where it launches
     its kernel and nowhere else. A captured step (``training/graphs.py``)
     credits each counter, at every replay, with the launches its capture
-    counted. Every counter made is listed in ``COUNTERS``."""
+    counted. Every counter made is listed in ``COUNTERS``; a ``tally``
+    (which of a kernel's launches took a path inside it) in ``TALLIES``
+    instead, so that no sum of launches counts it, and a replay credits
+    it all the same."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, *, tally: bool = False):
         self.name = name
         self.launches = 0
-        COUNTERS.append(self)
+        self.tally = tally
+        (TALLIES if tally else COUNTERS).append(self)
 
     def reset(self) -> None:
         self.launches = 0

@@ -60,7 +60,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch.utils import _pytree as pytree
 
-from rvt_tpu_torch.ops.kernels import COUNTERS
+from rvt_tpu_torch.ops.kernels import COUNTERS, TALLIES
 from rvt_tpu_torch.utils import timers
 
 _EAGER = [False]
@@ -103,7 +103,7 @@ class _Graph:
         self.static_in = static_in    # leaves; tensors at fixed addresses
         self.static_out = static_out  # the body's outputs, rewritten a replay
         self.credit = credit          # Counter -> launches a replay
-        self.launches = sum(credit.values())
+        self.launches = sum(n for c, n in credit.items() if not c.tally)
         self.layers = layers          # the body's marks: timers.Captured
 
 
@@ -215,7 +215,7 @@ class CapturedStep:
         static_in = [torch.empty_like(x) if isinstance(x, torch.Tensor)
                      else x for x in leaves]
         args, kwargs = pytree.tree_unflatten(static_in, spec)
-        counts = {c: c.launches for c in COUNTERS}
+        counts = {c: c.launches for c in COUNTERS + TALLIES}
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()

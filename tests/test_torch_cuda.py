@@ -80,6 +80,123 @@ def test_gemm_kernel(dev, epi, mkn):
     _close(got, ref)
 
 
+def _pingpong_cases(sms):
+    """(M, K, N) that take K2's ping-pong schedule (for its f32 epilogues)
+    on a card of ``sms`` SMs: three 64-row tiles a block, so one consumer
+    warpgroup runs two and the other one, the last M tile ragged (47
+    rows); five tiles a block at N = 128 with K = 512 (eight k-tiles,
+    more than the ring holds); and two 128-column tiles a row at a ragged
+    K = 40, about three tiles a block, the last M tile ragged."""
+    return [(3 * 64 * sms - 17, 64, 64), (5 * 64 * sms - 40, 512, 128),
+            (64 * (3 * sms + 1) // 2 - 9, 40, 256)]
+
+
+_EPILOGUES = ["bias", "gelu", "residual", "residual_ls", "rt_f32",
+              "rt_bf16", "rt_acc", "rt_gelu_bwd"]
+
+
+@pytest.mark.parametrize("case", range(3))
+@pytest.mark.parametrize("epi", _EPILOGUES)
+def test_gemm_pingpong_shapes(dev, monkeypatch, epi, case):
+    """K2 at shapes where its f32 epilogues take the ping-pong schedule
+    (uneven tiles per consumer warpgroup, ragged M, K and N), every
+    epilogue: against the plain version at test_gemm_kernel's tolerances,
+    the launcher's plan equal to ``gemm_schedule``, two runs bit for bit,
+    and a 64-aligned window of rows run on its own (a small launch: the
+    cooperative schedule) equal bit for bit to the same rows of the whole
+    launch, the gelu backward's per-64-row column-sum partials too."""
+    from rvt_tpu_torch.ops import fused_attention as fa
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    M, K, N = _pingpong_cases(sms)[case]
+    rt = epi.startswith("rt_")
+    plan = fa.gemm_plan(M, N, K, epi)
+    assert plan == fa.gemm_schedule(M, N, K, epi, sms)
+    assert plan.pingpong == (epi in ("residual", "residual_ls", "rt_f32",
+                                     "rt_acc") or (case != 1 and epi in (
+                                         "bias", "rt_bf16")))
+    a = _randn(dev, M, K)
+    w = _randn(dev, *((N, K) if rt else (K, N)), scale=K ** -0.5, seed=1)
+    kw = {} if rt else dict(bias=_randn(dev, N, scale=0.1, seed=2))
+    if epi == "residual_ls":
+        kw.update(gamma=_randn(dev, N, scale=0.3, dtype=torch.float32,
+                               seed=4),
+                  res_in=_randn(dev, M, N, dtype=torch.float32, seed=3))
+    if epi == "rt_gelu_bwd":
+        kw["aux"] = _randn(dev, M, N, seed=5)
+    R = _randn(dev, M, N, dtype=torch.float32, seed=3)
+    inplace = epi in ("residual", "rt_acc")
+    # the raw partials of the column sums, not their in-order sum
+    monkeypatch.setattr(fa, "sum_parts", lambda part, **_: part)
+
+    def run(rows=slice(None), plain=False):
+        args = {k: (v[rows] if k in ("res_in", "aux") else v)
+                for k, v in kw.items()}
+        if inplace:
+            args["out"] = R[rows].clone()
+        return fa.gemm_bf16(a[rows], w, epi, plain=plain, **args)
+
+    def first(x):
+        return x[0] if isinstance(x, tuple) else x
+
+    got, again = run(), run()
+    assert all(torch.equal(x, y) for x, y in zip(
+        got if isinstance(got, tuple) else (got,),
+        again if isinstance(again, tuple) else (again,)))
+    ref = run(plain=True)
+    g, r = first(got), first(ref)
+    if epi in ("residual", "rt_acc"):  # the increment
+        g, r = g - R, r - R
+    elif epi == "residual_ls":
+        g, r = g - kw["res_in"], r - kw["res_in"]
+    _close(g, r)
+    if epi == "rt_gelu_bwd":
+        _rel_close(got[1].sum(0), ref[1], 1e-3)
+    # rows [64 w0, 64 w0 + 640): 640 rows take the cooperative tiles
+    w0 = (M // 64) // 2
+    rows = slice(64 * w0, 64 * w0 + 640)
+    assert not fa.gemm_plan(640, N, K, epi).pingpong
+    part = run(rows)
+    assert torch.equal(first(part), first(got)[rows])
+    if epi == "rt_gelu_bwd":
+        assert torch.equal(part[1], got[1][w0:w0 + 10])
+
+
+def test_gemm_schedule_tally_credited_by_replays(dev):
+    """A captured step's replays credit the schedule tallies with what
+    its capture tallied, and count K2's launches alone as launches."""
+    from rvt_tpu_torch.ops import fused_attention as fa
+    from rvt_tpu_torch.training import graphs
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    M = 3 * 64 * sms
+    a, w = _randn(dev, M, 64), _randn(dev, 64, 64, seed=1)
+    bias = _randn(dev, 64, seed=2)
+    R = torch.zeros(M, 64, device=dev)
+    assert fa.gemm_plan(M, 64, 64, "residual").pingpong
+    assert not fa.gemm_plan(M, 256, 64, "gelu").pingpong
+    w4 = _randn(dev, 64, 256, seed=3)
+    b4 = _randn(dev, 256, seed=4)
+
+    def body(x):
+        fa.gemm_bf16(x, w, "residual", bias=bias, out=R)
+        return fa.gemm_bf16(x, w4, "gelu", bias=b4)
+
+    step = graphs.CapturedStep(body)
+    tallies = (fa.GEMM_BF16_PINGPONG, fa.GEMM_BF16_COOPERATIVE)
+    before = [t.launches for t in tallies] + [fa.GEMM_BF16.launches]
+    for _ in range(4):  # a warm-up, the capture, then replays
+        step(a)
+    torch.cuda.synchronize()
+    (graph,) = step.graphs.values()
+    assert graph.launches == 2
+    assert graph.credit[fa.GEMM_BF16_PINGPONG] == 1
+    assert graph.credit[fa.GEMM_BF16_COOPERATIVE] == 1
+    after = [t.launches for t in tallies] + [fa.GEMM_BF16.launches]
+    # the warm-up ran eagerly; the capture's launches are credited back
+    assert [x - y for x, y in zip(after, before)] == [4, 4, 8]
+
+
 # (H, W, C, dh, partition): gen1's (8, 10) and gen4's (6, 10) partitions
 # (60 tokens: four 16-row tiles, the last padded) and (2, 3), at dh 16,
 # 24 (padded to 32 for q k^T), 32 and 64, with one to four head groups.

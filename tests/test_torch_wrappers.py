@@ -372,6 +372,114 @@ def test_gemm_launch_arguments(fake_cuda):
     (_, a1), (_, a2) = _FakeLib.launches
     assert a1[8:13] == (0, 130, 96, 64, 0)
     assert a2[8:13] == (0, 130, 64, 96, 4)
+    # the plan query: M, N, K, the epilogue's number, int[4] out
+    assert kernels.SIGNATURES["gemm_bf16"]["rvt_gemm_bf16_plan"] == (
+        (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+
+
+# K2's schedule (``gemm_schedule``, the mirror of csrc/gemm_bf16.cu's
+# ``schedule``) at every stage shape of the steps the benchmark runs, on
+# 132 SMs: the products that take ping-pong, stage by stage ("-": none).
+# Each config's stages (H, W, C) and the frames a launch covers: eval and
+# train T * B, raw B.
+_SCHEDULE_STAGES = {
+    "rvtb_gen1": ((64, 80, 64), (32, 40, 128), (16, 20, 256), (8, 10, 512)),
+    "rvts_gen1": ((64, 80, 48), (32, 40, 96), (16, 20, 192), (8, 10, 384)),
+    "rvtb_gen4": ((96, 160, 64), (48, 80, 128), (24, 40, 256),
+                  (12, 20, 512))}
+_EVAL_PRODUCTS = (("qkv", "bias", 1, 3), ("proj", "residual", 1, 1),
+                  ("fc1", "gelu", 1, 4), ("fc2", "residual", 4, 1))
+_TRAIN_PRODUCTS = (("qkv", "bias", 1, 3), ("proj", "residual_ls", 1, 1),
+                   ("fc1", "gelu", 1, 4), ("fc2", "residual_ls", 4, 1),
+                   ("m", "bias", 4, 1), ("dg", "rt_gelu_bwd", 1, 4),
+                   ("dy", "rt_f32", 4, 1), ("dattn", "rt_bf16", 1, 1),
+                   ("dxa", "rt_f32", 3, 1), ("dxbf", "rt_acc", 3, 1))
+_TRAIN_PP = ["qkv proj fc2 dy dattn dxa dxbf"] * 2 + ["proj fc2 dy dxa dxbf",
+                                                      "proj"]
+
+
+@pytest.mark.parametrize("config, path, frames, pingpong", [
+    ("rvtb_gen1", "eval", 168, ["qkv proj fc2"] * 2 + ["proj fc2", "proj"]),
+    ("rvtb_gen1", "train", 168, _TRAIN_PP),
+    ("rvtb_gen1", "raw", 8, ["qkv proj fc2", "qkv", "-", "-"]),
+    ("rvts_gen1", "eval", 168, ["qkv proj fc2"] * 2 + ["proj fc2", "proj"]),
+    ("rvts_gen1", "train", 168, _TRAIN_PP),
+    ("rvts_gen1", "raw", 8, ["qkv proj fc2"] * 2 + ["-", "-"]),
+    ("rvtb_gen4", "train", 60, _TRAIN_PP)])
+def test_gemm_schedule_at_the_stage_shapes(config, path, frames, pingpong):
+    """Which products of each stage take the ping-pong schedule: the
+    residual and data-gradient products (f32 epilogues) wherever every
+    block gets two 64-row tiles and K <= 1024 (not stage 4's 4C-deep
+    ones), qkv and dattn only at K <= 128; never fc1 or the gelu
+    backward. The others keep the cooperative tiles by the old rule."""
+    products = _TRAIN_PRODUCTS if path == "train" else _EVAL_PRODUCTS
+    sms = 132
+    for (H, W, C), want in zip(_SCHEDULE_STAGES[config], pingpong):
+        M = frames * H * W
+        took = []
+        for label, epi, k, n in products:
+            K, N = k * C, n * C
+            s = fa.gemm_schedule(M, N, K, epi, sms)
+            bn = 128 if N % 128 == 0 else 64
+            assert s.cols == bn
+            if s.pingpong:
+                took.append(label)
+                assert (s.rows, s.warpgroups) == (64, 2)
+                assert -(-M // 64) * -(-N // bn) >= 2 * sms
+            else:
+                rows = (64 if -(-M // 128) * -(-N // bn) < sms
+                        else 192 if N >= 2 * K else 128)
+                assert (s.rows, s.warpgroups) == (rows, rows // 64)
+        assert (" ".join(took) or "-") == want, (H, W, C)
+
+
+@pytest.mark.parametrize("M, N, K, epilogue, pingpong", [
+    (64 * 264, 64, 64, "residual", True),      # two tiles a block
+    (64 * 263, 64, 64, "residual", False),     # not quite
+    (64 * 263 + 1, 64, 64, "rt_acc", True),    # a ragged 264th tile
+    (640 * 64, 64, 1024, "residual_ls", True),
+    (640 * 64, 64, 1032, "rt_f32", False),     # a mainloop past 16 k-tiles
+    (640 * 64, 192, 128, "bias", True),
+    (640 * 64, 192, 136, "bias", False),
+    (640 * 64, 64, 128, "rt_bf16", True),
+    (640 * 64, 256, 64, "gelu", False),        # tanhf-bound: cooperative
+    (640 * 64, 256, 64, "rt_gelu_bwd", False)])
+def test_gemm_schedule_rule(M, N, K, epilogue, pingpong):
+    assert fa.gemm_schedule(M, N, K, epilogue, 132).pingpong == pingpong
+
+
+def test_gemm_launch_tallies_its_schedule(fake_cuda):
+    """Each K2 launch adds one to the tally of the schedule it took,
+    whichever counter its launch is credited to; the tallies are not
+    counters, so the sum over ``COUNTERS`` (``hand_launches``) moves by
+    the launches alone."""
+    tallies = (fa.GEMM_BF16_PINGPONG, fa.GEMM_BF16_COOPERATIVE)
+    assert all(t.tally and t in kernels.TALLIES
+               and t not in kernels.COUNTERS for t in tallies)
+    before = [t.launches for t in tallies]
+    n_k2, n_k4 = fa.GEMM_BF16.launches, fs.LSTM_SCAN.launches
+    total = sum(c.launches for c in kernels.COUNTERS)
+    M = 64 * 264
+    R = torch.zeros(M, 64)
+    fa.gemm_bf16(_bf(M, 64), _bf(64, 64), "residual", bias=_bf(64), out=R)
+    fa.gemm_bf16(_bf(M, 64), _bf(64, 256), "gelu", bias=_bf(256))
+    fa.gemm_bf16(_bf(M, 64), _bf(256, 64), "rt_f32", counter=fs.LSTM_SCAN)
+    assert [t.launches - b for t, b in zip(tallies, before)] == [2, 1]
+    assert fa.GEMM_BF16.launches == n_k2 + 2
+    assert fs.LSTM_SCAN.launches == n_k4 + 1
+    assert sum(c.launches for c in kernels.COUNTERS) == total + 3
+
+
+def test_replays_credit_the_tallies_outside_the_launches():
+    """A captured step credits every counter and tally its capture moved,
+    at every replay, and counts only the counters as its launches."""
+    from rvt_tpu_torch.training import graphs
+
+    g = graphs._Graph(None, [], None, {fa.GEMM_BF16: 3, fs.LSTM_SCAN: 1,
+                                       fa.GEMM_BF16_PINGPONG: 2,
+                                       fa.GEMM_BF16_COOPERATIVE: 2}, None)
+    assert g.launches == 4
+    assert graphs._launches() == sum(c.launches for c in kernels.COUNTERS)
 
 
 def test_stage_scan_hands_k4_the_pairs_bf16_copy(fake_cuda):
